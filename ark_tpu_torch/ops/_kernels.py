@@ -1,9 +1,9 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-The sources in ``ark_tpu_torch/csrc`` expose plain C functions. They are
-compiled with ``nvcc`` for ``sm_90a`` into a shared library under
+The sources in ``ark_tpu_torch/csrc`` expose plain C functions. Each is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library of its own under
 ``ark_tpu_torch/_build/`` on first use and loaded with ctypes, the pattern of
-``ark_tpu.native`` (g++ there). The library's name carries a hash of its
+``ark_tpu.native`` (g++ there). A library's name carries a hash of its
 source, so an edited kernel never loads a stale build. Nothing here runs at
 import time: a machine without ``nvcc`` imports the package and runs the
 plain versions on CPU tensors.
@@ -18,14 +18,36 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC_BMU = os.path.join(_PKG, "csrc", "bmu.cu")
 _BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-_bmu_lib = None
+_p = ctypes.c_void_p
+_i = ctypes.c_int
+# library name -> {C function: (argtypes, restype)}
+_SIGNATURES = {
+    "bmu": {
+        "ark_bmu_launch": ([_p, _p, _p, ctypes.c_longlong, _i, _i, _p, _p, _i, _p],
+                           _i),
+        "ark_bmu_error_string": ([_i], ctypes.c_char_p),
+    },
+    "watershed_claim": {
+        "ark_claim_round_launch": ([_p, _p, ctypes.c_int32, _i, _i, _i, _p, _p, _p],
+                                   _i),
+        "ark_claim_round_error_string": ([_i], ctypes.c_char_p),
+    },
+}
+KERNELS = tuple(_SIGNATURES)
+
+_libs: dict = {}
+
+
+def source(name: str) -> str:
+    """Path of kernel `name`'s CUDA source."""
+    return os.path.join(_PKG, "csrc", f"{name}.cu")
 
 
 def _nvcc() -> str:
@@ -47,17 +69,18 @@ def _lib_path(src: str) -> str:
     return os.path.join(_BUILD_DIR, f"lib{stem}-{digest}.so")
 
 
-def build_bmu() -> str:
-    """Compile the BMU kernel's source into the build directory unless that
-    exact source is built already; return the library's path. Concurrent
-    builders are serialised with a file lock, and the library is published
-    with an atomic rename, so no process loads a half-written file."""
-    src = _SRC_BMU
+def build(name: str) -> str:
+    """Compile kernel `name`'s source into the build directory unless that
+    exact source is built already; return the library's path. Processes
+    building one source are serialised with a file lock of that source
+    (other sources build alongside), and the library is published with an
+    atomic rename, so no process loads a half-written file."""
+    src = source(name)
     lib = _lib_path(src)
     if os.path.exists(lib):
         return lib
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    with open(os.path.join(_BUILD_DIR, "build.lock"), "w") as lock_f:
+    with open(os.path.join(_BUILD_DIR, f"{name}.lock"), "w") as lock_f:
         fcntl.flock(lock_f, fcntl.LOCK_EX)
         if os.path.exists(lib):
             return lib
@@ -75,16 +98,30 @@ def build_bmu() -> str:
     return lib
 
 
+def build_all() -> dict:
+    """Build every kernel of the port at once (one nvcc per source, all
+    started together); returns {name: library path}."""
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        return dict(zip(KERNELS, pool.map(build, KERNELS)))
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """Kernel `name`'s library with its C functions typed, built on first
+    use."""
+    if name not in _libs:
+        cdll = ctypes.CDLL(build(name))
+        for fn, (argtypes, restype) in _SIGNATURES[name].items():
+            getattr(cdll, fn).argtypes = argtypes
+            getattr(cdll, fn).restype = restype
+        _libs[name] = cdll
+    return _libs[name]
+
+
+def build_bmu() -> str:
+    """The BMU kernel's library path (see `build`)."""
+    return build("bmu")
+
+
 def bmu_lib() -> ctypes.CDLL:
     """The BMU kernel's library, built on first use."""
-    global _bmu_lib
-    if _bmu_lib is None:
-        lib = ctypes.CDLL(build_bmu())
-        p = ctypes.c_void_p
-        lib.ark_bmu_launch.argtypes = [p, p, p, ctypes.c_longlong, ctypes.c_int,
-                                       ctypes.c_int, p, p, ctypes.c_int, p]
-        lib.ark_bmu_launch.restype = ctypes.c_int
-        lib.ark_bmu_error_string.argtypes = [ctypes.c_int]
-        lib.ark_bmu_error_string.restype = ctypes.c_char_p
-        _bmu_lib = lib
-    return _bmu_lib
+    return lib("bmu")

@@ -87,3 +87,43 @@ def masked_quantile_per_column(x: torch.Tensor, valid: torch.Tensor,
     x = x.to(torch.float32)
     bad = (~valid[:, None]) | (x == 0)
     return nanquantile(torch.where(bad, float("nan"), x), q)
+
+
+# ---------------------------------------------------------------------------
+# Exact order statistics on the order-preserving keys of the float bits.
+# torch has almost no uint32 arithmetic, so a key is the uint32 value held in
+# an int64. The JAX package bisects 32 times on these keys; sorting them
+# gives the same element, bit for bit (-0.0 before +0.0, NaN past +inf).
+# ---------------------------------------------------------------------------
+
+_U32 = 0xFFFFFFFF
+_SIGN = 0x80000000
+
+
+def _float_keys(x: torch.Tensor) -> torch.Tensor:
+    """IEEE754 f32 -> order-preserving uint32 key (negatives flipped), as
+    int64 in [0, 2**32)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32).to(torch.int64) & _U32
+    return torch.where((bits >> 31) == 1, (~bits) & _U32, bits ^ _SIGN)
+
+
+def _keys_to_float(keys: torch.Tensor) -> torch.Tensor:
+    fbits = torch.where((keys >> 31) == 1, keys ^ _SIGN, (~keys) & _U32)
+    signed = torch.where(fbits >= _SIGN, fbits - (1 << 32), fbits)
+    return signed.to(torch.int32).view(torch.float32)
+
+
+def masked_order_stats(x: torch.Tensor, valid: torch.Tensor,
+                       ranks: torch.Tensor) -> torch.Tensor:
+    """Exact order statistics of the VALID entries per column. x: (N, C);
+    valid: (N, C) bool; ranks: (C, M) int. Returns (C, M) f32, the
+    rank[c, m]-th smallest valid value of column c. A rank past the valid
+    count gives what the JAX package's 32 bisection steps end on there: key
+    0xFFFFFFFF, the NaN of bits 0x7FFFFFFF."""
+    key = torch.where(valid, _float_keys(x), _U32)
+    sorted_keys = torch.sort(key, dim=0).values.T                  # (C, N)
+    k = ranks.to(torch.int64)
+    n_valid = torch.sum(valid, dim=0)[:, None]                      # (C, 1)
+    picked = torch.gather(sorted_keys, 1,
+                          torch.clamp(k, 0, max(x.shape[0] - 1, 0)))
+    return _keys_to_float(torch.where(k < n_valid, picked, _U32))

@@ -113,3 +113,63 @@ def test_non_cpu_tensor_never_falls_back(monkeypatch):
         som.bmu(w, x)
     with pytest.raises(ValueError, match="CUDA"):
         som.bmu(torch.rand(7, 5), x)
+
+
+SEGMENTATION_MODULES = {"ark_tpu_torch.ops.cc", "ark_tpu_torch.ops.morphology",
+                        "ark_tpu_torch.ops.watershed", "ark_tpu_torch.models.unet",
+                        "ark_tpu_torch.segmentation.mesmer",
+                        "ark_tpu_torch.segmentation.synthetic",
+                        "ark_tpu_torch.utils.deepcell_service_utils"}
+
+
+def test_segmentation_modules_are_under_the_package_rules():
+    """The no-jax import check and the style gate walk every module; the
+    segmentation slice's modules are among them."""
+    assert SEGMENTATION_MODULES <= set(_modules())
+
+
+def test_ops_import_only_torch_numpy_and_the_stdlib():
+    """Top-level imports of ark_tpu_torch.ops.*: torch, numpy, the stdlib
+    and the port itself (host helpers import ark_tpu's jax-free native
+    kernels inside the function that calls them)."""
+    allowed = {"torch", "numpy", "ark_tpu_torch", "__future__"}
+    offenders = []
+    for path in _files((".py",)):
+        if os.sep + "ops" + os.sep not in path:
+            continue
+        with open(path, encoding="utf-8") as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
+                          for n in names if n.split(".")[0] not in allowed
+                          and n.split(".")[0] not in sys.stdlib_module_names]
+    assert not offenders, offenders
+
+
+def test_every_kernel_has_its_source():
+    sources = {f[:-3] for f in os.listdir(os.path.join(PKG, "csrc"))
+               if f.endswith(".cu")}
+    assert set(_kernels.KERNELS) == sources == {"bmu", "watershed_claim"}
+    assert all(os.path.exists(_kernels.source(k)) for k in _kernels.KERNELS)
+
+
+def test_cpu_claim_round_never_touches_the_cuda_library(monkeypatch):
+    from ark_tpu_torch.ops import watershed
+
+    def refuse(*_):
+        raise AssertionError("claim_round on CPU tensors asked for the library")
+
+    monkeypatch.setattr(_kernels, "lib", refuse)
+    monkeypatch.setattr(_kernels, "build", refuse)
+    before = watershed.claim_round.launches
+    lab = torch.tensor([[[0, 3, -1], [0, 0, 2]]], dtype=torch.int32)
+    q = torch.zeros_like(lab)
+    new, changed = watershed.claim_round(lab, q, 0)
+    assert new.tolist() == [[[3, 3, -1], [0, 2, 2]]] and int(changed) == 2
+    assert watershed.claim_round.launches == before

@@ -165,28 +165,3 @@ def test_train_refuses_tf32_matmuls():
             tsom.som_train(data, device="cpu")
     finally:
         torch.set_float32_matmul_precision("highest")
-
-
-@pytest.mark.cuda
-def test_bmu_kernel_matches_plain_on_cuda():
-    """The CUDA kernel against bmu_plain on the card (skips without one);
-    indices may differ only where the plain version's two best nodes are
-    closer than 1e-6 * max(|d|, 1)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the BMU kernel runs only on the card")
-    rng = np.random.default_rng(11)
-    for n, c, k in [(1, 3, 7), (1000, 7, 100), (70_001, 40, 144),
-                    (5000, 16, 1), (3001, 80, 33)]:
-        x = torch.as_tensor(rng.random((n, c), dtype=np.float32), device="cuda")
-        w = torch.as_tensor(rng.random((k, c), dtype=np.float32), device="cuda")
-        idx_k, dist_k = tsom.bmu(w, x, return_dist=True)
-        idx_p, dist_p = tsom.bmu_plain(w, x, return_dist=True)
-        d = (w * w).sum(1)[None, :] - 2.0 * (x @ w.T)
-        if k > 1:
-            two = torch.topk(d, 2, dim=1, largest=False).values
-            ties = (two[:, 1] - two[:, 0]) < 1e-6 * two[:, 0].abs().clamp_min(1)
-        else:
-            ties = torch.zeros(n, dtype=torch.bool, device="cuda")
-        assert not bool(((idx_k != idx_p) & ~ties).any())
-        torch.testing.assert_close(dist_k, dist_p, rtol=DIST_RTOL,
-                                   atol=DIST_ATOL)
