@@ -39,6 +39,10 @@ _SIGNATURES = {
                                    _i),
         "ark_claim_round_error_string": ([_i], ctypes.c_char_p),
     },
+    "segment_sum": {
+        "ark_segment_sum_launch": ([_p, _p, _p, _i, _i, _p, _p], _i),
+        "ark_segment_sum_error_string": ([_i], ctypes.c_char_p),
+    },
 }
 KERNELS = tuple(_SIGNATURES)
 

@@ -1,0 +1,327 @@
+"""Segment reductions over label images, in torch: the cell table's engine.
+
+Port of ``ark_tpu/ops/segment_reduce.py``. Every per-cell quantity is a
+segment reduction over the dense (H*W)-pixel arrays, keyed by the label
+image; all of them go through one function, ``segment_sum``:
+
+- on a CUDA tensor it launches the hand-written kernel in
+  ``ark_tpu_torch/csrc/segment_sum.cu``, which adds each segment's pixels in
+  ascending pixel order (a float ``index_add_`` on CUDA uses atomics, so its
+  order, and the last bits of the cell table, would change from run to run);
+- on a CPU tensor it runs ``segment_sum_plain``, ``index_add_``, a sequential
+  scatter in the same order.
+
+Both give sums bitwise equal to the JAX package's CPU ``segment_sum``.
+**Row 0 (background) is zero on every device**: no caller reads it (they
+index by cell id), and one serial walk over half a FOV would take the kernel
+milliseconds. So the background row of ``centroids`` is NaN and the one of
+the moment features is that of an empty segment, where the JAX package
+reports the background's own values; rows 1: are the JAX package's.
+
+All functions take `num_segments` = max label + 1; tensors are on the
+device the caller chose, and the results stay there.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ark_tpu_torch.ops import _kernels
+
+_SQRT2 = 1.4142135623730951
+
+
+def _flat(labels: torch.Tensor) -> torch.Tensor:
+    return labels.reshape(-1).to(torch.int32)
+
+
+def segment_sum_plain(values: torch.Tensor, labels: torch.Tensor,
+                      num_segments: int) -> torch.Tensor:
+    """Per-segment sums of `values` (N,) or (N, K) keyed by `labels` (N,),
+    as ``index_add_`` on the tensors' device; row 0 is zero, and labels
+    outside [0, num_segments) are dropped, as ``jax.ops.segment_sum`` drops
+    them. On the CPU ``index_add_`` adds in ascending index order; on CUDA it
+    uses atomics (any order), so the tests compare the kernel with this on a
+    CPU copy."""
+    out = torch.zeros((num_segments,) + tuple(values.shape[1:]),
+                      dtype=values.dtype, device=values.device)
+    valid = (labels >= 0) & (labels < num_segments)
+    if not bool(valid.all()):
+        labels, values = labels[valid], values[valid]
+    out.index_add_(0, labels.to(torch.int64), values)
+    if num_segments:
+        out[0] = 0
+    return out
+
+
+def _check_kernel_operands(values, labels, num_segments):
+    if values.device.type != "cuda" or labels.device != values.device:
+        raise ValueError(f"segment_sum: values on {values.device} and labels on "
+                         f"{labels.device}; the kernel takes both on one CUDA device")
+    if values.dtype != torch.float32:
+        raise TypeError(f"segment_sum: the kernel takes float32 values, got "
+                        f"{values.dtype}")
+    if labels.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"segment_sum: integer labels expected, got {labels.dtype}")
+    if values.ndim not in (1, 2) or labels.ndim != 1 \
+            or values.shape[0] != labels.shape[0]:
+        raise ValueError(f"segment_sum: values (N,) or (N, K) and labels (N,) "
+                         f"expected, got {tuple(values.shape)} and "
+                         f"{tuple(labels.shape)}")
+    if num_segments < 1 or num_segments > 2 ** 31 - 2:
+        raise ValueError(f"segment_sum: num_segments {num_segments} out of range")
+
+
+def segment_sum(values: torch.Tensor, labels: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Per-segment sums, each accumulated in ascending pixel order; row 0 is
+    zero and labels outside [0, num_segments) are dropped. The CUDA kernel
+    for CUDA tensors, ``segment_sum_plain`` for CPU ones. On CUDA tensors
+    the wrapper builds a CSR view of the labels with integer ops and no host
+    sync (a stable sort, then each segment's start by a binary search in the
+    sorted labels), launches ``ark_segment_sum_launch`` on the current
+    stream and raises if the launch is refused; it never falls back.
+    ``segment_sum.launches`` counts kernel launches."""
+    if values.device.type == "cpu" and labels.device.type == "cpu":
+        return segment_sum_plain(values, labels, num_segments)
+    _check_kernel_operands(values, labels, num_segments)
+    n, k = values.shape[0], (values.shape[1] if values.ndim == 2 else 1)
+    vals = values.reshape(n, k).contiguous()
+    out = torch.empty((num_segments, k), dtype=torch.float32, device=vals.device)
+    if n == 0 or k == 0:
+        return out.zero_().reshape((num_segments,) + tuple(values.shape[1:]))
+    sorted_labels, order = torch.sort(labels, stable=True)    # order: int64
+    # segment s is order[offsets[s]:offsets[s + 1]]; labels < 0 sort before
+    # offsets[0] and labels >= num_segments after offsets[num_segments]
+    offsets = torch.searchsorted(sorted_labels, torch.arange(
+        num_segments + 1, dtype=labels.dtype, device=labels.device))
+    lib = _kernels.lib("segment_sum")
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream(vals.device).cuda_stream
+        err = lib.ark_segment_sum_launch(
+            vals.data_ptr(), order.data_ptr(), offsets.data_ptr(), num_segments,
+            k, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"segment_sum kernel launch failed: "
+                           f"{lib.ark_segment_sum_error_string(err).decode()} "
+                           f"({err})")
+    segment_sum.launches += 1
+    return out.reshape((num_segments,) + tuple(values.shape[1:]))
+
+
+segment_sum.launches = 0
+
+
+def segment_max(values: torch.Tensor, labels: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Per-segment max of (N,) `values`; -inf for an empty segment (the
+    identity ``jax.ops.segment_max`` uses). A max is exact in any order, so
+    ``scatter_reduce_`` serves every device."""
+    out = torch.full((num_segments,), -math.inf, dtype=values.dtype,
+                     device=values.device)
+    return out.scatter_reduce_(0, labels.to(torch.int64), values, "amax")
+
+
+def _pixel_coords(labels: torch.Tensor):
+    h, w = labels.shape
+    rr = torch.arange(h, dtype=torch.float32, device=labels.device)
+    cc = torch.arange(w, dtype=torch.float32, device=labels.device)
+    return (rr[:, None].expand(h, w).reshape(-1),
+            cc[None, :].expand(h, w).reshape(-1))
+
+
+def cell_sizes(labels: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Pixel count per label; (num_segments,)."""
+    return segment_sum(torch.ones(labels.numel(), dtype=torch.float32,
+                                  device=labels.device),
+                       _flat(labels), num_segments)
+
+
+def channel_sums(images: torch.Tensor, labels: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """Total intensity per (label, channel); (num_segments, C)."""
+    c = images.shape[-1]
+    return segment_sum(images.reshape(-1, c).to(torch.float32), _flat(labels),
+                       num_segments)
+
+
+def positive_pixel_counts(images: torch.Tensor, labels: torch.Tensor,
+                          num_segments: int, threshold: float = 0.0
+                          ) -> torch.Tensor:
+    """Count of pixels with value > threshold per (label, channel)."""
+    c = images.shape[-1]
+    thr = torch.tensor(threshold, dtype=torch.float32, device=images.device)
+    pos = (images.reshape(-1, c).to(torch.float32) > thr).to(torch.float32)
+    return segment_sum(pos, _flat(labels), num_segments)
+
+
+def centroids(labels: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """(num_segments, 2) centroid (row, col) per label; NaN for an empty
+    label and for row 0."""
+    rr, cc = _pixel_coords(labels)
+    sums = segment_sum(torch.stack([torch.ones_like(rr), rr, cc], dim=1),
+                       _flat(labels), num_segments)
+    return sums[:, 1:] / sums[:, :1]
+
+
+def center_weighted_sums(images: torch.Tensor, labels: torch.Tensor,
+                         num_segments: int) -> torch.Tensor:
+    """Center-weighted intensity per (label, channel): weight per pixel
+    1 - d_inf(pixel, cell centroid) / (max-in-cell d_inf + 1), as the JAX
+    package computes it (centroid pass, segment max, weighted sum)."""
+    c = images.shape[-1]
+    seg = _flat(labels)
+    cent = centroids(labels, num_segments)
+    rr, cc = _pixel_coords(labels)
+    own = cent[seg.to(torch.int64)]
+    dist = torch.maximum(torch.abs(rr - own[:, 0]), torch.abs(cc - own[:, 1]))
+    dmax = segment_max(dist, seg, num_segments)
+    weights = 1.0 - dist / (dmax[seg.to(torch.int64)] + 1.0)
+    vals = images.reshape(-1, c).to(torch.float32) * weights[:, None]
+    return segment_sum(vals, seg, num_segments)
+
+
+def _perimeter_contributions(labels: torch.Tensor) -> torch.Tensor:
+    """Per-pixel Cauchy-Crofton boundary contribution, (H, W) f32: every
+    pixel's 8 neighbour mismatches credited to its own label (the same total
+    per label as crediting each crossing to both ends). The image border
+    counts as background."""
+    labels = labels.to(torch.int32)
+    h, w = labels.shape
+    lab = torch.nn.functional.pad(labels, (1, 1, 1, 1), value=0)
+
+    def neq(dy, dx):
+        return (labels != lab[1 + dy:h + 1 + dy, 1 + dx:w + 1 + dx]
+                ).to(torch.float32)
+
+    straight = neq(0, 1) + neq(0, -1) + neq(1, 0) + neq(-1, 0)
+    diag = neq(1, 1) + neq(1, -1) + neq(-1, 1) + neq(-1, -1)
+    # XLA's jitted CPU code divides by the constant as a multiply by its f32
+    # reciprocal; the port does the same (no FMA question: every sum
+    # straight + diag * r over straight, diag in 0..4 rounds alike either way)
+    return (math.pi / 8.0) * (straight + diag * (1.0 / _SQRT2))
+
+
+def crofton_perimeter(labels: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Per-label perimeter by the 4-direction Cauchy-Crofton estimator,
+    P = (pi/8)(n_h + n_v + (n_d1 + n_d2)/sqrt2), in one segment sum."""
+    return segment_sum(_perimeter_contributions(labels).reshape(-1),
+                       _flat(labels), num_segments)
+
+
+def euler_numbers(labels: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Per-label Euler number (objects - holes), 8-connectivity, from Gray
+    bit-quad counts E = (Q1 - Q3 - 2 Qd) / 4, routed through one per-pixel
+    value image so that the reduction is one segment sum."""
+    h, w = labels.shape
+    lab = torch.nn.functional.pad(labels.to(torch.int32), (1, 1, 1, 1), value=0)
+    a, b = lab[:-1, :-1], lab[:-1, 1:]
+    c, d = lab[1:, :-1], lab[1:, 1:]
+    quads = [a, b, c, d]
+    val = torch.zeros((h, w), dtype=torch.float32, device=labels.device)
+    for slot in range(4):
+        cand = quads[slot]
+        # count a candidate once per quad: only from its first slot
+        first = torch.ones_like(cand, dtype=torch.bool)
+        for prev in range(slot):
+            first &= quads[prev] != cand
+        i0, i1, i2, i3 = (a == cand), (b == cand), (c == cand), (d == cand)
+        n_in = (i0.to(torch.int32) + i1.to(torch.int32) + i2.to(torch.int32)
+                + i3.to(torch.int32))
+        diag = (i0 & i3 & ~i1 & ~i2) | (i1 & i2 & ~i0 & ~i3)
+        q1 = (n_in == 1).to(torch.float32)
+        q3 = (n_in == 3).to(torch.float32)
+        qd = diag.to(torch.float32)
+        contrib = torch.where(first, (q1 - q3 - 2.0 * qd) / 4.0, 0.0)
+        # pixel (y, x) is slot a of quad (y+1, x+1), b of (y+1, x), c of
+        # (y, x+1) and d of (y, x)
+        oy, ox = {0: (1, 1), 1: (1, 0), 2: (0, 1), 3: (0, 0)}[slot]
+        padc = torch.nn.functional.pad(contrib, (0, 1, 0, 1))
+        val = val + padc[oy:oy + h, ox:ox + w]
+    return segment_sum(val.reshape(-1), _flat(labels), num_segments)
+
+
+def _features_from_central(m00, cy, cx, mu20, mu02, mu11, perimeter) -> dict:
+    """Morphology dict from per-label central second moments (already
+    divided by area), skimage's conventions."""
+    common = torch.sqrt(torch.clamp_min(4.0 * mu11 ** 2 + (mu20 - mu02) ** 2, 0.0))
+    l1 = (mu20 + mu02 + common) / 2.0
+    l2 = torch.clamp_min((mu20 + mu02 - common) / 2.0, 0.0)
+    major = 4.0 * torch.sqrt(torch.clamp_min(l1, 0.0))
+    minor = 4.0 * torch.sqrt(l2)
+    # skimage gives 0 for the degenerate l1 == 0 (single pixel)
+    ecc = torch.where(
+        l1 > 0.0,
+        torch.sqrt(torch.clamp_min(1.0 - l2 / torch.clamp_min(l1, 1e-12), 0.0)),
+        0.0)
+    eq_diam = torch.sqrt(4.0 * m00 * (1.0 / math.pi))   # XLA's reciprocal multiply
+    # angle between the row axis and the major axis, in (-pi/2, pi/2]
+    orientation = 0.5 * torch.atan2(2.0 * mu11, mu20 - mu02)
+    return {
+        "area": m00,
+        "centroid-0": cy,
+        "centroid-1": cx,
+        "major_axis_length": major,
+        "minor_axis_length": minor,
+        "eccentricity": ecc,
+        "equivalent_diameter": eq_diam,
+        "orientation": orientation,
+        "perimeter": perimeter,
+    }
+
+
+def _central_moment_sums(labels: torch.Tensor, num_segments: int,
+                         extra_cols: torch.Tensor = None):
+    """Two-pass central moments: pass 1 sums [1, r, c] for exact centroids;
+    pass 2 sums the CENTERED monomials, the perimeter contributions and any
+    `extra_cols`. Raw second moments about the origin cancel in f32 (mu20 =
+    m20/m00 - cy^2 subtracts two ~cy^2-sized terms: 37% eccentricity error at
+    the far corner of 4096^2), so the two passes stay.
+
+    Returns (m00, cy, cx, mu20, mu02, mu11, perimeter, extra_sums)."""
+    flat = _flat(labels)
+    idx = flat.to(torch.int64)
+    rr, cc = _pixel_coords(labels)
+    first = segment_sum(torch.stack([torch.ones_like(rr), rr, cc], dim=1), flat,
+                        num_segments)
+    m00 = first[:, 0]
+    safe = torch.clamp_min(m00, 1.0)
+    cy, cx = first[:, 1] / safe, first[:, 2] / safe
+    cent = (first[:, 1:3] / safe[:, None])[idx]
+    dy = rr - cent[:, 0]
+    dx = cc - cent[:, 1]
+    cols = [dy * dy, dx * dx, dy * dx, _perimeter_contributions(labels).reshape(-1)]
+    second_in = torch.stack(cols, dim=1)
+    if extra_cols is not None:
+        second_in = torch.cat([second_in, extra_cols], dim=1)
+    second = segment_sum(second_in, flat, num_segments)
+    mu20 = second[:, 0] / safe
+    mu02 = second[:, 1] / safe
+    mu11 = second[:, 2] / safe
+    perimeter = second[:, 3]
+    extra = second[:, 4:] if extra_cols is not None else None
+    return m00, cy, cx, mu20, mu02, mu11, perimeter, extra
+
+
+def moment_features(labels: torch.Tensor, num_segments: int) -> dict:
+    """Moments-based morphology per label (skimage regionprops semantics):
+    area, centroid-0/1, major/minor axis length, eccentricity, equivalent
+    diameter, orientation, perimeter; (num_segments,) tensors. Two segment
+    sums (centroids, then centred monomials and perimeter)."""
+    m00, cy, cx, mu20, mu02, mu11, perim, _ = _central_moment_sums(
+        labels, num_segments)
+    return _features_from_central(m00, cy, cx, mu20, mu02, mu11, perim)
+
+
+def moment_and_channel_features(images: torch.Tensor, labels: torch.Tensor,
+                                num_segments: int):
+    """(morphology dict, (S, C) channel sums) in two segment sums: the
+    channel sums ride the second (centred-moment) pass. The default
+    quantification path (``total_intensity`` and the base regionprops)."""
+    c = images.shape[-1]
+    m00, cy, cx, mu20, mu02, mu11, perim, chan = _central_moment_sums(
+        labels, num_segments,
+        extra_cols=images.reshape(-1, c).to(torch.float32))
+    return _features_from_central(m00, cy, cx, mu20, mu02, mu11, perim), chan

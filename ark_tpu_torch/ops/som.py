@@ -167,7 +167,8 @@ MAX_TRAIN_STEPS = 256
 def _check_full_f32_matmul() -> None:
     if torch.get_float32_matmul_precision() != "highest":
         raise RuntimeError(
-            "SOM training needs full f32 matmuls, but torch's float32 matmul "
+            "the port's f32 products (SOM training, the weighted channel "
+            "product) need full f32 matmuls, but torch's float32 matmul "
             f"precision is {torch.get_float32_matmul_precision()!r} (TF32); "
             "call torch.set_float32_matmul_precision('highest')")
 

@@ -1,12 +1,17 @@
 """Pixie SOM / consensus-cluster orchestration classes.
 
-Port of the pixel half of ``ark_tpu/phenotyping/cluster_helpers.py``:
-``PixieSOMCluster`` (train/map), ``PixelSOMCluster`` (channel-norm-file
-division), ``ConsensusCluster`` (Monti et al. consensus clustering, numpy and
-sklearn as in the JAX package) and ``PixieConsensusCluster`` (z-score/cap and
-the SOM->meta mapping, 1-indexed). The SOM trains and maps on the object's
+Port of ``ark_tpu/phenotyping/cluster_helpers.py``: ``PixieSOMCluster``
+(train/map), ``PixelSOMCluster`` (channel-norm-file division),
+``CellSOMCluster`` (99.9% nonzero-quantile column normalization),
+``ConsensusCluster`` (Monti et al. consensus clustering, numpy and sklearn as
+in the JAX package) and ``PixieConsensusCluster`` (z-score/cap and the
+SOM->meta mapping, 1-indexed). The SOM trains and maps on the object's
 ``device`` through ``ark_tpu_torch.ops.som``; on a CUDA device the mapping
-runs the hand-written BMU kernel.
+runs the hand-written BMU kernel. The SOM weights file is read and written
+with pyarrow's feather functions (what ``ark_tpu.io.feather_utils`` calls),
+and the other file helpers of ``ark_tpu.io`` are imported inside the
+functions that use them, so that the cell SOM also runs where imageio (which
+``ark_tpu.io`` imports) is absent.
 """
 
 from __future__ import annotations
@@ -21,10 +26,20 @@ import numpy as np
 import pandas as pd
 from scipy.stats import zscore
 
-from ark_tpu.io import feather_utils as feather
-from ark_tpu.io.io_utils import list_files, validate_paths
-from ark_tpu.io.misc_utils import verify_in_list
 from ark_tpu_torch.ops import som as som_ops
+from ark_tpu_torch.utils.misc_utils import verify_in_list
+
+
+def _read_feather(path) -> pd.DataFrame:
+    from pyarrow import feather
+
+    return feather.read_feather(str(path))
+
+
+def _write_feather(df: pd.DataFrame, path) -> None:
+    from pyarrow import feather
+
+    feather.write_feather(df, str(path), compression="uncompressed")
 
 
 def verify_unique_meta_clusters(pixie_remapped_data: pd.DataFrame,
@@ -56,8 +71,7 @@ class PixieSOMCluster(ABC):
                  device="cuda"):
         self.weights_path = weights_path
         self.weights: Optional[pd.DataFrame] = (
-            feather.read_dataframe(weights_path)
-            if os.path.exists(weights_path) else None)
+            _read_feather(weights_path) if os.path.exists(weights_path) else None)
         self.columns = columns
         self.num_passes = num_passes
         self.xdim = xdim
@@ -79,8 +93,7 @@ class PixieSOMCluster(ABC):
             num_passes=self.num_passes, lr_start=self.lr_start,
             lr_end=self.lr_end, seed=self.seed, device=self.device)
         self.weights = pd.DataFrame(w, columns=data.columns.values)
-        feather.write_dataframe(self.weights, self.weights_path,
-                                compression="uncompressed")
+        _write_feather(self.weights, self.weights_path)
 
     def generate_som_clusters(self, external_data: pd.DataFrame,
                               num_parallel_obs: int = 1_000_000) -> np.ndarray:
@@ -111,6 +124,9 @@ class PixelSOMCluster(PixieSOMCluster):
         """Pixel-level SOM: training data = subsetted per-FOV feathers,
         normalization = divide by the 99.9% post-rownorm channel values
         (reference `cluster_helpers.py:166-301`)."""
+        from ark_tpu.io import feather_utils as feather
+        from ark_tpu.io.io_utils import list_files, validate_paths
+
         super().__init__(weights_path, columns, num_passes, xdim, ydim,
                          lr_start, lr_end, seed, device)
         validate_paths([norm_vals_path, pixel_subset_folder])
@@ -158,6 +174,8 @@ class PixelSOMCluster(PixieSOMCluster):
         columns round-trip through pandas (they feed the BMU kernel and,
         when `normalize_data`, are rewritten normalized); fov / row_index /
         column_index / label pass through as arrow buffers."""
+        from ark_tpu.io import feather_utils as feather
+
         cols = list(self.norm_data.columns)
         verify_in_list(norm_data_cols=cols,
                        external_data_cols=table.column_names)
@@ -172,6 +190,43 @@ class PixelSOMCluster(PixieSOMCluster):
             updates.update({c: sub[c] for c in cols})
         updates["pixel_som_cluster"] = pd.Series(labels, index=sub.index)
         return feather.table_set_columns(table, updates)
+
+
+class CellSOMCluster(PixieSOMCluster):
+    def __init__(self, cell_data: pd.DataFrame, weights_path: pathlib.Path,
+                 fovs: List[str], columns: List[str], num_passes: int = 1,
+                 xdim: int = 10, ydim: int = 10, lr_start: float = 0.05,
+                 lr_end: float = 0.01, seed=42, normalize=True, device="cuda"):
+        """Cell-level SOM over the cells x pixel-cluster-count table, each
+        column normalized by its 99.9% nonzero quantile (reference
+        `cluster_helpers.py:304-416`)."""
+        super().__init__(weights_path, columns, num_passes, xdim, ydim,
+                         lr_start, lr_end, seed, device)
+        self.cell_data = cell_data[cell_data["fov"].isin(fovs)].reset_index(drop=True)
+        self.fovs = fovs
+        if normalize:
+            self.normalize_data()
+
+    def normalize_data(self):
+        sub = self.cell_data[self.columns].copy()
+        norm_vals = sub.replace(0, np.nan).quantile(q=0.999, axis=0)
+        self.cell_data[self.columns] = sub.div(norm_vals)
+
+    def train_som(self, overwrite=False):
+        if overwrite:
+            warnings.warn("Overwrite flag set, retraining SOM")
+        elif self.weights is not None:
+            if set(self.weights.columns.values) == set(self.columns):
+                warnings.warn("Cell SOM already trained on specified columns")
+                return
+            warnings.warn("New columns specified, retraining")
+        super().train_som(self.cell_data[self.columns])
+
+    def assign_som_clusters(self, num_parallel_cells=1_000_000) -> pd.DataFrame:
+        labels = super().generate_som_clusters(
+            self.cell_data[self.columns], num_parallel_obs=num_parallel_cells)
+        self.cell_data["cell_som_cluster"] = labels
+        return self.cell_data
 
 
 class ConsensusCluster:
@@ -256,6 +311,9 @@ class PixieConsensusCluster:
     def __init__(self, cluster_type: str, input_file: pathlib.Path,
                  columns: List[str], max_k: int = 20, cap: float = 3):
         from sklearn.cluster import AgglomerativeClustering
+
+        from ark_tpu.io.io_utils import validate_paths
+
         verify_in_list(provided_cluster_type=cluster_type,
                        supported_cluster_types=["pixel", "cell"])
         validate_paths([input_file])
@@ -290,7 +348,7 @@ class PixieConsensusCluster:
         self.mapping.loc[:, self.meta_col] += 1
 
     def save_som_to_meta_map(self, save_path: pathlib.Path):
-        feather.write_dataframe(self.mapping, save_path)
+        _write_feather(self.mapping, save_path)
 
     def assign_consensus_labels(self, external_data: pd.DataFrame) -> pd.DataFrame:
         external_data[self.meta_col] = external_data[self.som_col].map(
@@ -302,6 +360,8 @@ class PixieConsensusCluster:
         SOM-label column into pandas, maps it through the SOM->meta table
         with the same `Series.map`, and passes every other column through
         as arrow buffers."""
+        from ark_tpu.io import feather_utils as feather
+
         som = table.column(self.som_col).to_pandas()
         meta = som.map(self.mapping.set_index(self.som_col)[self.meta_col])
         return feather.table_set_columns(table, {self.meta_col: meta})

@@ -5,7 +5,7 @@ Run from the repository root on a machine with an NVIDIA H100 and nvcc:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels (ark_tpu_torch/csrc/*.cu, one nvcc each,
-started together) and drives two paths on the card:
+started together) and drives three paths on the card:
 
 - the Pixie pixel clustering stage (template 2): the BMU kernel against its
   plain torch version at the stage's shapes, the stage at 4 x 1024^2 x 16,
@@ -16,7 +16,15 @@ started together) and drives two paths on the card:
   checkpoint with the device postprocess under both flood engines on the
   benchmark's 8 x 512^2 and 3 x 1024^2 cohorts, the level flood with the
   kernel against the same flood with the plain round, and a small cohort's
-  CPU and CUDA runs.
+  CPU and CUDA runs;
+- template 1's cell table and template 3's cell clustering: the segment-sum
+  kernel against index_add_ on a CPU copy and against itself, on dense
+  3 x 1024^2 masks (~1000 cells a FOV); the cell tables of the planted
+  cohort's segmented masks and of the dense masks with 40 seeded channels
+  through create_marker_count_matrices (nuclear counts, split nuclei, every
+  default regionprop, and fast_extraction), held against the CPU port; and
+  the cell SOM (normalization, 10x10 training, BMU assignment) and the
+  weighted channel product on a ~100k-cell, 102-FOV cell cohort.
 
 It exits non-zero, without the final result line, when there is no CUDA
 device or any phase fails. Its last line is one JSON object naming the
@@ -549,7 +557,8 @@ def run_device_postprocess(cohorts):
     """Phase 8: segment_fovs(postprocess='device') with the trained mini
     checkpoint on the benchmark's cohorts, under each flood engine. Returns
     the claim kernel's launches in the level engine's run of the first
-    cohort, and the Mesmer."""
+    cohort, the Mesmer, and each cohort's masks under the default (minimax)
+    engine."""
     import torch
 
     from ark_tpu_torch.ops import som, watershed
@@ -560,6 +569,7 @@ def run_device_postprocess(cohorts):
     mesmer.segment_fovs(cohorts[first][0][:1], app=app, device=DEVICE,
                         postprocess="device")                        # warm-up
     claim_launches = None
+    masks = {}
     for name, (fovs, batch) in cohorts.items():
         labels = {}
         for engine in ENGINES:
@@ -607,8 +617,9 @@ def run_device_postprocess(cohorts):
                   f"{differ} of pixels")
             print(f"e2e {name} {comp}: coverage differs between the engines at "
                   f"a share {differ:.3g} of pixels (filtered tie cells)")
+        masks[name] = labels["minimax"]
     watershed._ENGINE = "minimax"
-    return claim_launches, app
+    return claim_launches, app, masks
 
 
 def compare_level_flood(app, fovs):
@@ -687,6 +698,303 @@ def compare_segmentation_cpu_cuda():
     print(f"cpu vs cuda 4 x 64^2: max |head diff| {err:.3g}")
 
 
+# --- quantification (template 1's cell table) and cell clustering (template 3)
+
+N_QUANT_CHANNELS = 40          # the top of the 16-40 channels users run
+QUANT_CHANNELS = [f"marker{i}" for i in range(N_QUANT_CHANNELS)]
+# cell-table columns derived from the second moments: their sqrt and atan2
+# round differently on each device in the last bits, so CUDA is held to the
+# CPU with the tolerance the CPU tests hold the port to the JAX package;
+# every other column is bitwise
+DERIVED_COLUMNS = {"eccentricity", "major_axis_length", "minor_axis_length",
+                   "equivalent_diameter", "major_minor_axis_ratio",
+                   "major_axis_equiv_diam_ratio"}
+DERIVED_TOL = 1e-6
+# the weighted channel product: an f32 matmul whose sums run in another
+# order on the card
+MATMUL_RTOL = 1e-5
+N_PIXEL_CLUSTERS = 20
+COHORT_COPIES = 34             # 3 FOVs x 34 = a 102-FOV cohort of cells
+# the planted 3 x 1024^2 cohort holds ~190 cells a FOV, and the device
+# postprocess finds them; the dense cohort holds ~1000 (users' FOVs hold
+# 1000-3000)
+MIN_CELLS = {"segmented": 150, "dense": 800}
+
+
+def dense_masks(seed=47, n_fovs=3, size=1024, n_cells=1000, cell_radius=17,
+                nuc_radius=6, nuc_shift=4):
+    """Whole-cell and nuclear masks at users' density: `n_cells` seeds a
+    FOV; a pixel within `cell_radius` of its nearest seed joins that seed's
+    cell (touching Voronoi cells, background where seeds are sparse), and
+    nuclei are the same around seeds shifted by `nuc_shift` columns, so some
+    reach into a neighbour (split_large_nuclei's work)."""
+    from scipy import ndimage as ndi
+
+    rng = np.random.default_rng(seed)
+    out = {"whole_cell": [], "nuclear": []}
+    for _ in range(n_fovs):
+        ys, xs = rng.integers(0, size, n_cells), rng.integers(0, size, n_cells)
+        for comp, shift, radius in (("whole_cell", 0, cell_radius),
+                                    ("nuclear", nuc_shift, nuc_radius)):
+            seeds = np.zeros((size, size), np.int32)
+            seeds[ys, np.minimum(xs + shift, size - 1)] = np.arange(1, n_cells + 1)
+            dist, (iy, ix) = ndi.distance_transform_edt(seeds == 0,
+                                                        return_indices=True)
+            out[comp].append(np.where(dist <= radius, seeds[iy, ix], 0))
+    return {comp: np.stack(m).astype(np.int32) for comp, m in out.items()}
+
+
+def segment_inputs(rng, labels, k):
+    """Values like the cell table's segment sums take: K = 3 is the centroid
+    pass ([1, r, c]), K = 4 + C the central-moment pass with C channels."""
+    import torch
+
+    h, w = labels.shape
+    if k == 3:
+        rr, cc = np.mgrid[:h, :w].astype(np.float32)
+        vals = np.stack([np.ones(h * w, np.float32), rr.ravel(), cc.ravel()], 1)
+    else:
+        vals = rng.gamma(1.0, 3.0, (h * w, k)).astype(np.float32)
+    return torch.as_tensor(labels.reshape(-1)), torch.as_tensor(vals)
+
+
+def check_segment_sum(masks):
+    """Phase 11: the segment-sum kernel against index_add_ on a CPU copy,
+    bitwise, and against a second CUDA run of itself, on 3 x 1024^2
+    whole-cell masks at K = 3 and K = 44; then per-call times of the kernel
+    (with its CSR build) and of CUDA index_add_."""
+    import torch
+
+    from ark_tpu_torch.ops import segment_reduce
+
+    rng = np.random.default_rng(44)
+    timing = {}
+    max_err = 0.0
+    for k in (3, 4 + N_QUANT_CHANNELS):
+        for i, lab in enumerate(masks):
+            n_seg = int(lab.max()) + 1
+            lab_cpu, val_cpu = segment_inputs(rng, lab, k)
+            lab_gpu, val_gpu = lab_cpu.to(DEVICE), val_cpu.to(DEVICE)
+            got = segment_reduce.segment_sum(val_gpu, lab_gpu, n_seg)
+            again = segment_reduce.segment_sum(val_gpu, lab_gpu, n_seg)
+            want = segment_reduce.segment_sum_plain(val_cpu, lab_cpu, n_seg)
+            torch.cuda.synchronize()
+            err = float((got.cpu() - want).abs().max())
+            max_err = max(max_err, err)
+            check(torch.equal(got.cpu(), want),
+                  f"segment_sum K={k} FOV {i}: {int((got.cpu() != want).sum())} "
+                  f"sums differ from index_add_ on the CPU (max {err})")
+            check(torch.equal(got, again), f"segment_sum K={k} FOV {i}: two "
+                  f"CUDA runs differ")
+            if i == 0:
+                timing[k] = {
+                    "ms": time_ms(lambda: segment_reduce.segment_sum(
+                        val_gpu, lab_gpu, n_seg)),
+                    "plain_ms": time_ms(lambda: segment_reduce.segment_sum_plain(
+                        val_gpu, lab_gpu, n_seg))}
+        print(f"segment_sum K={k} on {len(masks)} x {masks[0].shape} masks "
+              f"({[int(m.max()) for m in masks]} max labels): bitwise equal to "
+              f"index_add_ on the CPU and across two CUDA runs; per call (CUDA "
+              f"events, median of 10) kernel with CSR build {timing[k]['ms']:.4f} ms, "
+              f"CUDA index_add_ {timing[k]['plain_ms']:.4f} ms")
+    return max_err, timing
+
+
+def quant_cohort(masks_by_comp, seed=45):
+    """Per FOV: (segmentation DataArray (1, H, W, 2), image DataArray
+    (1, H, W, 40)). Each cell gets a seeded expression per channel, times
+    its whole-cell mask, plus Poisson-like noise; also each cell's type
+    (0-4), which the cell-clustering phase plants pixel clusters from."""
+    from ark_tpu.utils.labeled_array import DataArray
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for fov, (cells, nucs) in enumerate(zip(masks_by_comp["whole_cell"],
+                                            masks_by_comp["nuclear"])):
+        h, w = cells.shape
+        n = int(cells.max()) + 1
+        cell_type = rng.integers(0, 5, n)
+        profile = rng.gamma(0.7, 2.0, (5, N_QUANT_CHANNELS)).astype(np.float32)
+        expr = profile[cell_type] * rng.uniform(0.5, 1.5, (n, 1)).astype(np.float32)
+        expr[0] = 0.0
+        imgs = expr[cells] + rng.gamma(0.3, 0.5, (h, w, N_QUANT_CHANNELS)
+                                       ).astype(np.float32)
+        coords = {"fovs": [f"fov{fov}"], "rows": np.arange(h), "cols": np.arange(w)}
+        seg = DataArray(np.stack([cells, nucs], -1)[None].astype(np.int32),
+                        coords={**coords, "compartments": ["whole_cell", "nuclear"]})
+        img = DataArray(imgs[None], coords={**coords, "channels": QUANT_CHANNELS})
+        out.append((seg, img, cell_type))
+    return out
+
+
+def tables_agree(got, want, what):
+    """The CPU tests' rule: same schema; sums bitwise, DERIVED_COLUMNS within
+    DERIVED_TOL. Returns the largest difference in a derived column."""
+    check(list(got.columns) == list(want.columns) and
+          list(got.dtypes) == list(want.dtypes), f"{what}: schemas differ")
+    worst = 0.0
+    for col in want.columns:
+        g, w = got[col].to_numpy(), want[col].to_numpy()
+        base = col[:-len("_nuclear")] if col.endswith("_nuclear") else col
+        if base in DERIVED_COLUMNS:
+            check(np.allclose(g, w, rtol=DERIVED_TOL, atol=DERIVED_TOL,
+                              equal_nan=True), f"{what} {col}: beyond {DERIVED_TOL}")
+            both = np.isfinite(g) & np.isfinite(w)
+            if both.any():
+                worst = max(worst, float(np.abs(g[both] - w[both]).max()))
+        else:
+            check(np.array_equal(g, w) or (g.dtype.kind == "f" and np.array_equal(
+                g, w, equal_nan=True)), f"{what} {col}: not bitwise equal")
+    return worst
+
+
+def run_cell_table(cohort, masks_name):
+    """Phase 12: template 1's cell table for 3 x 1024^2 masks (`masks_name`:
+    "segmented" by the device postprocess from the planted cohort, or
+    "dense") with 40 channels, through create_marker_count_matrices on the
+    card: nuclear counts and split_large_nuclei, the default regionprops
+    (all convex features, num_concavities included), and fast_extraction;
+    held against the CPU port. Returns the segment-sum launches of the CUDA
+    run with the default regionprops, and the CUDA tables."""
+    import torch
+
+    from ark_tpu_torch.ops import segment_reduce
+    from ark_tpu_torch.segmentation import marker_quantification as mq
+
+    kw = dict(nuclear_counts=True, split_large_nuclei=True)
+    mq.create_marker_count_matrices(cohort[0][0], cohort[0][1], device=DEVICE,
+                                    **kw)                            # warm-up
+    torch.cuda.synchronize()
+    tables, launches = {}, None
+    for fast in (False, True):
+        segment_reduce.segment_sum.launches = 0
+        per_fov = []
+        for seg, img, _ in cohort:
+            timings = {}
+            t0 = time.perf_counter()
+            tables[fast, seg.coords["fovs"][0]] = mq.create_marker_count_matrices(
+                seg, img, fast_extraction=fast, device=DEVICE, timings=timings, **kw)
+            torch.cuda.synchronize()
+            per_fov.append((time.perf_counter() - t0, timings))
+        if not fast:
+            launches = segment_reduce.segment_sum.launches
+            check(launches > 0, "the cell table never launched the segment-sum "
+                  "kernel")
+        for wall, timings in per_fov:
+            print(f"cell table {masks_name} masks, "
+                  f"{'fast_extraction' if fast else 'default regionprops'}, "
+                  f"1024^2 x {N_QUANT_CHANNELS}ch on cuda: {wall:.3f} s per FOV; "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in timings.items()))
+    worst = 0.0
+    for (fast, fov), (norm, arcsinh) in tables.items():
+        seg, img, _ = next(c for c in cohort if c[0].coords["fovs"][0] == fov)
+        t0 = time.perf_counter()
+        cpu = mq.create_marker_count_matrices(seg, img, fast_extraction=fast,
+                                              device="cpu", **kw)
+        cpu_s = time.perf_counter() - t0
+        n = len(norm)
+        check(n > MIN_CELLS[masks_name] and np.isfinite(norm["cell_size"]).all(),
+              f"cell table {masks_name} {fov}: {n} cells")
+        for got, want, name in ((norm, cpu[0], "size-normalized"),
+                                (arcsinh, cpu[1], "arcsinh")):
+            worst = max(worst, tables_agree(got, want, f"{fov} {name}"))
+        print(f"cell table {masks_name} {fov} fast_extraction={fast}: {n} cells, "
+              f"{norm.shape[1]} columns, equal to the CPU port's (CPU run "
+              f"{cpu_s:.3f} s)")
+    print(f"cell table {masks_name} masks, CUDA vs CPU: sums bitwise, largest "
+          f"derived-column difference {worst:.3g}")
+    check(launches == 4 * len(cohort), f"segment_sum launches {launches}, "
+          f"expected 4 per FOV (two passes per compartment)")
+    return launches, tables
+
+
+def run_cell_clustering(cohort, tables, tmp_dir):
+    """Phase 13: template 3's device part on a ~100-FOV cell cohort: per-cell
+    pixel-cluster counts from the masks and a seeded per-pixel cluster image,
+    tiled to 102 FOVs; CellSOMCluster's normalization, 10x10 training and
+    BMU assignment on the card, held against the CPU port given the same
+    weights; the weighted channel product on the card against the CPU.
+    Returns the BMU kernel's launches in the assignment."""
+    import pandas as pd
+    import torch
+
+    from ark_tpu_torch.ops import som
+    from ark_tpu_torch.phenotyping import (cell_cluster_utils, cluster_helpers,
+                                           weighted_channel_comp)
+
+    rng = np.random.default_rng(46)
+    col = "pixel_som_cluster"
+    per_fov = []
+    for seg, _, cell_type in cohort:
+        cells = seg.values[0, ..., 0]
+        clusters = cell_type[cells] * 4 + rng.integers(0, 4, cells.shape) + 1
+        per_fov.append((seg.coords["fovs"][0], cells.ravel(), clusters.ravel()))
+    counts, count_cols = cell_cluster_utils.c2pc_counts_table(per_fov, col)
+    sizes = pd.concat([table[["fov", "label", "cell_size"]]
+                       for (fast, _), (table, _) in tables.items() if not fast])
+    base = counts.merge(sizes, on=["fov", "label"])
+    copies = []
+    for i in range(COHORT_COPIES):
+        c = base.copy()
+        c["fov"] = [f"{f}_copy{i}" for f in c["fov"]]
+        c[count_cols] = c[count_cols] + rng.integers(0, 2, c[count_cols].shape)
+        copies.append(c)
+    cells = pd.concat(copies, ignore_index=True)
+    norm = cells.copy()
+    norm[count_cols] = norm[count_cols].div(norm["cell_size"], axis=0)
+    fovs = list(norm["fov"].unique())
+
+    t0 = time.perf_counter()
+    pysom = cluster_helpers.CellSOMCluster(
+        norm, os.path.join(tmp_dir, "cell_som_weights.feather"), fovs, count_cols,
+        device=DEVICE)
+    norm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pysom.train_som()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    som.bmu.launches = 0
+    t0 = time.perf_counter()
+    labeled = pysom.assign_som_clusters()
+    torch.cuda.synchronize()
+    assign_s = time.perf_counter() - t0
+    launches = som.bmu.launches
+    check(launches > 0, "the cell SOM's assignment never launched the BMU kernel")
+    got = labeled["cell_som_cluster"].to_numpy()
+    check(got.min() >= 1 and got.max() <= 100, "cell SOM labels outside 1..100")
+
+    data = np.array(pysom.cell_data[count_cols], dtype=np.float32)
+    weights = np.array(pysom.weights, dtype=np.float32)
+    want, _ = som.som_map(weights, data, return_dist=False, device="cpu")
+    ties = near_ties(plain_d(torch.as_tensor(weights), torch.as_tensor(data))).numpy()
+    differ = got != want
+    check(not (differ & ~ties).any(), f"cell SOM: {int((differ & ~ties).sum())} "
+          f"assignments differ from the CPU port's outside near-ties")
+    w_cpu = som.som_train(data, device="cpu")
+    print(f"cell SOM {len(data)} cells x {len(count_cols)} columns, {len(fovs)} FOVs "
+          f"on cuda: normalize {norm_s:.4f} s, 10x10 train {train_s:.4f} s, assign "
+          f"{assign_s:.4f} s (BMU launches {launches}); assignments equal to the "
+          f"CPU port's given the same weights ({int(differ.sum())} differ, "
+          f"{int(ties.sum())} near-ties); CPU-trained weights differ by at most "
+          f"{float(np.abs(w_cpu - weights).max()):.3g}")
+
+    avg = pd.DataFrame(rng.random((N_PIXEL_CLUSTERS, N_QUANT_CHANNELS)),
+                       columns=QUANT_CHANNELS)
+    avg[col] = np.arange(1, N_PIXEL_CLUSTERS + 1)
+    t0 = time.perf_counter()
+    wc = weighted_channel_comp.compute_p2c_weighted_channel_avg(
+        avg, QUANT_CHANNELS, cells, pixel_cluster_col=col, device=DEVICE)
+    wc_s = time.perf_counter() - t0
+    wc_cpu = weighted_channel_comp.compute_p2c_weighted_channel_avg(
+        avg, QUANT_CHANNELS, cells, pixel_cluster_col=col, device="cpu")
+    check(np.allclose(wc[QUANT_CHANNELS].to_numpy(), wc_cpu[QUANT_CHANNELS].to_numpy(),
+                      rtol=MATMUL_RTOL, atol=0), "weighted channel product: CUDA "
+          "and CPU differ")
+    print(f"weighted channel product ({len(cells)} x {len(count_cols)}) . "
+          f"({len(count_cols)} x {N_QUANT_CHANNELS}) on cuda: {wc_s:.4f} s with the "
+          f"table around it, within rtol {MATMUL_RTOL} of the CPU")
+
+
 def main() -> int:
     import torch
 
@@ -728,9 +1036,18 @@ def main() -> int:
     }
     print(f"planted cohorts generated on the host: "
           f"{time.perf_counter() - t0:.1f} s")
-    claim_launches, app = run_device_postprocess(cohorts)
+    claim_launches, app, masks = run_device_postprocess(cohorts)
     compare_level_flood(app, cohorts["8x512"][0])
     compare_segmentation_cpu_cuda()
+
+    # quantification (template 1's cell table) and cell clustering (template 3)
+    dense = dense_masks()
+    seg_err, seg_timing = check_segment_sum(dense["whole_cell"])
+    seg_launches, _ = run_cell_table(quant_cohort(masks["3x1024"]), "segmented")
+    cohort = quant_cohort(dense)
+    _, tables = run_cell_table(cohort, "dense")
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        run_cell_clustering(cohort, tables, tmp_dir)
 
     claim_ms = claim_timing[CLAIM_TIMED[0]]
     print(json.dumps({"kernels": [{
@@ -742,7 +1059,12 @@ def main() -> int:
         "source": "ark_tpu_torch/csrc/watershed_claim.cu",
         "replaces": "ark_tpu/ops/watershed.py:173", "launches": claim_launches,
         "max_abs_err": claim_err, "ms": claim_ms["ms"],
-        "plain_ms": claim_ms["plain_ms"]}]}))
+        "plain_ms": claim_ms["plain_ms"]}, {
+        "name": "segment_sum", "route": "cuda",
+        "source": "ark_tpu_torch/csrc/segment_sum.cu",
+        "replaces": "ark_tpu/ops/segment_reduce.py:44", "launches": seg_launches,
+        "max_abs_err": seg_err, "ms": seg_timing[4 + N_QUANT_CHANNELS]["ms"],
+        "plain_ms": seg_timing[4 + N_QUANT_CHANNELS]["plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

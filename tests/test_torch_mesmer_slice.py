@@ -215,7 +215,9 @@ def test_smoke_segmentation_phases_rehearse_on_cpu(monkeypatch):
     monkeypatch.setattr(TW, "_ENGINE", TW._ENGINE)
     fovs = TS.synthetic_cells(np.random.default_rng(0), 2, hw=64,
                               n_cells=(12, 16), crowding=0.35)[0]
-    launches, app = chip_smoke.run_device_postprocess({"small": (fovs, 2)})
+    launches, app, masks = chip_smoke.run_device_postprocess({"small": (fovs, 2)})
+    assert sorted(masks["small"]) == ["nuclear", "whole_cell"]
+    assert masks["small"]["whole_cell"].shape == fovs.shape[:3]
     # the level engine's plain run, then its phase-timed run
     assert 2 * launches == counted.launches > 0 and app.host_fallbacks == 0
     assert TW._ENGINE == "minimax"

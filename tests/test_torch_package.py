@@ -1,8 +1,10 @@
 """Package rules of the PyTorch port (ark_tpu_torch).
 
-The port never imports jax; its sources pass the repo's style gate; and a
-BMU search on CPU tensors never builds or loads the CUDA library, while a
-tensor on any other device never falls back to the plain version.
+The port never imports jax; its sources pass the repo's style gate; a
+kernel's wrapper on CPU tensors never builds or loads the CUDA library,
+while a tensor on any other device never falls back to the plain version;
+and the modules that run on the card import without the host packages the
+card's machine lacks (imageio, sklearn).
 """
 
 import ast
@@ -155,7 +157,8 @@ def test_ops_import_only_torch_numpy_and_the_stdlib():
 def test_every_kernel_has_its_source():
     sources = {f[:-3] for f in os.listdir(os.path.join(PKG, "csrc"))
                if f.endswith(".cu")}
-    assert set(_kernels.KERNELS) == sources == {"bmu", "watershed_claim"}
+    assert set(_kernels.KERNELS) == sources == {"bmu", "watershed_claim",
+                                                "segment_sum"}
     assert all(os.path.exists(_kernels.source(k)) for k in _kernels.KERNELS)
 
 
@@ -173,3 +176,86 @@ def test_cpu_claim_round_never_touches_the_cuda_library(monkeypatch):
     new, changed = watershed.claim_round(lab, q, 0)
     assert new.tolist() == [[[3, 3, -1], [0, 2, 2]]] and int(changed) == 2
     assert watershed.claim_round.launches == before
+
+
+QUANT_AND_CELL_MODULES = [
+    "ark_tpu_torch.ops.segment_reduce", "ark_tpu_torch.ops.convex",
+    "ark_tpu_torch.ops.relabel", "ark_tpu_torch.ops.morphology",
+    "ark_tpu_torch.segmentation.signal_extraction",
+    "ark_tpu_torch.segmentation.regionprops_extraction",
+    "ark_tpu_torch.segmentation.segmentation_utils",
+    "ark_tpu_torch.segmentation.marker_quantification",
+    "ark_tpu_torch.phenotyping.cluster_helpers",
+    "ark_tpu_torch.phenotyping.cell_cluster_utils",
+    "ark_tpu_torch.phenotyping.cell_som_clustering",
+    "ark_tpu_torch.phenotyping.cell_meta_clustering",
+    "ark_tpu_torch.phenotyping.weighted_channel_comp",
+]
+
+
+def test_card_modules_import_without_imageio_and_sklearn():
+    """The card's machine has neither imageio nor sklearn; the
+    quantification and cell-clustering modules import there, and the
+    in-memory cell table runs, with both blocked."""
+    code = ("import importlib, sys\n"
+            "sys.modules['imageio'] = None\n"
+            "sys.modules['sklearn'] = None\n"
+            f"for m in {QUANT_AND_CELL_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import numpy as np\n"
+            "from ark_tpu.utils.labeled_array import DataArray\n"
+            "from ark_tpu_torch.segmentation import marker_quantification as q\n"
+            "lab = np.zeros((1, 16, 16, 2), np.int32)\n"
+            "lab[0, 2:9, 3:10] = 4\n"
+            "lab[0, 4:7, 4:7, 1] = 2\n"
+            "img = np.ones((1, 16, 16, 2), np.float32)\n"
+            "c = {'fovs': ['f'], 'rows': np.arange(16), 'cols': np.arange(16)}\n"
+            "norm, _ = q.create_marker_count_matrices(\n"
+            "    DataArray(lab, coords={**c, 'compartments': ['whole_cell', 'nuclear']}),\n"
+            "    DataArray(img, coords={**c, 'channels': ['a', 'b']}),\n"
+            "    nuclear_counts=True, split_large_nuclei=True, device='cpu')\n"
+            "assert norm['cell_size'].tolist() == [49.0], norm\n"
+            "assert 'jax' not in sys.modules\n"
+            "assert not [m for m in sys.modules if m.startswith('ark_tpu.io')]\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert set(QUANT_AND_CELL_MODULES) <= set(_modules())
+
+
+def test_cpu_segment_sum_never_touches_the_cuda_library(monkeypatch):
+    from ark_tpu_torch.ops import segment_reduce
+
+    def refuse(*_):
+        raise AssertionError("segment_sum on CPU tensors asked for the library")
+
+    monkeypatch.setattr(_kernels, "lib", refuse)
+    monkeypatch.setattr(_kernels, "build", refuse)
+    before = segment_reduce.segment_sum.launches
+    labels = torch.tensor([0, 2, 1, 2, 2], dtype=torch.int32)
+    values = torch.tensor([[9.0], [1.0], [2.0], [3.0], [4.0]])
+    got = segment_reduce.segment_sum(values, labels, 4)
+    assert got[:, 0].tolist() == [0.0, 2.0, 8.0, 0.0]
+    assert segment_reduce.segment_sum.launches == before
+
+
+def test_non_cpu_segment_sum_never_falls_back(monkeypatch):
+    """A tensor off the CPU goes to the kernel or raises: the plain version
+    is never called for it, and a device other than CUDA raises before any
+    library is built."""
+    from ark_tpu_torch.ops import segment_reduce
+
+    def refuse(*_):
+        raise AssertionError("fell back or asked for the library")
+
+    monkeypatch.setattr(_kernels, "lib", refuse)
+    monkeypatch.setattr(segment_reduce, "segment_sum_plain", refuse)
+    labels = torch.zeros(5, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        segment_reduce.segment_sum(torch.empty(5, 2, device="meta"), labels, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        segment_reduce.segment_sum(torch.ones(5, 2), labels, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        segment_reduce.cell_sizes(torch.zeros(4, 4, dtype=torch.int32,
+                                              device="meta"), 3)

@@ -1,0 +1,223 @@
+"""The port's segment reductions, relabeling and boundaries against the JAX
+package's, on the CPU.
+
+Tolerances: every segment sum (sizes, channel sums, positive counts,
+centroid and centre-weighted sums, Crofton and Euler sums, the centroid and
+central-moment passes and the channel sums riding the second pass) is
+bitwise equal in rows 1:. Row 0, the background, is zero on every device in
+the port (no caller reads it), where the JAX package holds the background's
+own sums; the tests check that it is zero. The derived features (axis
+lengths, eccentricity, orientation, equivalent diameter) are held to
+rtol = atol = 1e-6: XLA's atan2 and its fusion of the eigenvalue arithmetic
+round differently from torch's in the last bit; area, centroids and
+perimeter stay bitwise. Relabeling and boundaries are integer work,
+bitwise.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from ark_tpu.ops import morphology as JMO
+from ark_tpu.ops import relabel as JRL
+from ark_tpu.ops import segment_reduce as JSR
+from ark_tpu_torch.ops import morphology as TMO
+from ark_tpu_torch.ops import relabel as TRL
+from ark_tpu_torch.ops import segment_reduce as TSR
+
+torch.set_num_threads(2)
+
+DERIVED_TOL = 1e-6
+BITWISE_FEATURES = ("area", "centroid-0", "centroid-1", "perimeter")
+
+
+def _blobs(rng, shape, n, rmax=9, scale=1):
+    """Overlapping elliptic blobs (touching cells, concave unions), labels
+    i * scale."""
+    h, w = shape
+    lab = np.zeros(shape, np.int32)
+    yy, xx = np.ogrid[:h, :w]
+    for i in range(1, n + 1):
+        y, x, r = rng.integers(0, h), rng.integers(0, w), rng.integers(1, rmax)
+        lab[((yy - y) ** 2 + (xx - x) ** 2 * rng.uniform(0.4, 2.5)) < r * r] = i * scale
+    return lab
+
+
+def _label_cases():
+    rng = np.random.default_rng(7)
+    cases = {"blobs": _blobs(rng, (96, 128), 40),
+             "gaps_and_large_ids": _blobs(rng, (64, 80), 25, scale=977),
+             "dense_random": rng.integers(0, 30, (48, 40)).astype(np.int32),
+             "empty_fov": np.zeros((32, 48), np.int32)}
+    single = _blobs(rng, (40, 40), 6)
+    single[0, 39] = 50                      # a single-pixel cell at a corner
+    cases["single_pixel"] = single
+    return cases
+
+
+LABELS = _label_cases()
+
+
+@pytest.fixture(params=sorted(LABELS))
+def case(request):
+    lab = LABELS[request.param]
+    rng = np.random.default_rng(len(request.param))
+    img = rng.gamma(1.0, 3.0, lab.shape + (5,)).astype(np.float32)
+    img[rng.random(img.shape) < 0.3] = 0.0
+    return lab, img, int(lab.max()) + 1
+
+
+def _rows(jax_out, torch_out):
+    """Rows 1: of both, as numpy; row 0 of the port must be zero."""
+    t = torch_out.numpy()
+    assert not np.any(t[0]), "row 0 (background) must be zero"
+    return np.asarray(jax_out)[1:], t[1:]
+
+
+def _assert_bitwise(jax_out, torch_out):
+    j, t = _rows(jax_out, torch_out)
+    np.testing.assert_array_equal(t, j)
+
+
+def test_segment_sums_bitwise(case):
+    lab, img, s = case
+    jl, ji = jnp.asarray(lab), jnp.asarray(img)
+    tl, ti = torch.as_tensor(lab), torch.as_tensor(img)
+    _assert_bitwise(JSR.cell_sizes(jl, s), TSR.cell_sizes(tl, s))
+    _assert_bitwise(JSR.channel_sums(ji, jl, s), TSR.channel_sums(ti, tl, s))
+    for thr in (0.0, 2.5):
+        _assert_bitwise(JSR.positive_pixel_counts(ji, jl, s, thr),
+                        TSR.positive_pixel_counts(ti, tl, s, thr))
+    _assert_bitwise(JSR.crofton_perimeter(jl, s), TSR.crofton_perimeter(tl, s))
+    _assert_bitwise(JSR.euler_numbers(jl, s), TSR.euler_numbers(tl, s))
+    # centroids and centre weights: NaN rows (absent labels) on both sides
+    j, t = np.asarray(JSR.centroids(jl, s))[1:], TSR.centroids(tl, s).numpy()[1:]
+    np.testing.assert_array_equal(t, j)
+    j = np.asarray(JSR.center_weighted_sums(ji, jl, s))[1:]
+    t = TSR.center_weighted_sums(ti, tl, s).numpy()[1:]
+    np.testing.assert_array_equal(t, j)
+
+
+def test_central_moment_passes_bitwise(case):
+    """Both passes of the two-pass central moments, in the jitted form the
+    JAX package runs them (inside moment_features' jit), with the channel
+    sums riding the second pass."""
+    lab, img, s = case
+    extra = img.reshape(-1, img.shape[-1])
+    want = jax.jit(JSR._central_moment_sums, static_argnums=1)(
+        jnp.asarray(lab), s, jnp.asarray(extra))
+    got = TSR._central_moment_sums(torch.as_tensor(lab), s, torch.as_tensor(extra))
+    for name, j, t in zip(("m00", "cy", "cx", "mu20", "mu02", "mu11",
+                           "perimeter", "extra"), want, got):
+        np.testing.assert_array_equal(t.numpy()[1:], np.asarray(j)[1:], err_msg=name)
+
+
+def test_moment_features_match_jax(case):
+    lab, img, s = case
+    jf, jc = JSR.moment_and_channel_features(jnp.asarray(img), jnp.asarray(lab), s)
+    tf, tc = TSR.moment_and_channel_features(torch.as_tensor(img),
+                                             torch.as_tensor(lab), s)
+    _assert_bitwise(jc, tc)
+    jm = JSR.moment_features(jnp.asarray(lab), s)
+    tm = TSR.moment_features(torch.as_tensor(lab), s)
+    assert sorted(tf) == sorted(jf) == sorted(tm) == sorted(jm)
+    for feats_j, feats_t in ((jf, tf), (jm, tm)):
+        for name in feats_j:
+            j, t = np.asarray(feats_j[name])[1:], feats_t[name].numpy()[1:]
+            if name in BITWISE_FEATURES:
+                np.testing.assert_array_equal(t, j, err_msg=name)
+            else:
+                np.testing.assert_allclose(t, j, rtol=DERIVED_TOL,
+                                           atol=DERIVED_TOL, err_msg=name)
+
+
+def test_far_corner_cell_keeps_its_shape():
+    """A small ellipse at the far corner of a 4096^2 FOV: the port's
+    features equal the JAX package's, and equal those of the same cell near
+    the origin within 1e-3, which only the two-pass central moments give
+    (raw f32 moments were 37% off in eccentricity there)."""
+    yy, xx = np.mgrid[:24, :36]
+    cell = (((yy - 12) / 11.0) ** 2 + ((xx - 18) / 17.0) ** 2 <= 1.0).astype(np.int32)
+
+    def feats_at(offset, size=4096):
+        labels = np.zeros((size, size), np.int32)
+        labels[offset:offset + 24, offset:offset + 36] = cell
+        t = TSR.moment_features(torch.as_tensor(labels), 2)
+        j = JSR.moment_features(jnp.asarray(labels), 2)
+        return ({k: float(v[1]) for k, v in t.items()},
+                {k: float(np.asarray(v)[1]) for k, v in j.items()})
+
+    near, _ = feats_at(0)
+    far, far_jax = feats_at(4096 - 40)
+    for key in far:
+        assert far[key] == pytest.approx(far_jax[key], rel=DERIVED_TOL,
+                                         abs=DERIVED_TOL), key
+    for key in ("eccentricity", "major_axis_length", "minor_axis_length",
+                "orientation", "area", "perimeter"):
+        assert near[key] == pytest.approx(far[key], rel=1e-3, abs=1e-3), key
+
+
+def test_segment_sum_plain_is_a_sequential_scatter():
+    """index_add_ on the CPU adds in ascending index order: bitwise equal to
+    np.add.at, row 0 zeroed; num_segments past the largest label gives zero
+    rows; 1-D and 2-D values; no launch is counted."""
+    rng = np.random.default_rng(0)
+    lab = rng.integers(0, 50, 20_000).astype(np.int32)
+    lab[lab > 40] += 1000
+    for vals in (rng.gamma(1.0, 3.0, (lab.size, 7)).astype(np.float32),
+                 rng.random(lab.size, dtype=np.float32)):
+        want = np.zeros((1200,) + vals.shape[1:], np.float32)
+        np.add.at(want, lab, vals)
+        want[0] = 0
+        before = TSR.segment_sum.launches
+        got = TSR.segment_sum(torch.as_tensor(vals), torch.as_tensor(lab), 1200)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert TSR.segment_sum.launches == before
+    empty = TSR.segment_sum(torch.zeros((0, 3)), torch.zeros(0, dtype=torch.int32), 4)
+    assert empty.shape == (4, 3) and not empty.any()
+
+
+def test_segment_sum_drops_labels_out_of_range_like_jax():
+    """Labels < 0 or >= num_segments contribute nothing, as in
+    jax.ops.segment_sum; the rest keep their sequential order."""
+    rng = np.random.default_rng(1)
+    lab = rng.integers(-5, 60, 5000).astype(np.int32)
+    vals = rng.gamma(1.0, 3.0, (lab.size, 3)).astype(np.float32)
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(lab),
+                                          num_segments=50))
+    got = TSR.segment_sum(torch.as_tensor(vals), torch.as_tensor(lab), 50)
+    _assert_bitwise(want, got)
+
+
+@pytest.mark.parametrize("mode", ["inner", "outer", "thick"])
+@pytest.mark.parametrize("connectivity", [1, 2])
+def test_find_boundaries_matches_jax(mode, connectivity):
+    lab = LABELS["blobs"]
+    want = np.asarray(JMO.find_boundaries(jnp.asarray(lab), connectivity=connectivity,
+                                          mode=mode))
+    got = TMO.find_boundaries(torch.as_tensor(lab), connectivity=connectivity,
+                              mode=mode)
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype,use_device", [(np.float64, True), (np.float64, False),
+                                              (np.float32, True), (np.int32, True),
+                                              (np.int64, True)])
+def test_relabel_segmentation_matches_jax(dtype, use_device):
+    lab = LABELS["gaps_and_large_ids"]
+    ids = np.unique(lab)[1:]
+    mapping = {int(i): float(k % 7) + 0.25 for k, i in enumerate(ids[::2])}
+    mapping[10 ** 7] = 3.0                       # out of range: ignored
+    want = JRL.relabel_segmentation(mapping, -1, lab, _dtype=dtype,
+                                    use_device=use_device)
+    got = TRL.relabel_segmentation(mapping, -1, lab, _dtype=dtype,
+                                   use_device=use_device, device="cpu")
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        TRL.build_lut(mapping, int(lab.max()), 0, dtype),
+        JRL.build_lut(mapping, int(lab.max()), 0, dtype))
