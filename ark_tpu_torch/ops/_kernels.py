@@ -3,7 +3,7 @@
 The sources in ``ark_tpu_torch/csrc`` expose plain C functions. Each is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library of its own under
 ``ark_tpu_torch/_build/`` on first use and loaded with ctypes, the pattern of
-``ark_tpu.native`` (g++ there). A library's name carries a hash of its
+``ark_tpu_torch.native`` (g++ there). A library's name carries a hash of its
 source, so an edited kernel never loads a stale build. Nothing here runs at
 import time: a machine without ``nvcc`` imports the package and runs the
 plain versions on CPU tensors.
@@ -40,7 +40,8 @@ _SIGNATURES = {
         "ark_claim_round_error_string": ([_i], ctypes.c_char_p),
     },
     "segment_sum": {
-        "ark_segment_sum_launch": ([_p, _p, _p, _i, _i, _p, _p], _i),
+        "ark_segment_plan_launch": ([_p, ctypes.c_longlong, _i, _i, _p, _p], _i),
+        "ark_segment_sum_launch": ([_p, _p, _i, _p, _i, _i, _p, _p], _i),
         "ark_segment_sum_error_string": ([_i], ctypes.c_char_p),
     },
 }

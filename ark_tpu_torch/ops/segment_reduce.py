@@ -7,9 +7,13 @@ image; all of them go through one function, ``segment_sum``:
 - on a CUDA tensor it launches the hand-written kernel in
   ``ark_tpu_torch/csrc/segment_sum.cu``, which adds each segment's pixels in
   ascending pixel order (a float ``index_add_`` on CUDA uses atomics, so its
-  order, and the last bits of the cell table, would change from run to run);
+  order, and the last bits of the cell table, would change from run to run).
+  The kernel walks each segment's bounding box, which ``segment_plan``
+  computes once per label image on the device; a caller that sums several
+  value sets over one image builds the plan once and passes it to each sum;
 - on a CPU tensor it runs ``segment_sum_plain``, ``index_add_``, a sequential
-  scatter in the same order.
+  scatter in the same order (a plan is checked against the call, then
+  ignored).
 
 Both give sums bitwise equal to the JAX package's CPU ``segment_sum``.
 **Row 0 (background) is zero on every device**: no caller reads it (they
@@ -25,26 +29,118 @@ device the caller chose, and the results stay there.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ark_tpu_torch.ops import _kernels
 
 _SQRT2 = 1.4142135623730951
+_INT32_MAX = 2 ** 31 - 1
+_EMPTY_BOX = (_INT32_MAX, -1, _INT32_MAX, -1)
 
 
-def _flat(labels: torch.Tensor) -> torch.Tensor:
-    return labels.reshape(-1).to(torch.int32)
+def _row_width(labels: torch.Tensor) -> int:
+    """Width of the rows the labels are laid out in: the last axis of an
+    image, or the whole array for flat labels."""
+    return labels.shape[-1] if labels.ndim >= 2 else max(labels.numel(), 1)
+
+
+class SegmentPlan(NamedTuple):
+    """What ``segment_sum`` needs to know about one label image, built once
+    by ``segment_plan``: the labels' shape and device and `num_segments`
+    (checked against every call), and on CUDA the int32 labels and each
+    segment's bounding box (first row, last row, first column, last column;
+    empty as (2^31-1, -1, 2^31-1, -1)). A CPU plan holds no tensors."""
+    shape: Tuple[int, ...]
+    num_segments: int
+    device: torch.device
+    labels: Optional[torch.Tensor] = None       # (N,) int32, CUDA only
+    boxes: Optional[torch.Tensor] = None        # (num_segments, 4) int32, CUDA only
+
+
+def segment_boxes_plain(labels: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Each segment's bounding box in torch ops: (num_segments, 4) int32 rows
+    of (first row, last row, first column, last column) of the labels in
+    [1, num_segments), laid out in rows of ``_row_width(labels)``; row 0 and
+    absent labels hold the empty box. The plan kernel's plain version."""
+    flat = labels.reshape(-1).to(torch.int64)
+    w = _row_width(labels)
+    pos = torch.arange(flat.numel(), device=flat.device)
+    keep = (flat > 0) & (flat < num_segments)
+    lab = flat[keep]
+    rows, cols = (pos // w)[keep], (pos % w)[keep]
+    out = []
+    for vals, init, how in ((rows, _EMPTY_BOX[0], "amin"), (rows, -1, "amax"),
+                            (cols, _EMPTY_BOX[2], "amin"), (cols, -1, "amax")):
+        col = torch.full((num_segments,), init, dtype=torch.int64, device=flat.device)
+        out.append(col.scatter_reduce_(0, lab, vals, how))
+    return torch.stack(out, dim=1).to(torch.int32)
+
+
+def _int32_labels(labels: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Flat contiguous int32 labels; an int64 label outside [0,
+    num_segments) stays outside after the cast (clamped to -1 or
+    num_segments first)."""
+    if labels.dtype == torch.int64:
+        labels = torch.clamp(labels, -1, num_segments)
+    return labels.reshape(-1).to(torch.int32).contiguous()
+
+
+def _check_labels(labels: torch.Tensor, num_segments: int, device=None) -> None:
+    if labels.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"segment_sum: integer labels expected, got {labels.dtype}")
+    if num_segments < 1 or num_segments > 2 ** 31 - 2:
+        raise ValueError(f"segment_sum: num_segments {num_segments} out of range")
+    if labels.numel() >= 2 ** 31:
+        raise ValueError(f"segment_sum: {labels.numel()} pixels; the kernels index "
+                         f"pixels with int32")
+    if device is not None and labels.device != device:
+        raise ValueError(f"segment_sum: labels on {labels.device}, values on {device}; "
+                         f"the kernel takes both on one CUDA device")
+
+
+def segment_plan(labels: torch.Tensor, num_segments: int) -> SegmentPlan:
+    """The plan of one label image ((H, W), or (N,) as one row) for
+    ``segment_sum(..., plan=)``. On a CUDA tensor it launches the plan
+    kernel (``ark_segment_plan_launch``: every segment's bounding box from
+    integer atomics, order-independent) on the current stream without a
+    host sync, and raises if the launch is refused; ``segment_plan.launches``
+    counts those launches. On a CPU tensor it only records the shape and
+    `num_segments`."""
+    if labels.device.type == "cpu":
+        return SegmentPlan(tuple(labels.shape), num_segments, labels.device)
+    if labels.device.type != "cuda":
+        raise ValueError(f"segment_plan: labels on {labels.device}; the kernel takes "
+                         f"CUDA tensors")
+    _check_labels(labels, num_segments)
+    flat = _int32_labels(labels, num_segments)
+    boxes = torch.empty((num_segments, 4), dtype=torch.int32, device=flat.device)
+    lib = _kernels.lib("segment_sum")
+    with torch.cuda.device(flat.device):
+        stream = torch.cuda.current_stream(flat.device).cuda_stream
+        err = lib.ark_segment_plan_launch(flat.data_ptr(), flat.numel(),
+                                          _row_width(labels), num_segments,
+                                          boxes.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"segment_plan kernel launch failed: "
+                           f"{lib.ark_segment_sum_error_string(err).decode()} ({err})")
+    segment_plan.launches += 1
+    return SegmentPlan(tuple(labels.shape), num_segments, labels.device, flat, boxes)
+
+
+segment_plan.launches = 0
 
 
 def segment_sum_plain(values: torch.Tensor, labels: torch.Tensor,
                       num_segments: int) -> torch.Tensor:
-    """Per-segment sums of `values` (N,) or (N, K) keyed by `labels` (N,),
-    as ``index_add_`` on the tensors' device; row 0 is zero, and labels
-    outside [0, num_segments) are dropped, as ``jax.ops.segment_sum`` drops
-    them. On the CPU ``index_add_`` adds in ascending index order; on CUDA it
-    uses atomics (any order), so the tests compare the kernel with this on a
-    CPU copy."""
+    """Per-segment sums of `values` (N,) or (N, K) keyed by `labels` (N
+    entries, any shape), as ``index_add_`` on the tensors' device; row 0 is
+    zero, and labels outside [0, num_segments) are dropped, as
+    ``jax.ops.segment_sum`` drops them. On the CPU ``index_add_`` adds in
+    ascending index order; on CUDA it uses atomics (any order), so the tests
+    compare the kernel with this on a CPU copy."""
+    labels = labels.reshape(-1)
     out = torch.zeros((num_segments,) + tuple(values.shape[1:]),
                       dtype=values.dtype, device=values.device)
     valid = (labels >= 0) & (labels < num_segments)
@@ -56,6 +152,15 @@ def segment_sum_plain(values: torch.Tensor, labels: torch.Tensor,
     return out
 
 
+def _check_plan(plan: SegmentPlan, labels: torch.Tensor, num_segments: int) -> None:
+    if (plan.shape != tuple(labels.shape) or plan.num_segments != num_segments
+            or plan.device != labels.device):
+        raise ValueError(f"segment_sum: the plan is of labels {plan.shape} on "
+                         f"{plan.device} with {plan.num_segments} segments, the call "
+                         f"of labels {tuple(labels.shape)} on {labels.device} with "
+                         f"{num_segments}")
+
+
 def _check_kernel_operands(values, labels, num_segments):
     if values.device.type != "cuda" or labels.device != values.device:
         raise ValueError(f"segment_sum: values on {values.device} and labels on "
@@ -63,46 +168,42 @@ def _check_kernel_operands(values, labels, num_segments):
     if values.dtype != torch.float32:
         raise TypeError(f"segment_sum: the kernel takes float32 values, got "
                         f"{values.dtype}")
-    if labels.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"segment_sum: integer labels expected, got {labels.dtype}")
-    if values.ndim not in (1, 2) or labels.ndim != 1 \
-            or values.shape[0] != labels.shape[0]:
-        raise ValueError(f"segment_sum: values (N,) or (N, K) and labels (N,) "
-                         f"expected, got {tuple(values.shape)} and "
-                         f"{tuple(labels.shape)}")
-    if num_segments < 1 or num_segments > 2 ** 31 - 2:
-        raise ValueError(f"segment_sum: num_segments {num_segments} out of range")
+    _check_labels(labels, num_segments)
+    if values.ndim not in (1, 2) or values.shape[0] != labels.numel():
+        raise ValueError(f"segment_sum: values (N,) or (N, K) for N labels expected, "
+                         f"got {tuple(values.shape)} and labels {tuple(labels.shape)}")
 
 
-def segment_sum(values: torch.Tensor, labels: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
-    """Per-segment sums, each accumulated in ascending pixel order; row 0 is
-    zero and labels outside [0, num_segments) are dropped. The CUDA kernel
-    for CUDA tensors, ``segment_sum_plain`` for CPU ones. On CUDA tensors
-    the wrapper builds a CSR view of the labels with integer ops and no host
-    sync (a stable sort, then each segment's start by a binary search in the
-    sorted labels), launches ``ark_segment_sum_launch`` on the current
-    stream and raises if the launch is refused; it never falls back.
-    ``segment_sum.launches`` counts kernel launches."""
+def segment_sum(values: torch.Tensor, labels: torch.Tensor, num_segments: int,
+                plan: Optional[SegmentPlan] = None) -> torch.Tensor:
+    """Per-segment sums of `values` (N,) or (N, K) keyed by `labels` ((H, W)
+    or (N,)), each accumulated in ascending pixel order; row 0 is zero and
+    labels outside [0, num_segments) are dropped. The CUDA kernel for CUDA
+    tensors, ``segment_sum_plain`` for CPU ones. `plan` is
+    ``segment_plan(labels, num_segments)``, built once per label image and
+    reused; without one, this call builds it. A plan of another shape,
+    device or `num_segments` raises. On CUDA tensors the wrapper launches
+    ``ark_segment_sum_launch`` on the current stream and raises if the
+    launch is refused; it never falls back. ``segment_sum.launches`` counts
+    kernel launches."""
+    if plan is not None:
+        _check_plan(plan, labels, num_segments)
     if values.device.type == "cpu" and labels.device.type == "cpu":
         return segment_sum_plain(values, labels, num_segments)
     _check_kernel_operands(values, labels, num_segments)
+    if plan is None:
+        plan = segment_plan(labels, num_segments)
     n, k = values.shape[0], (values.shape[1] if values.ndim == 2 else 1)
     vals = values.reshape(n, k).contiguous()
     out = torch.empty((num_segments, k), dtype=torch.float32, device=vals.device)
     if n == 0 or k == 0:
         return out.zero_().reshape((num_segments,) + tuple(values.shape[1:]))
-    sorted_labels, order = torch.sort(labels, stable=True)    # order: int64
-    # segment s is order[offsets[s]:offsets[s + 1]]; labels < 0 sort before
-    # offsets[0] and labels >= num_segments after offsets[num_segments]
-    offsets = torch.searchsorted(sorted_labels, torch.arange(
-        num_segments + 1, dtype=labels.dtype, device=labels.device))
     lib = _kernels.lib("segment_sum")
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         err = lib.ark_segment_sum_launch(
-            vals.data_ptr(), order.data_ptr(), offsets.data_ptr(), num_segments,
-            k, out.data_ptr(), stream)
+            vals.data_ptr(), plan.labels.data_ptr(), _row_width(labels),
+            plan.boxes.data_ptr(), num_segments, k, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: "
                            f"{lib.ark_segment_sum_error_string(err).decode()} "
@@ -136,15 +237,15 @@ def cell_sizes(labels: torch.Tensor, num_segments: int) -> torch.Tensor:
     """Pixel count per label; (num_segments,)."""
     return segment_sum(torch.ones(labels.numel(), dtype=torch.float32,
                                   device=labels.device),
-                       _flat(labels), num_segments)
+                       labels.to(torch.int32), num_segments)
 
 
 def channel_sums(images: torch.Tensor, labels: torch.Tensor,
                  num_segments: int) -> torch.Tensor:
     """Total intensity per (label, channel); (num_segments, C)."""
     c = images.shape[-1]
-    return segment_sum(images.reshape(-1, c).to(torch.float32), _flat(labels),
-                       num_segments)
+    return segment_sum(images.reshape(-1, c).to(torch.float32),
+                       labels.to(torch.int32), num_segments)
 
 
 def positive_pixel_counts(images: torch.Tensor, labels: torch.Tensor,
@@ -154,15 +255,16 @@ def positive_pixel_counts(images: torch.Tensor, labels: torch.Tensor,
     c = images.shape[-1]
     thr = torch.tensor(threshold, dtype=torch.float32, device=images.device)
     pos = (images.reshape(-1, c).to(torch.float32) > thr).to(torch.float32)
-    return segment_sum(pos, _flat(labels), num_segments)
+    return segment_sum(pos, labels.to(torch.int32), num_segments)
 
 
-def centroids(labels: torch.Tensor, num_segments: int) -> torch.Tensor:
+def centroids(labels: torch.Tensor, num_segments: int,
+              plan: Optional[SegmentPlan] = None) -> torch.Tensor:
     """(num_segments, 2) centroid (row, col) per label; NaN for an empty
     label and for row 0."""
     rr, cc = _pixel_coords(labels)
     sums = segment_sum(torch.stack([torch.ones_like(rr), rr, cc], dim=1),
-                       _flat(labels), num_segments)
+                       labels.to(torch.int32), num_segments, plan)
     return sums[:, 1:] / sums[:, :1]
 
 
@@ -172,15 +274,17 @@ def center_weighted_sums(images: torch.Tensor, labels: torch.Tensor,
     1 - d_inf(pixel, cell centroid) / (max-in-cell d_inf + 1), as the JAX
     package computes it (centroid pass, segment max, weighted sum)."""
     c = images.shape[-1]
-    seg = _flat(labels)
-    cent = centroids(labels, num_segments)
+    labels = labels.to(torch.int32)
+    seg = labels.reshape(-1).to(torch.int64)
+    plan = segment_plan(labels, num_segments)
+    cent = centroids(labels, num_segments, plan)
     rr, cc = _pixel_coords(labels)
-    own = cent[seg.to(torch.int64)]
+    own = cent[seg]
     dist = torch.maximum(torch.abs(rr - own[:, 0]), torch.abs(cc - own[:, 1]))
     dmax = segment_max(dist, seg, num_segments)
-    weights = 1.0 - dist / (dmax[seg.to(torch.int64)] + 1.0)
+    weights = 1.0 - dist / (dmax[seg] + 1.0)
     vals = images.reshape(-1, c).to(torch.float32) * weights[:, None]
-    return segment_sum(vals, seg, num_segments)
+    return segment_sum(vals, labels, num_segments, plan)
 
 
 def _perimeter_contributions(labels: torch.Tensor) -> torch.Tensor:
@@ -208,7 +312,7 @@ def crofton_perimeter(labels: torch.Tensor, num_segments: int) -> torch.Tensor:
     """Per-label perimeter by the 4-direction Cauchy-Crofton estimator,
     P = (pi/8)(n_h + n_v + (n_d1 + n_d2)/sqrt2), in one segment sum."""
     return segment_sum(_perimeter_contributions(labels).reshape(-1),
-                       _flat(labels), num_segments)
+                       labels.to(torch.int32), num_segments)
 
 
 def euler_numbers(labels: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -240,7 +344,7 @@ def euler_numbers(labels: torch.Tensor, num_segments: int) -> torch.Tensor:
         oy, ox = {0: (1, 1), 1: (1, 0), 2: (0, 1), 3: (0, 0)}[slot]
         padc = torch.nn.functional.pad(contrib, (0, 1, 0, 1))
         val = val + padc[oy:oy + h, ox:ox + w]
-    return segment_sum(val.reshape(-1), _flat(labels), num_segments)
+    return segment_sum(val.reshape(-1), labels.to(torch.int32), num_segments)
 
 
 def _features_from_central(m00, cy, cx, mu20, mu02, mu11, perimeter) -> dict:
@@ -280,12 +384,15 @@ def _central_moment_sums(labels: torch.Tensor, num_segments: int,
     m20/m00 - cy^2 subtracts two ~cy^2-sized terms: 37% eccentricity error at
     the far corner of 4096^2), so the two passes stay.
 
+    Both passes share one plan of the label image.
+
     Returns (m00, cy, cx, mu20, mu02, mu11, perimeter, extra_sums)."""
-    flat = _flat(labels)
-    idx = flat.to(torch.int64)
+    labels = labels.to(torch.int32)
+    idx = labels.reshape(-1).to(torch.int64)
+    plan = segment_plan(labels, num_segments)
     rr, cc = _pixel_coords(labels)
-    first = segment_sum(torch.stack([torch.ones_like(rr), rr, cc], dim=1), flat,
-                        num_segments)
+    first = segment_sum(torch.stack([torch.ones_like(rr), rr, cc], dim=1), labels,
+                        num_segments, plan)
     m00 = first[:, 0]
     safe = torch.clamp_min(m00, 1.0)
     cy, cx = first[:, 1] / safe, first[:, 2] / safe
@@ -296,7 +403,7 @@ def _central_moment_sums(labels: torch.Tensor, num_segments: int,
     second_in = torch.stack(cols, dim=1)
     if extra_cols is not None:
         second_in = torch.cat([second_in, extra_cols], dim=1)
-    second = segment_sum(second_in, flat, num_segments)
+    second = segment_sum(second_in, labels, num_segments, plan)
     mu20 = second[:, 0] / safe
     mu02 = second[:, 1] / safe
     mu11 = second[:, 2] / safe

@@ -1,8 +1,8 @@
 """Marker watershed: the native host flood, and the batched device floods.
 
 Port of ``ark_tpu/ops/watershed.py``. The host ``watershed`` and
-``label_components`` call the JAX package's jax-free native C++ kernels
-(``ark_tpu.native``, built with g++ on first use). The device floods compute
+``label_components`` call the port's copy of the JAX package's native C++
+kernels (``ark_tpu_torch.native``, built with g++ on first use). The device floods compute
 what the JAX package's compute, bit for bit: labels and convergence flags.
 
 Two engines, chosen by the module global ``_ENGINE`` as in the reference:
@@ -40,7 +40,7 @@ def watershed(image: np.ndarray, markers: np.ndarray,
               mask: np.ndarray = None) -> np.ndarray:
     """Marker-based watershed on `image` (flood ascending values), restricted
     to `mask`. 4-connected; returns int32 labels. Host (native C++)."""
-    from ark_tpu import native
+    from ark_tpu_torch import native
 
     lib = native.get_lib()
     image = np.ascontiguousarray(image, np.float32)
@@ -60,7 +60,7 @@ def watershed(image: np.ndarray, markers: np.ndarray,
 
 def label_components(mask: np.ndarray) -> np.ndarray:
     """4-connected component labeling via the native kernel (host)."""
-    from ark_tpu import native
+    from ark_tpu_torch import native
 
     lib = native.get_lib()
     mask = np.ascontiguousarray(mask.astype(bool), np.uint8)

@@ -3,8 +3,7 @@
 Port of ``ark_tpu/phenotyping/cell_cluster_utils.py``: SOM-column averages
 per cell cluster, the per-FOV (label x pixel-cluster) counts as one 2-D
 bincount, and the merge of the meta labels into the cell table. Host numpy
-and pandas, as in the JAX package; the file helpers of ``ark_tpu.io`` are
-imported inside the functions that read files.
+and pandas, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,6 +14,8 @@ import warnings
 import numpy as np
 import pandas as pd
 
+from ark_tpu_torch.io import feather_utils as feather
+from ark_tpu_torch.io import io_utils
 from ark_tpu_torch.utils.misc_utils import verify_in_list
 
 
@@ -74,8 +75,6 @@ def c2pc_counts_table(fov_labels, pixel_cluster_col):
            for c in all_clusters):
         cluster_ids = sorted(int(c) for c in all_clusters)
     else:
-        from ark_tpu.io import io_utils
-
         cluster_ids = io_utils.natsorted(all_clusters)
     count_cols = [f"{pixel_cluster_col}_{c}" for c in cluster_ids]
 
@@ -96,8 +95,6 @@ def create_c2pc_data(fovs, pixel_data_path, cell_table_path,
     Returns (raw counts table, counts normalized by cell_size) with columns
     `<pixel_cluster_col>_<cluster>`. Reads each FOV's label and cluster
     columns only, one FOV at a time."""
-    from ark_tpu.io import feather_utils as feather
-
     verify_in_list(provided_cluster_col=[pixel_cluster_col],
                    valid_cluster_cols=["pixel_som_cluster",
                                        "pixel_meta_cluster_rename"])
@@ -151,8 +148,6 @@ def add_consensus_labels_cell_table(base_dir, cell_table_path,
     """Merge the renamed cell meta clusters into the cohort cell table and
     save it as `<cell_table>_cell_labels.csv`; cells without one are
     'Unassigned'."""
-    from ark_tpu.io import io_utils
-
     io_utils.validate_paths([cell_table_path])
     cell_table = pd.read_csv(cell_table_path)
     if "segmentation_label" in cell_som_input_data.columns:

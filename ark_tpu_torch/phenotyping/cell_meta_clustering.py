@@ -2,8 +2,7 @@
 
 Port of ``ark_tpu/phenotyping/cell_meta_clustering.py``: host pandas and the
 port's ``PixieConsensusCluster`` (sklearn), fully in memory (cell tables are
-small). The file helpers of ``ark_tpu.io`` are imported inside the functions
-that use them.
+small).
 """
 
 from __future__ import annotations
@@ -13,6 +12,7 @@ import os
 import numpy as np
 import pandas as pd
 
+from ark_tpu_torch.io import io_utils
 from ark_tpu_torch.phenotyping import cell_cluster_utils, cluster_helpers
 from ark_tpu_torch.utils.misc_utils import verify_in_list
 
@@ -22,8 +22,6 @@ def cell_consensus_cluster(base_dir, cell_som_cluster_cols,
                            max_k=20, cap=3, seed=42, overwrite=False):
     """Consensus-cluster the cell SOM-average table; attach meta labels.
     Returns (PixieConsensusCluster, labeled input data)."""
-    from ark_tpu.io import io_utils
-
     som_expr_col_avg_path = os.path.join(base_dir, cell_som_expr_col_avg_name)
     io_utils.validate_paths([som_expr_col_avg_path])
     cluster_count_sub = pd.read_csv(som_expr_col_avg_path, nrows=1)
@@ -55,8 +53,6 @@ def generate_meta_avg_files(base_dir, cell_cc, cell_som_cluster_cols,
                             cell_meta_expr_col_avg_name, overwrite=False):
     """Save per-meta-cluster training-column averages; merge meta labels into
     the SOM-average table."""
-    from ark_tpu.io import io_utils
-
     som_expr_col_avg_path = os.path.join(base_dir, cell_som_expr_col_avg_name)
     meta_expr_col_avg_path = os.path.join(base_dir, cell_meta_expr_col_avg_name)
     io_utils.validate_paths([som_expr_col_avg_path])
@@ -89,8 +85,6 @@ def generate_meta_avg_files(base_dir, cell_cc, cell_som_cluster_cols,
 def apply_cell_meta_cluster_remapping(base_dir, cell_som_input_data,
                                       cell_remapped_name):
     """Apply the metacluster-GUI remap CSV to the cell data."""
-    from ark_tpu.io import io_utils
-
     cell_remapped_path = os.path.join(base_dir, cell_remapped_name)
     io_utils.validate_paths([cell_remapped_path])
     remapped = pd.read_csv(cell_remapped_path)
@@ -119,8 +113,6 @@ def generate_remap_avg_count_files(base_dir, cell_som_input_data,
                                    cell_som_expr_col_avg_name,
                                    cell_meta_expr_col_avg_name):
     """Refresh the SOM/meta average-count tables after a GUI remap."""
-    from ark_tpu.io import io_utils
-
     cell_remapped_path = os.path.join(base_dir, cell_remapped_name)
     som_expr_col_avg_path = os.path.join(base_dir, cell_som_expr_col_avg_name)
     meta_expr_col_avg_path = os.path.join(base_dir, cell_meta_expr_col_avg_name)

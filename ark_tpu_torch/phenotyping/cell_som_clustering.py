@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import os
 
+from ark_tpu_torch.io import io_utils
 from ark_tpu_torch.phenotyping import cell_cluster_utils, cluster_helpers
 from ark_tpu_torch.utils.misc_utils import verify_in_list
 
@@ -20,8 +21,6 @@ def train_cell_som(fovs, base_dir, cell_table_path, cell_som_cluster_cols,
                    overwrite=False, normalize=True, *, device):
     """Train the cell SOM on `cell_som_cluster_cols` on `device`; save the
     weights feather under `base_dir`. Returns the CellSOMCluster."""
-    from ark_tpu.io import io_utils
-
     som_weights_path = os.path.join(base_dir, som_weights_name)
     io_utils.validate_paths([cell_table_path])
     verify_in_list(provided_cluster_cols=cell_som_cluster_cols,

@@ -7,11 +7,8 @@ Port of ``ark_tpu/phenotyping/cluster_helpers.py``: ``PixieSOMCluster``
 in the JAX package) and ``PixieConsensusCluster`` (z-score/cap and the
 SOM->meta mapping, 1-indexed). The SOM trains and maps on the object's
 ``device`` through ``ark_tpu_torch.ops.som``; on a CUDA device the mapping
-runs the hand-written BMU kernel. The SOM weights file is read and written
-with pyarrow's feather functions (what ``ark_tpu.io.feather_utils`` calls),
-and the other file helpers of ``ark_tpu.io`` are imported inside the
-functions that use them, so that the cell SOM also runs where imageio (which
-``ark_tpu.io`` imports) is absent.
+runs the hand-written BMU kernel. Files go through the port's own
+``ark_tpu_torch.io``.
 """
 
 from __future__ import annotations
@@ -26,20 +23,10 @@ import numpy as np
 import pandas as pd
 from scipy.stats import zscore
 
+from ark_tpu_torch.io import feather_utils as feather
+from ark_tpu_torch.io.io_utils import list_files, validate_paths
 from ark_tpu_torch.ops import som as som_ops
 from ark_tpu_torch.utils.misc_utils import verify_in_list
-
-
-def _read_feather(path) -> pd.DataFrame:
-    from pyarrow import feather
-
-    return feather.read_feather(str(path))
-
-
-def _write_feather(df: pd.DataFrame, path) -> None:
-    from pyarrow import feather
-
-    feather.write_feather(df, str(path), compression="uncompressed")
 
 
 def verify_unique_meta_clusters(pixie_remapped_data: pd.DataFrame,
@@ -71,7 +58,7 @@ class PixieSOMCluster(ABC):
                  device="cuda"):
         self.weights_path = weights_path
         self.weights: Optional[pd.DataFrame] = (
-            _read_feather(weights_path) if os.path.exists(weights_path) else None)
+            feather.read_dataframe(weights_path) if os.path.exists(weights_path) else None)
         self.columns = columns
         self.num_passes = num_passes
         self.xdim = xdim
@@ -93,7 +80,7 @@ class PixieSOMCluster(ABC):
             num_passes=self.num_passes, lr_start=self.lr_start,
             lr_end=self.lr_end, seed=self.seed, device=self.device)
         self.weights = pd.DataFrame(w, columns=data.columns.values)
-        _write_feather(self.weights, self.weights_path)
+        feather.write_dataframe(self.weights, self.weights_path)
 
     def generate_som_clusters(self, external_data: pd.DataFrame,
                               num_parallel_obs: int = 1_000_000) -> np.ndarray:
@@ -124,9 +111,6 @@ class PixelSOMCluster(PixieSOMCluster):
         """Pixel-level SOM: training data = subsetted per-FOV feathers,
         normalization = divide by the 99.9% post-rownorm channel values
         (reference `cluster_helpers.py:166-301`)."""
-        from ark_tpu.io import feather_utils as feather
-        from ark_tpu.io.io_utils import list_files, validate_paths
-
         super().__init__(weights_path, columns, num_passes, xdim, ydim,
                          lr_start, lr_end, seed, device)
         validate_paths([norm_vals_path, pixel_subset_folder])
@@ -174,8 +158,6 @@ class PixelSOMCluster(PixieSOMCluster):
         columns round-trip through pandas (they feed the BMU kernel and,
         when `normalize_data`, are rewritten normalized); fov / row_index /
         column_index / label pass through as arrow buffers."""
-        from ark_tpu.io import feather_utils as feather
-
         cols = list(self.norm_data.columns)
         verify_in_list(norm_data_cols=cols,
                        external_data_cols=table.column_names)
@@ -312,8 +294,6 @@ class PixieConsensusCluster:
                  columns: List[str], max_k: int = 20, cap: float = 3):
         from sklearn.cluster import AgglomerativeClustering
 
-        from ark_tpu.io.io_utils import validate_paths
-
         verify_in_list(provided_cluster_type=cluster_type,
                        supported_cluster_types=["pixel", "cell"])
         validate_paths([input_file])
@@ -348,7 +328,7 @@ class PixieConsensusCluster:
         self.mapping.loc[:, self.meta_col] += 1
 
     def save_som_to_meta_map(self, save_path: pathlib.Path):
-        _write_feather(self.mapping, save_path)
+        feather.write_dataframe(self.mapping, save_path)
 
     def assign_consensus_labels(self, external_data: pd.DataFrame) -> pd.DataFrame:
         external_data[self.meta_col] = external_data[self.som_col].map(
@@ -360,8 +340,6 @@ class PixieConsensusCluster:
         SOM-label column into pandas, maps it through the SOM->meta table
         with the same `Series.map`, and passes every other column through
         as arrow buffers."""
-        from ark_tpu.io import feather_utils as feather
-
         som = table.column(self.som_col).to_pandas()
         meta = som.map(self.mapping.set_index(self.som_col)[self.meta_col])
         return feather.table_set_columns(table, {self.meta_col: meta})

@@ -17,10 +17,10 @@ import numpy as np
 import pandas as pd
 import torch
 
-from ark_tpu.io import feather_utils as feather
-from ark_tpu.io import io_utils, load_utils
-from ark_tpu.io.image_utils import save_image, read_image
-from ark_tpu.io.misc_utils import verify_in_list
+from ark_tpu_torch.io import feather_utils as feather
+from ark_tpu_torch.io import io_utils, load_utils
+from ark_tpu_torch.io.image_utils import save_image, read_image
+from ark_tpu_torch.utils.misc_utils import verify_in_list
 from ark_tpu_torch.ops import image_filters, quantiles
 
 

@@ -14,9 +14,9 @@ from typing import Tuple
 import numpy as np
 import pandas as pd
 
-from ark_tpu.io import feather_utils as feather
-from ark_tpu.io import io_utils
-from ark_tpu.io.misc_utils import verify_in_list
+from ark_tpu_torch.io import feather_utils as feather
+from ark_tpu_torch.io import io_utils
+from ark_tpu_torch.utils.misc_utils import verify_in_list
 from ark_tpu_torch.phenotyping import cluster_helpers, pixel_cluster_utils
 
 

@@ -12,9 +12,9 @@ import os
 from shutil import rmtree
 from typing import Tuple
 
-from ark_tpu.io import feather_utils as feather
-from ark_tpu.io import io_utils
-from ark_tpu.io.misc_utils import verify_in_list, verify_same_elements
+from ark_tpu_torch.io import feather_utils as feather
+from ark_tpu_torch.io import io_utils
+from ark_tpu_torch.utils.misc_utils import verify_in_list, verify_same_elements
 from ark_tpu_torch.phenotyping import cluster_helpers, pixel_cluster_utils
 
 

@@ -29,9 +29,10 @@ past the host budget take the write-now-append-meta-later path; outputs are
 identical either way. A device-to-host copy is a pinned ``non_blocking`` copy
 with a CUDA event (``_HostCopy``).
 
-The host IO layer (``ark_tpu.io`` and the port's modules over it) is imported
-inside the functions that read or write files, so the device phases import,
-and run, on a GPU host without the TIFF and sklearn stack.
+Host IO is the port's ``ark_tpu_torch.io``, which imports imageio only
+inside the functions that read or write TIFFs, and sklearn is imported only
+by consensus clustering, so the device phases import, and run, on a GPU host
+without the TIFF and sklearn stack.
 """
 
 from __future__ import annotations
@@ -45,9 +46,14 @@ import numpy as np
 import pandas as pd
 import torch
 
+from ark_tpu_torch.io import feather_utils as feather
+from ark_tpu_torch.io import io_utils
+from ark_tpu_torch.io import load_utils
+from ark_tpu_torch.io.image_utils import read_image
 from ark_tpu_torch.ops import quantiles
 from ark_tpu_torch.ops import som as som_ops
 from ark_tpu_torch.phenotyping import pixie_preprocessing
+from ark_tpu_torch.utils.misc_utils import verify_in_list
 
 _DEFAULT_HBM_CACHE_BYTES = 8 << 30
 # RAM-deferred write budget: normalized f64 matrices held on host between
@@ -208,10 +214,6 @@ def _load_fov_raw(tiff_dir, fov, channels, img_sub_folder, is_mibitiff,
                   seg_dir, seg_suffix):
     """One TIFF-tree load per FOV: (H, W, C) f32 in the given channel order
     plus the segmentation labels (or None)."""
-    from ark_tpu.io import load_utils
-    from ark_tpu.io.image_utils import read_image
-    from ark_tpu.io.misc_utils import verify_in_list
-
     if is_mibitiff:
         img_xr = load_utils.load_imgs_from_mibitiff(
             tiff_dir, mibitiff_files=[fov + ".tiff"])
@@ -293,9 +295,6 @@ def run_pixel_clustering(fovs, channels, base_dir, tiff_dir, seg_dir=None,
     """
     import pyarrow as pa
 
-    from ark_tpu.io import feather_utils as feather
-    from ark_tpu.io import io_utils
-    from ark_tpu.io.image_utils import read_image
     from ark_tpu_torch.phenotyping import (pixel_cluster_utils,
                                            pixel_meta_clustering,
                                            pixel_som_clustering)

@@ -7,9 +7,9 @@ on the host when the feather DataFrame is built. The channel-norm divide
 stays on the host (``channel_norm_divide``): the artifact contract is
 f32(f64 divide).
 
-The host IO layer (``ark_tpu.io``, which reads TIFFs through imageio) is
-imported inside the functions that read or write files, so the device
-functions here import, and run, on a GPU host without the TIFF stack.
+Host IO is the port's ``ark_tpu_torch.io``, which imports imageio only
+inside the functions that read or write TIFFs, so the device functions here
+import, and run, on a GPU host without the TIFF stack.
 
 File/resume contract preserved: per-FOV `.feather` files in `data_dir` and
 `subset_dir`, `channel_norm_pre_rownorm.feather`, `pixel_thresh.feather`, the
@@ -26,7 +26,12 @@ import numpy as np
 import pandas as pd
 import torch
 
+from ark_tpu_torch.io import feather_utils as feather
+from ark_tpu_torch.io import io_utils
+from ark_tpu_torch.io import load_utils
+from ark_tpu_torch.io.image_utils import read_image
 from ark_tpu_torch.ops import image_filters
+from ark_tpu_torch.utils.misc_utils import verify_in_list
 
 
 def channel_norm_divide(img_f32: np.ndarray,
@@ -76,8 +81,6 @@ def create_fov_pixel_data(fov, channels, img_data, seg_labels,
     indices (+ seg label), drop below-threshold and all-zero rows,
     row-normalize, subset a fraction for SOM training. Returns (pixel_mat,
     pixel_mat_subset) DataFrames."""
-    from ark_tpu.io import io_utils
-
     # reorder the DATA axis together with the names
     channels_sorted = io_utils.natsorted(channels)
     if list(channels_sorted) != list(channels):
@@ -109,11 +112,6 @@ def preprocess_fov(base_dir, tiff_dir, data_dir, subset_dir, seg_dir,
                    channel_norm_df, fov, device="cuda"):
     """Load one FOV, channel-normalize, run `create_fov_pixel_data`, and save
     the full + subsetted feathers (reference :83-185)."""
-    from ark_tpu.io import feather_utils as feather
-    from ark_tpu.io import load_utils
-    from ark_tpu.io.image_utils import read_image
-    from ark_tpu.io.misc_utils import verify_in_list
-
     if is_mibitiff:
         img_xr = load_utils.load_imgs_from_mibitiff(
             tiff_dir, mibitiff_files=[fov + ".tiff"])
@@ -162,8 +160,6 @@ def create_pixel_matrix(fovs, channels, base_dir, tiff_dir, seg_dir,
     channel percentiles + pixel threshold (resumable), preprocesses each
     outstanding FOV on `device`, accumulates per-FOV 99.9% post-rownorm
     quantiles, and saves their cohort mean as the SOM normalization values."""
-    from ark_tpu.io import feather_utils as feather
-    from ark_tpu.io import io_utils
     from ark_tpu_torch.phenotyping import pixel_cluster_utils
 
     channels = io_utils.natsorted(channels)

@@ -4,8 +4,7 @@ channel averages).
 Port of ``ark_tpu/phenotyping/weighted_channel_comp.py``. The one product
 over the whole cohort is a ``torch.matmul`` on `device` in full f32 (the
 JAX package leaves it to XLA, outside any Pallas kernel); it refuses to run
-with TF32 matmuls enabled. The rest is host pandas; the file helpers of
-``ark_tpu.io`` are imported inside the functions that read files.
+with TF32 matmuls enabled. The rest is host pandas.
 """
 
 from __future__ import annotations
@@ -16,6 +15,9 @@ import numpy as np
 import pandas as pd
 import torch
 
+from ark_tpu_torch.analysis import visualize
+from ark_tpu_torch.io import feather_utils as feather
+from ark_tpu_torch.io import io_utils
 from ark_tpu_torch.ops.som import _check_full_f32_matmul
 from ark_tpu_torch.utils.misc_utils import verify_in_list, verify_same_elements
 
@@ -78,9 +80,6 @@ def compute_cell_cluster_weighted_channel_avg(fovs, channels, base_dir,
                                               cell_cluster_data,
                                               cell_cluster_col="cell_meta_cluster"):
     """Average weighted marker expression per cell SOM/meta cluster."""
-    from ark_tpu.io import feather_utils as feather
-    from ark_tpu.io import io_utils
-
     path = os.path.join(base_dir, weighted_cell_channel_name)
     io_utils.validate_paths([path])
     verify_in_list(provided_cluster_col=[cell_cluster_col],
@@ -110,8 +109,6 @@ def generate_wc_avg_files(fovs, channels, base_dir, cell_cc,
                           cell_meta_cluster_channel_avg_name="cell_meta_cluster_channel_avg.csv",
                           overwrite=False):
     """Save weighted channel averages per cell SOM + meta cluster."""
-    from ark_tpu.io import io_utils
-
     weighted_channel_path = os.path.join(base_dir, weighted_cell_channel_name)
     som_avg_path = os.path.join(base_dir, cell_som_cluster_channel_avg_name)
     meta_avg_path = os.path.join(base_dir, cell_meta_cluster_channel_avg_name)
@@ -145,8 +142,6 @@ def generate_remap_avg_wc_files(fovs, channels, base_dir, cell_som_input_data,
                                 cell_som_cluster_channel_avg_name,
                                 cell_meta_cluster_channel_avg_name):
     """Refresh weighted channel average files after a GUI remap."""
-    from ark_tpu.io import io_utils
-
     cell_remapped_path = os.path.join(base_dir, cell_remapped_name)
     weighted_channel_path = os.path.join(base_dir, weighted_cell_channel_name)
     som_avg_path = os.path.join(base_dir, cell_som_cluster_channel_avg_name)
@@ -190,8 +185,6 @@ def generate_weighted_channel_avg_heatmap(cell_cluster_channel_avg_path,
     import matplotlib.patches as patches
     import matplotlib.pyplot as plt
     import scipy.stats as stats
-    from ark_tpu.analysis import visualize
-    from ark_tpu.io import io_utils
 
     io_utils.validate_paths([cell_cluster_channel_avg_path])
     verify_in_list(provided_cluster_col=[cell_cluster_col],

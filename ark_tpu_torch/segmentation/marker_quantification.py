@@ -6,10 +6,11 @@ sum of a FOV is a whole-FOV segment reduction on `device`
 segment-sum kernel), so the cell table is the JAX package's bit for bit in
 its sums; the convex-hull rasters run on `device` too, and the concavity
 counts and the table assembly on the host. The output has the schema and
-column order of ``ark_tpu.settings`` in ``ark_tpu.utils.labeled_array``'s
-DataArray. The functions that read files import ``ark_tpu.io`` inside, so
-that the in-memory entry points (``compute_marker_counts``,
-``create_marker_count_matrices``) also run where imageio is absent.
+column order of ``ark_tpu_torch.settings`` (the JAX package's) in the port's
+``DataArray``. Files go through ``ark_tpu_torch.io``, which imports imageio
+only inside its TIFF functions, so the in-memory entry points
+(``compute_marker_counts``, ``create_marker_count_matrices``) also run
+where imageio is absent.
 
 ``timings``, where a function takes it, is a dict that collects seconds per
 phase: ``device_reductions_s`` (uploads, segment reductions and their
@@ -29,8 +30,8 @@ import numpy as np
 import pandas as pd
 import torch
 
-from ark_tpu import settings
-from ark_tpu.utils.labeled_array import DataArray
+from ark_tpu_torch import settings
+from ark_tpu_torch.io import io_utils, load_utils
 from ark_tpu_torch.ops import convex as convex_ops
 from ark_tpu_torch.ops import segment_reduce
 from ark_tpu_torch.segmentation import segmentation_utils
@@ -39,6 +40,7 @@ from ark_tpu_torch.segmentation.regionprops_extraction import (CONVEX_PROPS,
                                                                RegionProp)
 from ark_tpu_torch.segmentation.signal_extraction import (EXTRACTION_FUNCTION,
                                                           EXTRACTION_FUNCTION_BATCH)
+from ark_tpu_torch.utils.labeled_array import DataArray
 from ark_tpu_torch.utils.misc_utils import verify_in_list, verify_same_elements
 
 # moment-derived props computed vectorized (no per-cell work); centroid_dif
@@ -465,8 +467,6 @@ def generate_cell_table(segmentation_dir, tiff_dir, img_sub_folder="TIFs",
     rerun loads finished FOVs instead of extracting them again; a parameter
     manifest invalidates parts written under other settings. The result of
     a resumed run equals a straight run bit for bit."""
-    from ark_tpu.io import io_utils, load_utils
-
     mask_types = ["whole_cell"] if mask_types is None else mask_types
     if fovs is None:
         fovs = io_utils.list_folders(tiff_dir)
@@ -631,8 +631,6 @@ def get_existing_mask_types(fov_names: List[str],
                             mask_names: List[str]) -> List[str]:
     """Unique mask-type suffixes present for the given FOVs; each mask binds
     to its longest matching FOV prefix."""
-    from ark_tpu.io import io_utils
-
     stripped = io_utils.remove_file_extensions(mask_names)
     result = []
     for item in stripped:

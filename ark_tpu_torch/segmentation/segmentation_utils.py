@@ -3,8 +3,7 @@ expression transforms, CSV concatenation, boundary images.
 
 Port of ``ark_tpu/segmentation/segmentation_utils.py``. Everything but
 ``save_segmentation_labels`` is numpy and pandas; the boundary image runs
-``find_boundaries`` on `device`. Host IO comes from ``ark_tpu.io``, imported
-inside the functions that read or write files.
+``find_boundaries`` on `device`. Host IO is the port's ``ark_tpu_torch.io``.
 """
 
 from __future__ import annotations
@@ -17,7 +16,10 @@ import numpy as np
 import pandas as pd
 import torch
 
-from ark_tpu import settings
+from ark_tpu_torch import settings
+from ark_tpu_torch.io import io_utils
+from ark_tpu_torch.io import load_utils
+from ark_tpu_torch.io.image_utils import save_image
 from ark_tpu_torch.ops import convex as convex_ops
 from ark_tpu_torch.ops import morphology
 from ark_tpu_torch.utils.misc_utils import verify_in_list
@@ -110,8 +112,6 @@ def transform_expression_matrix(cell_table, transform, transform_kwargs=None):
 def concatenate_csv(base_dir, csv_files, column_name="fov", column_values=None):
     """Concatenate CSVs, tagging each with a column value; saves
     combined_data.csv alongside."""
-    from ark_tpu.io import io_utils
-
     if column_values is None:
         column_values = io_utils.remove_file_extensions(csv_files)
     if len(column_values) != len(csv_files):
@@ -137,8 +137,6 @@ def save_segmentation_labels(segmentation_dir, data_dir, output_dir, fovs,
         raise NotImplementedError(
             "save_segmentation_labels(channels=...) draws overlays with "
             "plot_utils, which the port does not have yet")
-    from ark_tpu.io import load_utils
-    from ark_tpu.io.image_utils import save_image
 
     for fov in fovs:
         labels_da = load_utils.load_imgs_from_dir(

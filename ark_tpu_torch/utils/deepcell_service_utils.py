@@ -3,8 +3,8 @@
 Port of ``ark_tpu/utils/deepcell_service_utils.py::create_deepcell_output``:
 every ``<fov>.tiff`` 2-channel input is segmented by the port's in-process
 Mesmer on an explicit ``device``, and ``<fov>_whole_cell.tiff`` /
-``<fov>_nuclear.tiff`` int32 masks are written. The file IO is the JAX
-package's jax-free ``ark_tpu.io``, imported inside the function.
+``<fov>_nuclear.tiff`` int32 masks are written through the port's
+``ark_tpu_torch.io``.
 """
 
 from __future__ import annotations
@@ -13,6 +13,10 @@ import os
 from typing import Optional
 
 import numpy as np
+
+from ark_tpu_torch.io import io_utils
+from ark_tpu_torch.io.image_utils import read_image, save_image
+from ark_tpu_torch.utils.misc_utils import verify_in_list
 
 
 def create_deepcell_output(deepcell_input_dir, deepcell_output_dir, fovs=None,
@@ -26,9 +30,6 @@ def create_deepcell_output(deepcell_input_dir, deepcell_output_dir, fovs=None,
     Previously produced masks are skipped (resume semantics). `host`,
     `job_type` and `timeout` are accepted for compatibility and ignored;
     `zip_size` is the device batch size."""
-    from ark_tpu.io import io_utils
-    from ark_tpu.io.image_utils import read_image, save_image
-    from ark_tpu.io.misc_utils import verify_in_list
     from ark_tpu_torch.segmentation.mesmer import Mesmer
 
     try:

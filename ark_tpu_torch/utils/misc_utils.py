@@ -1,10 +1,8 @@
 """Argument checks of ``ark_tpu/io/misc_utils.py``, kept in the port.
 
 ``verify_in_list``, ``verify_same_elements`` and ``make_iterable`` are copies
-of the JAX package's. The port keeps its own because importing any
-``ark_tpu.io`` module runs ``ark_tpu/io/__init__.py``, which imports imageio,
-and the card's machine has no imageio: the quantification and cell-SOM paths
-validate their arguments there too.
+of the JAX package's, in one copy for the whole port (``ark_tpu_torch.io``
+keeps only ``save_figure`` of that module).
 """
 
 from __future__ import annotations

@@ -17,9 +17,12 @@ started together) and drives three paths on the card:
   benchmark's 8 x 512^2 and 3 x 1024^2 cohorts, the level flood with the
   kernel against the same flood with the plain round, and a small cohort's
   CPU and CUDA runs;
-- template 1's cell table and template 3's cell clustering: the segment-sum
-  kernel against index_add_ on a CPU copy and against itself, on dense
-  3 x 1024^2 masks (~1000 cells a FOV); the cell tables of the planted
+- template 1's cell table and template 3's cell clustering: the segment
+  plan and segment-sum kernels against their plain versions (the sums
+  against index_add_ on a CPU copy) and against themselves, on dense
+  3 x 1024^2 masks (~1000 cells a FOV) and on the planted cohort's
+  segmented masks, and one FOV's four sums as the cell table makes them;
+  the cell tables of the planted
   cohort's segmented masks and of the dense masks with 40 seeded channels
   through create_marker_count_matrices (nuclear counts, split nuclei, every
   default regionprop, and fast_extraction), held against the CPU port; and
@@ -29,7 +32,8 @@ started together) and drives three paths on the card:
 It exits non-zero, without the final result line, when there is no CUDA
 device or any phase fails. Its last line is one JSON object naming the
 device; the line before it lists every kernel of the paths with its
-launches in its path's run and its measured error and times.
+launches in its path's run, its measured error and times, and the least
+time the card could take for the same work.
 """
 
 from __future__ import annotations
@@ -72,6 +76,9 @@ DEVICE = "cuda"          # the segmentation phases' device
 # share of pixels whose e2e coverage may differ between the flood engines
 # (tie pixels of cells at the small-object limit)
 COVERAGE_TIE_SHARE = 1e-3
+# the least time the card could take: published H100 SXM peaks (700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -115,6 +122,25 @@ def near_ties(d):
 def plain_d(weights, data):
     w2 = (weights * weights).sum(1)
     return w2[None, :] - 2.0 * (data @ weights.T)
+
+
+def bound_ms(nbytes=0.0, flop=0.0):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the HBM
+    rate and the f32 operations over the f32 peak."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flop / F32_FLOP_PER_S * 1e3
+    return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")
+
+
+def share(bound, ms):
+    """The bound's share of a measured time (NaN for a time of 0 or None,
+    which only a rehearsal without a card, or a profiler that sees no device
+    time, gives)."""
+    return bound / ms if ms else float("nan")
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def time_ms(fn, reps=10):
@@ -175,7 +201,10 @@ def check_kernel(rng):
         print(f"bmu N={n} C={c} K={k}: index mismatches {int(differ.sum())}, "
               f"near-ties {int(ties.sum())}, max |dist err| {err:.3g}")
         if (n, c, k) == KERNEL_SHAPES[0]:
+            timing["bound_ms"], timing["bound_by"] = bound_ms(
+                nbytes=4.0 * (n * c + k * c + n), flop=2.0 * n * k * c)
             timing["ms"] = time_ms(lambda: som.bmu(w, x, return_dist=False))
+            timing["device_ms"] = device_ms(lambda: som.bmu(w, x, return_dist=False))
             timing["plain_ms"] = time_ms(
                 lambda: som.bmu_plain(w, x, return_dist=False))
             timing["dist_ms"] = time_ms(lambda: som.bmu(w, x, return_dist=True))
@@ -197,7 +226,11 @@ def check_kernel(rng):
     print(f"bmu at N={KERNEL_SHAPES[0][0]} C=16 K=100 (median of 10): kernel "
           f"{timing['ms']:.4f} ms, plain {timing['plain_ms']:.4f} ms; with "
           f"distances: kernel {timing['dist_ms']:.4f} ms, plain "
-          f"{timing['plain_dist_ms']:.4f} ms")
+          f"{timing['plain_dist_ms']:.4f} ms; kernel device time "
+          f"{fmt_ms(timing['device_ms'])}; bound {timing['bound_ms']:.4f} ms (f32 "
+          f"FMA), share {share(timing['bound_ms'], timing['ms']):.2f} of the kernel's "
+          f"time, {share(timing['bound_ms'], timing['device_ms']):.2f} of its device "
+          f"time")
     return max_err, timing
 
 
@@ -214,21 +247,25 @@ def claim_inputs(rng, shape, levels=256):
 def device_ms(fn, reps=10):
     """Device time per call of `fn` (every kernel and memset it launches),
     from torch.profiler over `reps` calls after one warm-up; None when the
-    profiler sees no device time."""
+    profiler sees no device time in two tries (a trace now and then comes
+    back empty)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    # device-side events only: an operator's entry repeats its kernels' time
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    return total_us / reps / 1e3 if total_us > 0 else None
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        # device-side events only: an operator's entry repeats its kernels' time
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / reps / 1e3
+    return None
 
 
 def check_claim_kernel(rng, levels=256):
@@ -269,9 +306,11 @@ def check_claim_kernel(rng, levels=256):
             mid = levels // 2
             kernel = lambda: watershed.claim_round(lab, q, mid)   # noqa: E731
             base = lambda: plain(lab, q, mid)                     # noqa: E731
+            # each pixel's label and level read once, its new label written once
             timing[shape] = {"ms": time_ms(kernel), "plain_ms": time_ms(base),
                              "device_ms": device_ms(kernel),
-                             "plain_device_ms": device_ms(base)}
+                             "plain_device_ms": device_ms(base),
+                             "bound_ms": bound_ms(nbytes=12.0 * lab.numel())[0]}
             print(f"claim {shape} one round: per call (CUDA events, median of "
                   f"10) kernel {timing[shape]['ms']:.4f} ms, plain "
                   f"{timing[shape]['plain_ms']:.4f} ms; device time per call "
@@ -394,8 +433,8 @@ def check_slice_outputs(out, n_nodes):
 def run_full_driver(raws, device):
     """All host packages present: run_pixel_clustering on a TIFF cohort in a
     temp dir and check its artifacts."""
-    from ark_tpu.io import feather_utils as feather
-    from ark_tpu.io.image_utils import save_image
+    from ark_tpu_torch.io import feather_utils as feather
+    from ark_tpu_torch.io.image_utils import save_image
     from ark_tpu_torch.phenotyping import pixie_fused
 
     fovs = [f"fov{i}" for i in range(len(raws))]
@@ -746,7 +785,8 @@ def dense_masks(seed=47, n_fovs=3, size=1024, n_cells=1000, cell_radius=17,
 
 def segment_inputs(rng, labels, k):
     """Values like the cell table's segment sums take: K = 3 is the centroid
-    pass ([1, r, c]), K = 4 + C the central-moment pass with C channels."""
+    pass ([1, r, c]), K = 4 + C the central-moment pass with C channels.
+    Returns the (H, W) labels and the (H*W, K) values, on the CPU."""
     import torch
 
     h, w = labels.shape
@@ -755,29 +795,44 @@ def segment_inputs(rng, labels, k):
         vals = np.stack([np.ones(h * w, np.float32), rr.ravel(), cc.ravel()], 1)
     else:
         vals = rng.gamma(1.0, 3.0, (h * w, k)).astype(np.float32)
-    return torch.as_tensor(labels.reshape(-1)), torch.as_tensor(vals)
+    return torch.as_tensor(labels), torch.as_tensor(vals)
 
 
-def check_segment_sum(masks):
-    """Phase 11: the segment-sum kernel against index_add_ on a CPU copy,
-    bitwise, and against a second CUDA run of itself, on 3 x 1024^2
-    whole-cell masks at K = 3 and K = 44; then per-call times of the kernel
-    (with its CSR build) and of CUDA index_add_."""
+def check_segment_sum(masks_by_comp, name="dense"):
+    """Phase 11, on 3 x 1024^2 masks (the dense ones, then the segmented
+    ones, as `name` says): the plan kernel (each
+    segment's bounding box) against segment_boxes_plain, and the segment-sum
+    kernel against index_add_ on a CPU copy, both bitwise, and against a
+    second CUDA run of itself with a fresh plan, at K = 3 and K = 44 on the
+    whole-cell masks; then, on FOV 0, per-call times of the plan, of the sum
+    given its plan, of both, of the plain version and of CUDA index_add_,
+    each beside its bound; and one FOV's segment sums as the default cell
+    table makes them (marker_quantification's _compartment_features ->
+    moment_and_channel_features: per compartment one plan, the K = 3 and the
+    K = 44 pass). Returns (max error of the sums, max error of the boxes,
+    timings)."""
     import torch
 
-    from ark_tpu_torch.ops import segment_reduce
+    from ark_tpu_torch.ops import segment_reduce as sr
 
+    masks = masks_by_comp["whole_cell"]
     rng = np.random.default_rng(44)
     timing = {}
-    max_err = 0.0
+    max_err, plan_err = 0.0, 0
     for k in (3, 4 + N_QUANT_CHANNELS):
         for i, lab in enumerate(masks):
             n_seg = int(lab.max()) + 1
             lab_cpu, val_cpu = segment_inputs(rng, lab, k)
             lab_gpu, val_gpu = lab_cpu.to(DEVICE), val_cpu.to(DEVICE)
-            got = segment_reduce.segment_sum(val_gpu, lab_gpu, n_seg)
-            again = segment_reduce.segment_sum(val_gpu, lab_gpu, n_seg)
-            want = segment_reduce.segment_sum_plain(val_cpu, lab_cpu, n_seg)
+            plan = sr.segment_plan(lab_gpu, n_seg)
+            if plan.boxes is not None:            # CUDA plans carry the boxes
+                boxes = sr.segment_boxes_plain(lab_gpu, n_seg)
+                plan_err = max(plan_err, int((plan.boxes - boxes).abs().max()))
+                check(torch.equal(plan.boxes, boxes), f"segment_plan FOV {i}: boxes "
+                      f"differ from segment_boxes_plain")
+            got = sr.segment_sum(val_gpu, lab_gpu, n_seg, plan)
+            again = sr.segment_sum(val_gpu, lab_gpu, n_seg)
+            want = sr.segment_sum_plain(val_cpu, lab_cpu, n_seg)
             torch.cuda.synchronize()
             err = float((got.cpu() - want).abs().max())
             max_err = max(max_err, err)
@@ -787,17 +842,74 @@ def check_segment_sum(masks):
             check(torch.equal(got, again), f"segment_sum K={k} FOV {i}: two "
                   f"CUDA runs differ")
             if i == 0:
-                timing[k] = {
-                    "ms": time_ms(lambda: segment_reduce.segment_sum(
-                        val_gpu, lab_gpu, n_seg)),
-                    "plain_ms": time_ms(lambda: segment_reduce.segment_sum_plain(
-                        val_gpu, lab_gpu, n_seg))}
-        print(f"segment_sum K={k} on {len(masks)} x {masks[0].shape} masks "
+                fg = int((lab > 0).sum())
+                flat = lab_gpu.reshape(-1).long()
+                box = sr.segment_boxes_plain(lab_gpu, n_seg).to(torch.int64)
+                box = box[box[:, 1] >= box[:, 0]]          # present labels only
+                box_px = ((box[:, 1] - box[:, 0] + 1) * (box[:, 3] - box[:, 2] + 1)).sum()
+                t = {"plan_ms": time_ms(lambda: sr.segment_plan(lab_gpu, n_seg)),
+                     "plain_plan_ms": time_ms(lambda: sr.segment_boxes_plain(lab_gpu,
+                                                                             n_seg)),
+                     "plan_device_ms": device_ms(lambda: sr.segment_plan(lab_gpu, n_seg)),
+                     "ms": time_ms(lambda: sr.segment_sum(val_gpu, lab_gpu, n_seg, plan)),
+                     "device_ms": device_ms(lambda: sr.segment_sum(val_gpu, lab_gpu, n_seg,
+                                                                   plan)),
+                     "plan_and_sum_ms": time_ms(lambda: sr.segment_sum(val_gpu, lab_gpu,
+                                                                       n_seg)),
+                     "plain_ms": time_ms(lambda: sr.segment_sum_plain(val_gpu, lab_gpu,
+                                                                      n_seg)),
+                     "library_ms": time_ms(lambda: torch.zeros(
+                         (n_seg, k), device=DEVICE).index_add_(0, flat, val_gpu)),
+                     # the foreground's values and every label read once, the
+                     # sums written once; the plan: labels in, boxes out
+                     "bound_ms": bound_ms(nbytes=4.0 * (fg * k + lab.size + n_seg * k))[0],
+                     "plan_bound_ms": bound_ms(nbytes=4.0 * lab.size + 16.0 * n_seg)[0],
+                     # the walk's label reads per foreground pixel (its cost model)
+                     "box_over_cell": float(box_px) / max(fg, 1)}
+                timing[k] = t
+        t = timing[k]
+        print(f"segment_sum K={k} on {len(masks)} x {masks[0].shape} {name} masks "
               f"({[int(m.max()) for m in masks]} max labels): bitwise equal to "
-              f"index_add_ on the CPU and across two CUDA runs; per call (CUDA "
-              f"events, median of 10) kernel with CSR build {timing[k]['ms']:.4f} ms, "
-              f"CUDA index_add_ {timing[k]['plain_ms']:.4f} ms")
-    return max_err, timing
+              f"index_add_ on the CPU and across two CUDA runs, boxes equal to "
+              f"the plain version's; FOV 0 per call (CUDA events, median of 10): "
+              f"plan {t['plan_ms']:.4f} ms (device {fmt_ms(t['plan_device_ms'])}; bound "
+              f"{t['plan_bound_ms']:.4f}, share {share(t['plan_bound_ms'], t['plan_ms']):.2f},"
+              f" {share(t['plan_bound_ms'], t['plan_device_ms']):.2f} of the device time; "
+              f"plain {t['plain_plan_ms']:.4f}), sum given its plan {t['ms']:.4f} ms "
+              f"(device {fmt_ms(t['device_ms'])}; bound {t['bound_ms']:.4f}, share "
+              f"{share(t['bound_ms'], t['ms']):.2f}, "
+              f"{share(t['bound_ms'], t['device_ms']):.2f} of the device time), both "
+              f"{t['plan_and_sum_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, CUDA "
+              f"index_add_ {t['library_ms']:.4f} ms; box area / cell area "
+              f"{t['box_over_cell']:.3f}")
+    values = {}
+    for comp in ("whole_cell", "nuclear"):
+        lab = masks_by_comp[comp][0]
+        values[comp] = (torch.as_tensor(lab, device=DEVICE), int(lab.max()) + 1,
+                        *(segment_inputs(rng, lab, k)[1].to(DEVICE)
+                          for k in (3, 4 + N_QUANT_CHANNELS)))
+
+    def fov_sums():
+        for lab, n_seg, v3, v44 in values.values():
+            plan = sr.segment_plan(lab, n_seg)
+            sr.segment_sum(v3, lab, n_seg, plan)
+            sr.segment_sum(v44, lab, n_seg, plan)
+
+    timing["fov_ms"] = time_ms(fov_sums)
+    timing["fov_device_ms"] = device_ms(fov_sums)
+    cols = 3 + 4 + N_QUANT_CHANNELS        # both passes' columns
+    timing["fov_bound_ms"] = sum(
+        bound_ms(nbytes=4.0 * (int((lab > 0).sum()) * cols + 2 * lab.numel()
+                               + n_seg * cols) + 4.0 * lab.numel() + 16.0 * n_seg)[0]
+        for lab, n_seg, _, _ in values.values())
+    print(f"segment sums of one {name} FOV's default cell table (2 compartments x "
+          f"(plan, K=3, K={4 + N_QUANT_CHANNELS})): {timing['fov_ms']:.4f} ms (CUDA "
+          f"events, median of 10), device {fmt_ms(timing['fov_device_ms'])}, bound "
+          f"{timing['fov_bound_ms']:.4f} ms, share "
+          f"{share(timing['fov_bound_ms'], timing['fov_ms']):.2f}, "
+          f"{share(timing['fov_bound_ms'], timing['fov_device_ms']):.2f} of the device "
+          f"time")
+    return max_err, plan_err, timing
 
 
 def quant_cohort(masks_by_comp, seed=45):
@@ -805,7 +917,7 @@ def quant_cohort(masks_by_comp, seed=45):
     (1, H, W, 40)). Each cell gets a seeded expression per channel, times
     its whole-cell mask, plus Poisson-like noise; also each cell's type
     (0-4), which the cell-clustering phase plants pixel clusters from."""
-    from ark_tpu.utils.labeled_array import DataArray
+    from ark_tpu_torch.utils.labeled_array import DataArray
 
     rng = np.random.default_rng(seed)
     out = []
@@ -855,7 +967,8 @@ def run_cell_table(cohort, masks_name):
     card: nuclear counts and split_large_nuclei, the default regionprops
     (all convex features, num_concavities included), and fast_extraction;
     held against the CPU port. Returns the segment-sum launches of the CUDA
-    run with the default regionprops, and the CUDA tables."""
+    run with the default regionprops, the plan kernel's launches in that
+    run, and the CUDA tables."""
     import torch
 
     from ark_tpu_torch.ops import segment_reduce
@@ -865,9 +978,10 @@ def run_cell_table(cohort, masks_name):
     mq.create_marker_count_matrices(cohort[0][0], cohort[0][1], device=DEVICE,
                                     **kw)                            # warm-up
     torch.cuda.synchronize()
-    tables, launches = {}, None
+    tables, launches, plan_launches = {}, None, None
     for fast in (False, True):
         segment_reduce.segment_sum.launches = 0
+        segment_reduce.segment_plan.launches = 0
         per_fov = []
         for seg, img, _ in cohort:
             timings = {}
@@ -878,8 +992,9 @@ def run_cell_table(cohort, masks_name):
             per_fov.append((time.perf_counter() - t0, timings))
         if not fast:
             launches = segment_reduce.segment_sum.launches
-            check(launches > 0, "the cell table never launched the segment-sum "
-                  "kernel")
+            plan_launches = segment_reduce.segment_plan.launches
+            check(launches > 0 and plan_launches > 0, "the cell table never "
+                  "launched the segment-sum and plan kernels")
         for wall, timings in per_fov:
             print(f"cell table {masks_name} masks, "
                   f"{'fast_extraction' if fast else 'default regionprops'}, "
@@ -905,7 +1020,11 @@ def run_cell_table(cohort, masks_name):
           f"derived-column difference {worst:.3g}")
     check(launches == 4 * len(cohort), f"segment_sum launches {launches}, "
           f"expected 4 per FOV (two passes per compartment)")
-    return launches, tables
+    check(plan_launches == 2 * len(cohort), f"segment_plan launches "
+          f"{plan_launches}, expected 2 per FOV (one per compartment)")
+    print(f"cell table {masks_name} masks: segment_sum launches {launches}, "
+          f"segment_plan launches {plan_launches} for {len(cohort)} FOVs")
+    return launches, plan_launches, tables
 
 
 def run_cell_clustering(cohort, tables, tmp_dir):
@@ -1042,29 +1161,42 @@ def main() -> int:
 
     # quantification (template 1's cell table) and cell clustering (template 3)
     dense = dense_masks()
-    seg_err, seg_timing = check_segment_sum(dense["whole_cell"])
-    seg_launches, _ = run_cell_table(quant_cohort(masks["3x1024"]), "segmented")
+    seg_err, plan_err, seg_timing = check_segment_sum(dense)
+    errs = check_segment_sum(masks["3x1024"], "segmented")[:2]
+    seg_err, plan_err = max(seg_err, errs[0]), max(plan_err, errs[1])
+    seg_launches, plan_launches, _ = run_cell_table(quant_cohort(masks["3x1024"]),
+                                                    "segmented")
     cohort = quant_cohort(dense)
-    _, tables = run_cell_table(cohort, "dense")
+    _, _, tables = run_cell_table(cohort, "dense")
     with tempfile.TemporaryDirectory() as tmp_dir:
         run_cell_clustering(cohort, tables, tmp_dir)
 
     claim_ms = claim_timing[CLAIM_TIMED[0]]
+    seg_ms = seg_timing[4 + N_QUANT_CHANNELS]
     print(json.dumps({"kernels": [{
         "name": "bmu", "route": "cuda", "source": "ark_tpu_torch/csrc/bmu.cu",
         "replaces": "ark_tpu/ops/som.py:132", "launches": bmu_launches,
-        "max_abs_err": max_err, "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"]}, {
+        "max_abs_err": max_err, "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+        "library_ms": None}, {
         "name": "watershed_claim", "route": "cuda",
         "source": "ark_tpu_torch/csrc/watershed_claim.cu",
         "replaces": "ark_tpu/ops/watershed.py:173", "launches": claim_launches,
         "max_abs_err": claim_err, "ms": claim_ms["ms"],
-        "plain_ms": claim_ms["plain_ms"]}, {
+        "plain_ms": claim_ms["plain_ms"], "bound_ms": claim_ms["bound_ms"],
+        "bound_by": "bytes", "library_ms": None}, {
         "name": "segment_sum", "route": "cuda",
         "source": "ark_tpu_torch/csrc/segment_sum.cu",
         "replaces": "ark_tpu/ops/segment_reduce.py:44", "launches": seg_launches,
-        "max_abs_err": seg_err, "ms": seg_timing[4 + N_QUANT_CHANNELS]["ms"],
-        "plain_ms": seg_timing[4 + N_QUANT_CHANNELS]["plain_ms"]}]}))
+        "max_abs_err": seg_err, "ms": seg_ms["ms"], "plain_ms": seg_ms["plain_ms"],
+        "bound_ms": seg_ms["bound_ms"], "bound_by": "bytes",
+        "library_ms": seg_ms["library_ms"]}, {
+        "name": "segment_plan", "route": "cuda",
+        "source": "ark_tpu_torch/csrc/segment_sum.cu",
+        "replaces": "ark_tpu/ops/segment_reduce.py:44", "launches": plan_launches,
+        "max_abs_err": plan_err, "ms": seg_ms["plan_ms"],
+        "plain_ms": seg_ms["plain_plan_ms"], "bound_ms": seg_ms["plan_bound_ms"],
+        "bound_by": "bytes", "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

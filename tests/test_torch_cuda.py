@@ -9,9 +9,10 @@ tests/conftest.py (which imports jax):
 Tolerances: the claim kernel and the floods are integer work, bitwise; BMU
 indices may differ only where the plain version's two best nodes are closer
 than 1e-6 * max(|d|, 1), and distances carry the f32 summation-order
-tolerance of tests/test_torch_som.py. The segment-sum kernel is bitwise
-equal to the plain version run on a CPU copy (row 0, the background, is
-zero on both) and to a second run of itself.
+tolerance of tests/test_torch_som.py; a duplicated node's tie goes to the
+lowest index. The segment-sum kernel is bitwise equal to the plain version
+run on a CPU copy (row 0, the background, is zero on both) and to a second
+run of itself, and the plan kernel's boxes equal its plain version's.
 """
 
 import numpy as np
@@ -51,6 +52,43 @@ def test_bmu_kernel_matches_plain_on_cuda(card):
         assert not bool(((idx_k != idx_p) & ~ties).any())
         torch.testing.assert_close(dist_k, dist_p, rtol=DIST_RTOL,
                                    atol=DIST_ATOL)
+
+
+def _bmu_matches_plain(card, rng, n, c, k, dup=False):
+    x = torch.as_tensor(pixel_rows(rng, n, c), device=card)
+    w0 = torch.as_tensor(pixel_rows(rng, k, c), device=card)
+    w = torch.cat([w0, w0]) if dup else w0    # every node twice: exact ties
+    idx_k, dist_k = tsom.bmu(w, x, return_dist=True)
+    idx_only, _ = tsom.bmu(w, x, return_dist=False)
+    idx_p, dist_p = tsom.bmu_plain(w, x, return_dist=True)
+    assert torch.equal(idx_k, idx_only)
+    if dup:
+        assert bool((idx_k < k).all()), "a duplicated node lost its tie"
+    d = (w0 * w0).sum(1)[None, :] - 2.0 * (x @ w0.T)
+    if k > 1:
+        two = torch.topk(d, 2, dim=1, largest=False).values
+        ties = (two[:, 1] - two[:, 0]) < 1e-6 * two[:, 0].abs().clamp_min(1)
+    else:
+        ties = torch.zeros(n, dtype=torch.bool, device=card)
+    assert not bool(((idx_k != idx_p) & ~ties).any())
+    torch.testing.assert_close(dist_k, dist_p, rtol=DIST_RTOL, atol=DIST_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 4, 5, 16, 20, 33, 64, 65])
+def test_bmu_kernel_register_widths_on_cuda(card, c):
+    """Every register width (C rounded up to 4 or 8) and the wide path,
+    across node counts at and past the 128-node chunk; N = 1037 is no
+    multiple of any block's rows."""
+    rng = np.random.default_rng(c)
+    for k in (1, 100, 128, 129, 300):
+        _bmu_matches_plain(card, rng, 1037, c, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [3, 16, 20, 64])
+def test_bmu_kernel_duplicated_nodes_on_cuda(card, c):
+    _bmu_matches_plain(card, np.random.default_rng(100 + c), 5000, c, 50, dup=True)
 
 
 @pytest.mark.cuda
@@ -110,6 +148,31 @@ def _segment_cases(rng):
     empty = np.zeros(64 * 64, np.int32)
     yield empty, rng.random((empty.size, 5), dtype=np.float32), 1
     yield empty[:0], np.zeros((0, 4), np.float32), 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 31, 32, 33, 44, 65, 200])
+def test_segment_sum_kernel_at_every_column_tile_on_cuda(card, k):
+    """Blob masks with out-of-range labels, at every K the walk tiles
+    differently: bitwise equal to index_add_ on a CPU copy, with the plan
+    built once and reused, and the plan kernel's boxes equal to
+    segment_boxes_plain."""
+    rng = np.random.default_rng(k)
+    lab_np = rng.integers(0, 40, (96, 130)).astype(np.int32)
+    lab_np[::7] = rng.integers(-3, 60, (14, 130))
+    lab = torch.as_tensor(lab_np, device=card)
+    vals = torch.as_tensor(rng.gamma(1.0, 3.0, (lab_np.size, k)).astype(np.float32),
+                           device=card)
+    n_seg = 50
+    before = TSR.segment_plan.launches
+    plan = TSR.segment_plan(lab, n_seg)
+    assert TSR.segment_plan.launches == before + 1
+    assert torch.equal(plan.boxes.cpu(), TSR.segment_boxes_plain(lab.cpu(), n_seg))
+    want = TSR.segment_sum_plain(vals.cpu(), lab.cpu(), n_seg)
+    for _ in range(2):
+        assert torch.equal(TSR.segment_sum(vals, lab, n_seg, plan).cpu(), want)
+    with pytest.raises(ValueError, match="plan"):
+        TSR.segment_sum(vals, lab, n_seg + 1, plan)
 
 
 @pytest.mark.cuda

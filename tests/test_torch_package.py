@@ -1,10 +1,11 @@
 """Package rules of the PyTorch port (ark_tpu_torch).
 
-The port never imports jax; its sources pass the repo's style gate; a
-kernel's wrapper on CPU tensors never builds or loads the CUDA library,
-while a tensor on any other device never falls back to the plain version;
-and the modules that run on the card import without the host packages the
-card's machine lacks (imageio, sklearn).
+The port never imports jax, nor anything of the JAX package ``ark_tpu``
+(whose ``__init__`` sets up jax's compilation cache); its sources pass the
+repo's style gate; a kernel's wrapper on CPU tensors never builds or loads
+the CUDA library, while a tensor on any other device never falls back to
+the plain version; and the modules that run on the card import without the
+host packages the card's machine lacks (imageio, sklearn).
 """
 
 import ast
@@ -64,6 +65,50 @@ def test_no_jax_import_in_sources():
             offenders += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
                           for n in names if n.split(".")[0] == "jax"]
     assert not offenders, offenders
+
+
+def _imported_names(path):
+    """(line, module) of every import in `path`, at any depth (inside
+    functions too)."""
+    with open(path, encoding="utf-8") as fh:
+        tree = ast.parse(fh.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            yield node.lineno, node.module or ""
+
+
+def test_no_ark_tpu_import_in_sources():
+    """No ``import ark_tpu`` or ``from ark_tpu[...] import`` anywhere in the
+    port or in chip_smoke.py, inside functions included."""
+    paths = list(_files((".py",))) + [os.path.join(REPO, "chip_smoke.py")]
+    offenders = [f"{os.path.relpath(path, REPO)}:{line} {name}"
+                 for path in paths for line, name in _imported_names(path)
+                 if name.split(".")[0] == "ark_tpu"]
+    assert not offenders, offenders
+
+
+def test_port_and_smoke_load_nothing_of_ark_tpu():
+    """Importing every port module and chip_smoke, with imageio and sklearn
+    blocked as on the card's machine, loads no ``ark_tpu`` module and leaves
+    jax's compilation-cache variable unset (``ark_tpu/__init__.py`` sets
+    it)."""
+    code = ("import importlib, os, sys\n"
+            "sys.modules['imageio'] = None\n"
+            "sys.modules['sklearn'] = None\n"
+            f"for m in {sorted(_modules()) + ['chip_smoke']!r}:\n"
+            "    importlib.import_module(m)\n"
+            "loaded = [m for m in sys.modules\n"
+            "          if m == 'ark_tpu' or m.startswith('ark_tpu.')]\n"
+            "assert not loaded, loaded\n"
+            "assert 'JAX_COMPILATION_CACHE_DIR' not in os.environ\n")
+    env = {k: v for k, v in os.environ.items() if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 @pytest.mark.parametrize("suffixes", [(".py",), (".cu", ".cuh")])
@@ -132,8 +177,8 @@ def test_segmentation_modules_are_under_the_package_rules():
 
 def test_ops_import_only_torch_numpy_and_the_stdlib():
     """Top-level imports of ark_tpu_torch.ops.*: torch, numpy, the stdlib
-    and the port itself (host helpers import ark_tpu's jax-free native
-    kernels inside the function that calls them)."""
+    and the port itself (host helpers import the port's native C++ kernels
+    inside the function that calls them)."""
     allowed = {"torch", "numpy", "ark_tpu_torch", "__future__"}
     offenders = []
     for path in _files((".py",)):
@@ -203,7 +248,7 @@ def test_card_modules_import_without_imageio_and_sklearn():
             f"for m in {QUANT_AND_CELL_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
             "import numpy as np\n"
-            "from ark_tpu.utils.labeled_array import DataArray\n"
+            "from ark_tpu_torch.utils.labeled_array import DataArray\n"
             "from ark_tpu_torch.segmentation import marker_quantification as q\n"
             "lab = np.zeros((1, 16, 16, 2), np.int32)\n"
             "lab[0, 2:9, 3:10] = 4\n"
@@ -216,7 +261,7 @@ def test_card_modules_import_without_imageio_and_sklearn():
             "    nuclear_counts=True, split_large_nuclei=True, device='cpu')\n"
             "assert norm['cell_size'].tolist() == [49.0], norm\n"
             "assert 'jax' not in sys.modules\n"
-            "assert not [m for m in sys.modules if m.startswith('ark_tpu.io')]\n")
+            "assert not [m for m in sys.modules if m.startswith('ark_tpu.')]\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)

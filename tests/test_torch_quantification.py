@@ -10,7 +10,8 @@ equivalent diameter and their ratios) are held to rtol = atol = 1e-6: torch
 and XLA round the eigenvalue arithmetic differently in the last bit.
 Nucleus matching, nucleus splitting and relabeling are integer work,
 bitwise. A checkpointed and resumed cell table equals a straight run bit
-for bit.
+for bit. The port's inputs are the port's own DataArray, the JAX package's
+its own, built from the same numpy arrays.
 """
 
 import copy
@@ -27,11 +28,12 @@ from ark_tpu.segmentation import marker_quantification as JQ
 from ark_tpu.segmentation import regionprops_extraction as JR
 from ark_tpu.segmentation import segmentation_utils as JU
 from ark_tpu.segmentation import signal_extraction as JE
-from ark_tpu.utils.labeled_array import DataArray
+from ark_tpu.utils.labeled_array import DataArray as JDataArray
 from ark_tpu_torch.segmentation import marker_quantification as TQ
 from ark_tpu_torch.segmentation import regionprops_extraction as TR
 from ark_tpu_torch.segmentation import segmentation_utils as TU
 from ark_tpu_torch.segmentation import signal_extraction as TE
+from ark_tpu_torch.utils.labeled_array import DataArray
 from tests import test_utils
 
 torch.set_num_threads(2)
@@ -60,14 +62,26 @@ def _fov(seed, shape=(80, 80)):
     return cells, nucs, imgs
 
 
-def _arrays(cells, nucs, imgs, fov="fov0"):
+def _arrays(cells, nucs, imgs, fov="fov0", cls=DataArray):
+    """(image, segmentation) labeled arrays of class `cls`: the port's
+    DataArray, or the JAX package's for its functions."""
     h, w = cells.shape
-    img = DataArray(imgs[None], coords={"fovs": [fov], "rows": np.arange(h),
-                                        "cols": np.arange(w), "channels": CHANNELS})
-    seg = DataArray(np.stack([cells, nucs], -1)[None],
-                    coords={"fovs": [fov], "rows": np.arange(h), "cols": np.arange(w),
-                            "compartments": ["whole_cell", "nuclear"]})
+    img = cls(imgs[None], coords={"fovs": [fov], "rows": np.arange(h),
+                                  "cols": np.arange(w), "channels": CHANNELS})
+    seg = cls(np.stack([cells, nucs], -1)[None],
+              coords={"fovs": [fov], "rows": np.arange(h), "cols": np.arange(w),
+                      "compartments": ["whole_cell", "nuclear"]})
     return img, seg
+
+
+def _as_jax(da):
+    """The same labeled array as the JAX package's DataArray."""
+    return JDataArray(da.values, coords=dict(da.coords), dims=da.dims)
+
+
+def _as_port(da):
+    """A copy of a JAX package DataArray as the port's DataArray."""
+    return DataArray(da.values.copy(), coords=dict(da.coords), dims=da.dims)
 
 
 def _base(col):
@@ -115,7 +129,7 @@ def test_compute_marker_counts_matches_jax(extraction, kwargs, nuclear):
               extraction=extraction, **kwargs)
     timings = {}
     got = TQ.compute_marker_counts(*args, device="cpu", timings=timings, **kw)
-    assert_marker_counts_equal(got, JQ.compute_marker_counts(*args, **kw))
+    assert_marker_counts_equal(got, JQ.compute_marker_counts(*map(_as_jax, args), **kw))
     assert set(timings) == {"device_reductions_s", "convex_s", "assembly_s"}
 
 
@@ -125,11 +139,13 @@ def test_create_marker_count_matrices_matches_jax(fast_extraction):
     kw = dict(nuclear_counts=True, split_large_nuclei=True,
               fast_extraction=fast_extraction)
     got = TQ.create_marker_count_matrices(seg, img, device="cpu", **kw)
-    want = JQ.create_marker_count_matrices(seg, img, **kw)
+    want = JQ.create_marker_count_matrices(_as_jax(seg), _as_jax(img), **kw)
     for g, w in zip(got, want):
         assert_tables_equal(g, w)
     with pytest.raises(ValueError, match="DataArray"):
         TQ.create_marker_count_matrices(seg.values, img, device="cpu")
+    with pytest.raises(ValueError, match="DataArray"):           # the JAX package's class
+        TQ.create_marker_count_matrices(_as_jax(seg), _as_jax(img), device="cpu")
 
 
 def test_empty_fov_warns_and_returns_empty():
@@ -240,11 +256,11 @@ def test_single_and_multi_compartment_helpers_match_jax():
     props = TQ.get_single_compartment_props(cells, device="cpu")
     want = JQ.get_single_compartment_props(cells)
     assert_tables_equal(props, want)
-    img, seg = _arrays(cells, nucs, imgs)
+    img, seg = _arrays(cells, nucs, imgs, cls=JDataArray)
     mc = JQ.compute_marker_counts(img.sel(fovs="fov0"), seg.sel(fovs="fov0"),
                                   nuclear_counts=True)
     names = list(mc.coords["features"])[1 + len(CHANNELS):-1]
-    blank_t, blank_j = copy.deepcopy(mc), copy.deepcopy(mc)
+    blank_t, blank_j = _as_port(mc), copy.deepcopy(mc)
     blank_t.values[0] = 0
     blank_j.values[0] = 0
     got = TQ.assign_single_compartment_features(
@@ -334,6 +350,8 @@ def test_smoke_quantification_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "MIN_CELLS", {"segmented": 10, "dense": 10})
     monkeypatch.setattr(chip_smoke, "COHORT_COPIES", 2)
     monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, reps=10: (fn(), 0.0)[1])
+    # a profiler that sees no device time, as on a machine without a card
+    monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, reps=10: (fn(), None)[1])
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     def counting(real):
         def counted(*a, **k):
@@ -343,14 +361,22 @@ def test_smoke_quantification_phases_rehearse_on_cpu(monkeypatch, tmp_path):
         counted.launches = 0
         return counted
 
-    for mod, name in ((segment_reduce, "segment_sum"), (som, "bmu")):
+    for mod, name in ((segment_reduce, "segment_sum"), (segment_reduce, "segment_plan"),
+                      (som, "bmu")):
         monkeypatch.setattr(mod, name, counting(getattr(mod, name)))
     masks = chip_smoke.dense_masks(n_fovs=2, size=96, n_cells=30, cell_radius=9,
                                    nuc_radius=3, nuc_shift=2)
-    err, timing = chip_smoke.check_segment_sum(masks["whole_cell"])
-    assert err == 0.0 and sorted(timing) == [3, 4 + chip_smoke.N_QUANT_CHANNELS]
+    err, plan_err, timing = chip_smoke.check_segment_sum(masks)
+    assert err == 0.0 and plan_err == 0
+    assert set(timing) == {3, 4 + chip_smoke.N_QUANT_CHANNELS, "fov_ms", "fov_device_ms",
+                           "fov_bound_ms"}
+    assert all(timing[k]["bound_ms"] > 0 for k in (3, 4 + chip_smoke.N_QUANT_CHANNELS))
+    # each box holds its cell: the walk reads at least one label a pixel
+    assert all(1.0 <= timing[k]["box_over_cell"] < 4.0
+               for k in (3, 4 + chip_smoke.N_QUANT_CHANNELS))
     cohort = chip_smoke.quant_cohort(masks)
-    launches, tables = chip_smoke.run_cell_table(cohort, "dense")
-    assert launches == 4 * len(cohort) and len(tables) == 2 * len(cohort)
+    launches, plan_launches, tables = chip_smoke.run_cell_table(cohort, "dense")
+    assert launches == 4 * len(cohort) and plan_launches == 2 * len(cohort)
+    assert len(tables) == 2 * len(cohort)
     chip_smoke.run_cell_clustering(cohort, tables, str(tmp_path))
     assert som.bmu.launches > 0

@@ -221,3 +221,99 @@ def test_relabel_segmentation_matches_jax(dtype, use_device):
     np.testing.assert_array_equal(
         TRL.build_lut(mapping, int(lab.max()), 0, dtype),
         JRL.build_lut(mapping, int(lab.max()), 0, dtype))
+
+
+# --- the plan: one per label image, reused by every sum over it -----------
+
+def _plan_case(rng, shape=(37, 53), n_labels=40):
+    """Labels with gaps, out-of-range ids (negative and past num_segments)
+    and a segment that wraps around the image's edge in raster order."""
+    lab = _blobs(rng, shape, n_labels, rmax=7)
+    lab[0, -3:] = 7
+    lab[1, :2] = 7                            # label 7 spans a row break
+    lab[rng.random(shape) < 0.02] = -4
+    lab[rng.random(shape) < 0.02] = n_labels + 30
+    return lab
+
+
+@pytest.mark.parametrize("k", [1, 3, 31, 32, 33, 44, 65])
+def test_segment_sum_with_a_plan_matches_plain(k):
+    """Edge cases at every column count the kernel tiles differently:
+    labels outside [0, num_segments) dropped, empty segments zero, one
+    segment (only the background), 1-D values for K = 1; a reused plan
+    gives the fresh call's sums."""
+    rng = np.random.default_rng(k)
+    lab = torch.as_tensor(_plan_case(rng))
+    s = int(lab.max()) - 10                   # some labels past num_segments
+    vals = torch.as_tensor(rng.gamma(1.0, 3.0, (lab.numel(), k)).astype(np.float32))
+    if k == 1:
+        vals = vals[:, 0]
+    plan = TSR.segment_plan(lab, s)
+    want = TSR.segment_sum_plain(vals, lab.reshape(-1), s)
+    for got in (TSR.segment_sum(vals, lab, s, plan), TSR.segment_sum(vals, lab, s, plan),
+                TSR.segment_sum(vals, lab, s)):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    absent = np.setdiff1d(np.arange(1, s), lab.numpy())
+    assert absent.size and not want[0].any() and not want[absent].any()
+    one = TSR.segment_sum(vals, lab, 1, TSR.segment_plan(lab, 1))
+    assert one.shape == (1,) + tuple(vals.shape[1:]) and not one.any()
+
+
+def test_mismatched_plan_raises():
+    lab = torch.as_tensor(_plan_case(np.random.default_rng(0)))
+    vals = torch.ones(lab.numel(), 3)
+    plan = TSR.segment_plan(lab, 20)
+    with pytest.raises(ValueError, match="plan"):
+        TSR.segment_sum(vals, lab, 21, plan)                     # num_segments
+    with pytest.raises(ValueError, match="plan"):
+        TSR.segment_sum(vals, lab.reshape(-1), 20, plan)         # shape
+    with pytest.raises(ValueError, match="plan"):
+        TSR.segment_sum(vals, lab.T.contiguous(), 20, plan)      # transposed image
+
+
+def test_boxes_hold_every_pixel_and_raster_order_is_pixel_order():
+    """The plan kernel's plain version gives each segment's tightest box
+    (empty for row 0 and absent labels); adding a segment's pixels while
+    scanning its box in raster order, as the walk does, is the sequential
+    scatter, bit for bit."""
+    rng = np.random.default_rng(5)
+    lab = _plan_case(rng)
+    s = int(lab.max()) - 10
+    boxes = TSR.segment_boxes_plain(torch.as_tensor(lab), s).numpy()
+    assert boxes.dtype == np.int32 and boxes.shape == (s, 4)
+    empty = [2 ** 31 - 1, -1, 2 ** 31 - 1, -1]
+    vals = rng.gamma(1.0, 3.0, (lab.size, 3)).astype(np.float32)
+    want = TSR.segment_sum_plain(torch.as_tensor(vals), torch.as_tensor(lab), s).numpy()
+    flat_vals = vals.reshape(lab.shape + (3,))
+    for seg in range(s):
+        ys, xs = np.nonzero(lab == seg)
+        if seg == 0 or ys.size == 0:
+            assert boxes[seg].tolist() == empty
+            continue
+        assert boxes[seg].tolist() == [ys.min(), ys.max(), xs.min(), xs.max()]
+        r0, r1, c0, c1 = boxes[seg]
+        acc = np.zeros(3, np.float32)
+        for r in range(r0, r1 + 1):
+            for c in range(c0, c1 + 1):
+                if lab[r, c] == seg:
+                    acc = acc + flat_vals[r, c]
+        np.testing.assert_array_equal(acc, want[seg])
+    flat = TSR.segment_boxes_plain(torch.as_tensor(lab.reshape(-1)), s).numpy()
+    rows = np.nonzero((flat[:, 0] != empty[0]))[0]
+    assert (flat[rows, 0] == 0).all() and (flat[rows, 1] == 0).all()    # one row
+
+
+def test_central_moment_sums_build_one_plan(monkeypatch):
+    """The two passes of one compartment share one plan."""
+    calls = []
+    real = TSR.segment_plan
+
+    def counting(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(TSR, "segment_plan", counting)
+    lab = LABELS["blobs"]
+    TSR.moment_and_channel_features(torch.ones(lab.shape + (2,)), torch.as_tensor(lab),
+                                    int(lab.max()) + 1)
+    assert len(calls) == 1
