@@ -4,9 +4,10 @@
 The reference returns `xarray.DataArray` objects from its loaders and its
 quantification; xarray is absent here and on the card's machine, so the
 API boundary uses this small container: named dims, per-dim coordinate
-labels, `.sel()`/`.isel()`/`.loc` selection and zero-copy `.values`. The
-JAX package's netCDF/HDF5 persistence is not copied: no port module writes
-a DataArray to disk.
+labels, `.sel()`/`.isel()`/`.loc` selection, zero-copy `.values`, and the
+JAX package's persistence: classic netCDF (the reference's `*_dist_mat.xr`
+format, through the port's ``utils/netcdf3.py``) and its legacy HDF5
+layout (h5py is imported only by the two HDF5 methods).
 """
 
 from __future__ import annotations
@@ -160,6 +161,74 @@ class DataArray:
     @property
     def loc(self):
         return DataArray._Loc(self)
+
+    # ---- persistence ----
+    def to_netcdf(self, path: str):
+        """Write as classic netCDF (CDF-2, 64-bit offsets) with xarray's
+        single-DataArray conventions: the byte format of the reference's
+        `to_netcdf(format='NETCDF3_64BIT')`
+        (`src/ark/analysis/spatial_analysis_utils.py:55-60`), so real
+        xarray and the JAX package open these files and vice versa."""
+        from ark_tpu_torch.utils import netcdf3
+        netcdf3.write(path, self.values, list(self.dims),
+                      {d: np.asarray(c) for d, c in self.coords.items()},
+                      name=self.name)
+
+    def to_h5(self, path: str):
+        import h5py
+        with h5py.File(path, "w") as f:
+            f.create_dataset("values", data=self.values)
+            f.attrs["dims"] = list(self.dims)
+            if self.name:
+                f.attrs["name"] = self.name
+            for d, c in self.coords.items():
+                c = np.asarray(c)
+                if c.dtype.kind in "UO":
+                    # h5py's variable-length utf-8 string dtype: a bare
+                    # astype('S') is ASCII-only and fails on marker names
+                    # like αSMA
+                    f.create_dataset(
+                        f"coords/{d}", data=[str(v) for v in c],
+                        dtype=h5py.string_dtype(encoding="utf-8"))
+                else:
+                    f.create_dataset(f"coords/{d}", data=c)
+
+    @staticmethod
+    def from_file(path: str) -> "DataArray":
+        """Open either on-disk layout by its magic bytes: classic netCDF
+        ('CDF\\x01'/'CDF\\x02', written by `to_netcdf`, real xarray, the
+        JAX package or the reference) or the legacy HDF5 layout."""
+        with open(path, "rb") as f:
+            magic = f.read(4)
+        if magic[:3] == b"CDF":
+            from ark_tpu_torch.utils import netcdf3
+            values, dims, coords, name, _ = netcdf3.read(path)
+            return DataArray(values, coords=coords, dims=dims, name=name)
+        return DataArray._from_h5_layout(path)
+
+    @staticmethod
+    def from_h5(path: str) -> "DataArray":
+        """The JAX package's reader name; opens both layouts, as
+        `from_file` does."""
+        return DataArray.from_file(path)
+
+    @staticmethod
+    def _from_h5_layout(path: str) -> "DataArray":
+        import h5py
+        with h5py.File(path, "r") as f:
+            values = f["values"][:]
+            dims = list(f.attrs["dims"])
+            name = f.attrs.get("name")
+            coords = {}
+            for d in dims:
+                c = f[f"coords/{d}"][:]
+                if c.dtype.kind == "S":         # legacy ascii files
+                    c = c.astype(str)
+                elif c.dtype.kind == "O":       # vlen utf-8 strings
+                    c = np.array([v.decode("utf-8") if isinstance(v, bytes)
+                                  else str(v) for v in c])
+                coords[d] = c
+        return DataArray(values, coords=coords, dims=dims, name=name)
 
     def equals(self, other: "DataArray") -> bool:
         return (self.dims == other.dims

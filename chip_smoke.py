@@ -52,7 +52,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 CHANNELS = [f"chan{i}" for i in range(16)]
-HOST_PACKAGES = ("pandas", "pyarrow", "sklearn", "imageio", "PIL")
+HOST_PACKAGES = ("pandas", "pyarrow", "sklearn", "imageio", "PIL", "tqdm", "h5py",
+                 "matplotlib", "seaborn")
 NEAR_TIE_RTOL = 1e-6
 DIST_RTOL, DIST_ATOL = 1e-5, 1e-6
 WEIGHTS_ATOL = 1e-4
@@ -1033,7 +1034,7 @@ def run_cell_clustering(cohort, tables, tmp_dir):
     tiled to 102 FOVs; CellSOMCluster's normalization, 10x10 training and
     BMU assignment on the card, held against the CPU port given the same
     weights; the weighted channel product on the card against the CPU.
-    Returns the BMU kernel's launches in the assignment."""
+    Returns the cells with their cell_som_cluster."""
     import pandas as pd
     import torch
 
@@ -1112,6 +1113,364 @@ def run_cell_clustering(cohort, tables, tmp_dir):
     print(f"weighted channel product ({len(cells)} x {len(count_cols)}) . "
           f"({len(count_cols)} x {N_QUANT_CHANNELS}) on cuda: {wc_s:.4f} s with the "
           f"table around it, within rtol {MATMUL_RTOL} of the CPU")
+    return labeled
+
+
+# --- spatial analysis (the neighborhood_analysis, mixing_scores,
+# cell_neighbors_analysis and spatial_enrichment templates)
+
+CARD = "no card"               # the card's name and power limit, set by main()
+SPATIAL_TYPES = [f"pheno{i:02d}" for i in range(20)]
+SPATIAL_CHANNELS = [f"chan{i}" for i in range(8)]
+# BASELINE config 5: 50,000 cells on a 5000-px stage, in 4096-row blocks
+BIG_CELLS, BIG_STAGE, BIG_BLOCK = 50_000, 5000.0, 4096
+# squared distances above D = 4 sum D products in another order on each
+# device: within 4 (D - 1) units of 2^-24 (|a|^2 + |b|^2), as in the CPU tests
+F32_EPS = 2.0 ** -24
+# float sums of the spatial steps run in another order on the card: k-NN
+# means within 1e-6 (as the CPU tests hold them to the JAX package),
+# inertia and silhouette within 1e-5
+KNN_RTOL, SWEEP_RTOL = 1e-6, 1e-5
+SPATIAL_TEMPLATE = dict(distlim=50, cluster_num=6, k=5, dist_lim=100,
+                        bootstrap_num=100)
+
+
+def spatial_cohort(seed=48, n_fovs=10, n_cells=3000, size=1024, n_niches=6,
+                   spread=60.0):
+    """A cell table with spatial structure, the size of a users' cohort (the
+    cohort benchmark's n_fovs=10, cells_per_fov=3000, 20 phenotypes): per
+    FOV `n_niches` niche centres; cells of the first half of the phenotypes
+    gather around their niche (type t around niche t mod n_niches, normal
+    with sd `spread`), the rest lie uniform. Columns as a cell table's:
+    cell_size, channels, label, centroids, fov, cell_meta_cluster."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    n_types = len(SPATIAL_TYPES)
+    profile = rng.gamma(0.7, 2.0, (n_types, len(SPATIAL_CHANNELS)))
+    frames = []
+    for f in range(n_fovs):
+        niches = rng.uniform(0.15 * size, 0.85 * size, (n_niches, 2))
+        types = rng.integers(0, n_types, n_cells)
+        pts = rng.uniform(0, size, (n_cells, 2))
+        near = types < n_types // 2
+        pts[near] = niches[types[near] % n_niches] + rng.normal(0, spread, (near.sum(), 2))
+        pts = np.clip(pts, 0, size - 1)
+        frame = pd.DataFrame(profile[types] * rng.uniform(0.5, 1.5, (n_cells, 1)),
+                             columns=SPATIAL_CHANNELS)
+        frame.insert(0, "cell_size", rng.integers(80, 400, n_cells).astype(float))
+        frame["label"] = np.arange(1, n_cells + 1)
+        frame["centroid-0"], frame["centroid-1"] = pts[:, 0], pts[:, 1]
+        frame["fov"] = f"fov{f}"
+        frame["cell_meta_cluster"] = [SPATIAL_TYPES[t] for t in types]
+        frames.append(frame)
+    return pd.concat(frames, ignore_index=True)
+
+
+def check_distances(rng):
+    """Spatial phase (a): the distance rules on the card against the CPU
+    port. D = 2: 3000 cells on a 1024^2 stage and a pair 1.5 px apart at
+    the far corner of a 5000-px stage, bitwise, exact-zero diagonal, the
+    close pair kept; D = 20, within the summation-order bound; neighbor
+    counts of 50,000 cells in 4096-row blocks, the first block bitwise
+    against the CPU port. Returns the timings."""
+    import torch
+
+    from ark_tpu_torch.ops import distances as dist_ops
+
+    t = {}
+    pts = np.concatenate([rng.uniform(0, 1024, (3000, 2)),
+                          [[5000.0, 5000.0], [5000.0, 4998.5]]]).astype(np.float32)
+    on_cpu = dist_ops.pairwise_distances(torch.as_tensor(pts), torch.as_tensor(pts),
+                                         zero_diagonal=True)
+    dev = torch.as_tensor(pts, device=DEVICE)
+    got = dist_ops.pairwise_distances(dev, dev, zero_diagonal=True)
+    check(torch.equal(got.cpu(), on_cpu), f"D = 2 distances: "
+          f"{int((got.cpu() != on_cpu).sum())} differ from the CPU port's")
+    check(bool((torch.diagonal(got) == 0).all()), "D = 2: the diagonal is not 0")
+    check(float(got[-2, -1]) == 1.5 == float(got[-1, -2]),
+          f"the far-corner pair 1.5 px apart: d = {float(got[-2, -1])}")
+    t["d2_ms"] = time_ms(lambda: dist_ops.pairwise_distances(dev, dev, zero_diagonal=True))
+    n = len(pts)
+    # the centroids read once, the (N, N) f32 matrix written once
+    t["d2_bound_ms"] = bound_ms(nbytes=4.0 * (2 * n * 2 + n * n), flop=3.0 * 2 * n * n)[0]
+
+    x = rng.poisson(3.0, (3000, 20)).astype(np.float32)
+    sq_cpu = dist_ops.squared_distances(torch.as_tensor(x), torch.as_tensor(x),
+                                        zero_diagonal=True).double()
+    xd = torch.as_tensor(x, device=DEVICE)
+    sq = dist_ops.squared_distances(xd, xd, zero_diagonal=True).cpu().double()
+    norms = (torch.as_tensor(x).double() ** 2).sum(1)
+    limit = 4 * 19 * F32_EPS * (norms[:, None] + norms[None, :])
+    worst = float(((sq - sq_cpu).abs() / limit).max())
+    check(worst <= 1.0, f"D = 20 squared distances beyond the summation-order "
+          f"bound: {worst:.3g} of it")
+    check(bool((torch.diagonal(sq) == 0).all()), "D = 20: the diagonal is not 0")
+    t["d20_bound_share"] = worst
+
+    coords = rng.uniform(0, BIG_STAGE, (BIG_CELLS, 2)).astype(np.float32)
+    onehot = np.eye(len(SPATIAL_TYPES), dtype=np.float32)[
+        rng.integers(0, len(SPATIAL_TYPES), BIG_CELLS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    counts = dist_ops.blocked_neighbor_counts(coords, onehot, 50.0,
+                                              block_rows=BIG_BLOCK, device=DEVICE)
+    t["big_s"] = time.perf_counter() - t0
+    t["big_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    first = dist_ops._neighbor_count_block(
+        torch.as_tensor(coords[:BIG_BLOCK]), torch.as_tensor(coords),
+        torch.as_tensor(onehot), 50.0, 0).numpy()
+    check(np.array_equal(counts[:BIG_BLOCK], first), f"neighbor counts of "
+          f"{BIG_CELLS} cells: the first block differs from the CPU port's at "
+          f"{int((counts[:BIG_BLOCK] != first).sum())} entries")
+    check(counts.sum() % 2 == 0 and counts.sum() > 0, "neighbor counts are not "
+          "symmetric pair counts")
+    print(f"spatial distances on {DEVICE} [{CARD}]: D=2 {n} cells bitwise equal to "
+          f"the CPU port, exact-zero diagonal, far-corner pair d = 1.5; "
+          f"{t['d2_ms']:.4f} ms per (N, N) matrix (CUDA events, median of 10; "
+          f"bound {t['d2_bound_ms']:.4f} ms); D=20 within {worst:.3g} of the "
+          f"summation-order bound; neighbor counts of {BIG_CELLS} cells in "
+          f"{BIG_BLOCK}-row blocks {t['big_s']:.3f} s, peak device memory "
+          f"{t['big_peak_gib']:.2f} GiB, first block bitwise equal to the CPU port, "
+          f"{int(counts.sum())} neighbor pairs")
+    return t
+
+
+def check_enrichment_null(table):
+    """Spatial phase (b): one FOV's enrichment (3000 cells, 20 phenotypes,
+    dist_lim 100, B = 100) on the card and on the CPU port, given the same
+    permutations: observed counts, the null and every statistic bitwise.
+    Times the null's products on the card. Returns the timings."""
+    import torch
+
+    from ark_tpu_torch.analysis import spatial_enrichment as se
+    from ark_tpu_torch.ops import distances as dist_ops
+
+    fov = table[table["fov"] == "fov0"]
+    pts = fov[["centroid-0", "centroid-1"]].to_numpy(np.float32)
+    dist = dist_ops.cdist(pts, device="cpu")
+    types = fov["cell_meta_cluster"].to_numpy()
+    pos = np.stack([(types == t) for t in SPATIAL_TYPES]).astype(np.float32)
+    b = SPATIAL_TEMPLATE["bootstrap_num"]
+    perms = se.draw_permutations(len(pts), b, seed=42)
+    got = se._enrichment(dist, pos, SPATIAL_TEMPLATE["dist_lim"], perms, DEVICE)
+    want = se._enrichment(dist, pos, SPATIAL_TEMPLATE["dist_lim"], perms, "cpu")
+    for key, val in want.items():
+        check(np.array_equal(got[key], val), f"enrichment {key}: CUDA and CPU differ")
+    dist_bin = dist_ops.close_pairs(torch.as_tensor(dist, device=DEVICE),
+                                    SPATIAL_TEMPLATE["dist_lim"])
+    pos_dev = torch.as_tensor(pos, device=DEVICE)
+    perms_dev = perms.to(DEVICE)
+    m, n = pos.shape
+    t = {"null_ms": time_ms(lambda: se._permutation_null(dist_bin, pos_dev, perms_dev)),
+         "null_device_ms": device_ms(lambda: se._permutation_null(dist_bin, pos_dev,
+                                                                  perms_dev)),
+         "null_bound_ms": bound_ms(nbytes=4.0 * (n * n + m * n + b * m * m) + 8.0 * b * n,
+                                   flop=2.0 * b * m * n * (n + m))[0],
+         "draw_ms": wall_ms(lambda: se.draw_permutations(n, b, seed=42))}
+    t["null_perms_per_s"] = b / (t["null_ms"] / 1e3)
+    print(f"enrichment null {n} cells x {m} phenotypes x B={b} on {DEVICE} [{CARD}]: "
+          f"observed counts, null and statistics bitwise equal to the CPU port "
+          f"given the same permutations; null products {t['null_ms']:.4f} ms "
+          f"(CUDA events, median of 10; device {fmt_ms(t['null_device_ms'])}; f32 "
+          f"bound {t['null_bound_ms']:.4f} ms), {t['null_perms_per_s']:.0f} "
+          f"permutations/s; drawing the {b} permutations on the host "
+          f"{t['draw_ms']:.4f} ms")
+    return t
+
+
+def spatial_steps(table, base, device, target, reference):
+    """The spatial templates' steps with their defaults, on `device`:
+    distance matrices to netCDF, the neighborhood matrix (distlim 50), the
+    inertia and silhouette sweeps (k = 2..10), the cluster results
+    (cluster_num 6), mixing scores, Shannon diversity, mean k-NN distances
+    (k = 5) and the enrichment of every FOV (dist_lim 100, B = 100).
+    Returns (outputs, seconds per step, calc_dist_matrix's split)."""
+    import pandas as pd
+    import torch
+
+    from ark_tpu_torch.analysis import cell_neighborhood_stats as cns
+    from ark_tpu_torch.analysis import neighborhood_analysis as na
+    from ark_tpu_torch.analysis import spatial_analysis_utils as sau
+    from ark_tpu_torch.analysis import spatial_enrichment as se
+
+    cfg = SPATIAL_TEMPLATE
+    dist_dir, nb_dir = os.path.join(base, "dist_mats"), os.path.join(base, "nb")
+    os.makedirs(dist_dir)
+    os.makedirs(nb_dir)
+    fovs = list(table["fov"].unique())
+    seconds, split, out = {}, {}, {"dist_dir": dist_dir}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return result
+
+    step("calc_dist_matrix", lambda: sau.calc_dist_matrix(table, dist_dir, device=device,
+                                                          timings=split))
+    counts, freqs = step("neighborhood_matrix", lambda: na.create_neighborhood_matrix(
+        table, dist_dir, distlim=cfg["distlim"], device=device))
+    out["counts"], out["freqs"] = counts, freqs
+    out["inertia"] = step("inertia_sweep", lambda: na.compute_cluster_metrics_inertia(
+        counts, device=device)).values
+    out["silhouette"] = step("silhouette_sweep", lambda: na.compute_cluster_metrics_silhouette(
+        counts, device=device)).values
+    out["clusters"] = step("cluster_results", lambda: na.generate_cluster_matrix_results(
+        table, counts, cluster_num=cfg["cluster_num"], device=device))
+    out["mixing"] = step("mixing_scores", lambda: [na.compute_mixing_score(
+        counts[counts["fov"] == f].copy(), target, reference, "percent") for f in fovs])
+    freqs.to_csv(os.path.join(
+        nb_dir, f"neighborhood_freqs-cell_meta_cluster_radius{cfg['distlim']}.csv"),
+        index=False)
+    out["diversity"] = step("diversity", lambda: cns.generate_neighborhood_diversity_analysis(
+        nb_dir, cfg["distlim"], ["cell_meta_cluster"]))
+    out["knn"] = step("cell_distances", lambda: cns.generate_cell_distance_analysis(
+        table, dist_dir, os.path.join(base, "cell_distances.csv"), cfg["k"], device=device))
+
+    def enrichment():
+        results, tables = {}, []
+        for fov in fovs:
+            names, res = se.calculate_cluster_spatial_enrichment(
+                fov, table, sau.load_dist_matrix(dist_dir, fov), dist_lim=cfg["dist_lim"],
+                bootstrap_num=cfg["bootstrap_num"], device=device)
+            results[fov] = res
+            stats = se.generate_enrichment_stats_table(names, res)
+            stats.insert(0, "fov", fov)
+            tables.append(stats)
+        return results, pd.concat(tables, ignore_index=True)
+
+    out["enrichment"], out["enrichment_table"] = step("enrichment", enrichment)
+    return out, seconds, split
+
+
+def spatial_outputs_agree(got, want, fovs, what):
+    """Spatial steps on the card against the CPU port: distance files,
+    neighborhood matrices, cluster results, mixing, diversity and the
+    enrichment bitwise; k-NN means within KNN_RTOL; the sweeps within
+    SWEEP_RTOL."""
+    import pandas as pd
+
+    from ark_tpu_torch.analysis import spatial_analysis_utils as sau
+
+    for fov in fovs:
+        a = sau.load_dist_matrix(got["dist_dir"], fov)
+        b = sau.load_dist_matrix(want["dist_dir"], fov)
+        check(np.array_equal(a.values, b.values) and all(
+            np.array_equal(a.coords[d], b.coords[d]) for d in a.dims),
+            f"{what} {fov}: distance files differ")
+    for key in ("counts", "freqs", "diversity"):
+        try:
+            pd.testing.assert_frame_equal(got[key], want[key], check_exact=True)
+        except AssertionError as e:
+            raise SmokeFailure(f"{what} {key}: CUDA and CPU differ: {e}") from e
+    for key in ("inertia", "silhouette"):
+        check(np.allclose(got[key], want[key], rtol=SWEEP_RTOL, atol=0),
+              f"{what} {key} sweep: {got[key]} vs {want[key]}")
+    for g, w in zip(got["clusters"], want["clusters"]):
+        try:
+            pd.testing.assert_frame_equal(g, w, check_exact=True)
+        except AssertionError as e:
+            raise SmokeFailure(f"{what} k-means cluster results differ: {e}") from e
+    check(all(a == b or (np.isnan(a[0]) and np.isnan(b[0]) and a[1] == b[1])
+              for a, b in zip(got["mixing"], want["mixing"])),
+          f"{what} mixing scores: {got['mixing']} vs {want['mixing']}")
+    try:
+        pd.testing.assert_frame_equal(got["knn"], want["knn"], rtol=KNN_RTOL)
+        pd.testing.assert_frame_equal(got["enrichment_table"], want["enrichment_table"],
+                                      check_exact=True)
+    except AssertionError as e:
+        raise SmokeFailure(f"{what}: CUDA and CPU differ: {e}") from e
+    for fov in fovs:
+        for key in ("close_num", "close_num_rand", "z", "p_adj"):
+            check(np.array_equal(got["enrichment"][fov][key], want["enrichment"][fov][key]),
+                  f"{what} {fov} enrichment {key}: CUDA and CPU differ")
+
+
+def device_profile(fn):
+    """(device seconds, the three entries with the most device time) of one
+    call of `fn`, from torch.profiler (kernels and copies)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:3]
+    return (sum(e.self_device_time_total for e in events) / 1e6,
+            [(e.key[:60], e.self_device_time_total / 1e6) for e in top])
+
+
+def run_spatial_stage(table, name, target, reference):
+    """Spatial phases (c) and (d): the templates' steps on the card, then on
+    the CPU port, held to each other; prints seconds per step,
+    permutations per second, the share of calc_dist_matrix's wall spent
+    writing netCDF, and the device's busy share (a second card run under
+    the profiler). Returns the card's seconds per step."""
+    from ark_tpu_torch.ops import segment_reduce, som, watershed
+
+    counters = (som.bmu, watershed.claim_round, segment_reduce.segment_sum,
+                segment_reduce.segment_plan)
+    fovs = list(table["fov"].unique())
+    with tempfile.TemporaryDirectory() as base:
+        for fn in counters:
+            fn.launches = 0
+        os.makedirs(os.path.join(base, "cuda"))
+        got, seconds, split = spatial_steps(table, os.path.join(base, "cuda"), DEVICE,
+                                            target, reference)
+        launches = [fn.launches for fn in counters]
+        os.makedirs(os.path.join(base, "profiled"))
+        busy_s, top = device_profile(lambda: spatial_steps(
+            table, os.path.join(base, "profiled"), DEVICE, target, reference))
+        os.makedirs(os.path.join(base, "cpu"))
+        t0 = time.perf_counter()
+        want, _, _ = spatial_steps(table, os.path.join(base, "cpu"), "cpu", target,
+                                   reference)
+        cpu_s = time.perf_counter() - t0
+        spatial_outputs_agree(got, want, fovs, name)
+    total = sum(seconds.values())
+    perms = len(fovs) * SPATIAL_TEMPLATE["bootstrap_num"]
+    z = np.concatenate([r["z"].ravel() for r in got["enrichment"].values()])
+    p_adj = np.concatenate([r["p_adj"].ravel() for r in got["enrichment"].values()])
+    print(f"spatial stage {name} ({len(fovs)} FOVs, {len(table)} cells, "
+          f"{table['cell_meta_cluster'].nunique()} phenotypes) on {DEVICE} [{CARD}]: "
+          f"{total:.3f} s; per step " + ", ".join(f"{k} {v:.4f}" for k, v in seconds.items())
+          + f"; enrichment {perms / seconds['enrichment']:.1f} permutations/s; "
+          f"calc_dist_matrix: netCDF writes {split['netcdf_write_s']:.4f} s "
+          f"({split['netcdf_write_s'] / seconds['calc_dist_matrix']:.1%} of its wall), "
+          f"waiting for distances {split['distances_s']:.4f} s; every step equal to "
+          f"the CPU port's (CPU run {cpu_s:.3f} s); kernel launches (bmu, claim, "
+          f"segment_sum, segment_plan) {launches}")
+    print(f"spatial stage {name}: device busy {busy_s:.4f} s of the {total:.3f} s "
+          f"stage ({busy_s / total:.1%}, profiled run); most device time: "
+          + "; ".join(f"{k} {v:.4f} s" for k, v in top))
+    print(f"spatial stage {name}: {len(got['counts'])} cells with neighbors, "
+          f"inertia k=2..10 {np.round(got['inertia'], 1).tolist()}, silhouette "
+          f"{np.round(got['silhouette'], 3).tolist()}, enrichment |z| max "
+          f"{np.abs(z).max():.2f}, pairs with p_adj < 0.05: {int((p_adj < 0.05).sum())} "
+          f"of {p_adj.size}")
+    return seconds
+
+
+def main_path_spatial_table(tables, labeled):
+    """Spatial phase (d)'s input: the dense cohort's cell tables (default
+    regionprops: centroids, cell size, channels) typed by the cell SOM's
+    cluster of each cell's first copy in the cell-clustering cohort."""
+    import pandas as pd
+
+    first = labeled[labeled["fov"].str.endswith("_copy0")].copy()
+    first["fov"] = first["fov"].str[:-len("_copy0")]
+    keep = ["cell_size", *QUANT_CHANNELS, "label", "centroid-0", "centroid-1", "fov"]
+    table = pd.concat([t[keep] for (fast, _), (t, _) in tables.items() if not fast],
+                      ignore_index=True)
+    table = table.merge(first[["fov", "label", "cell_som_cluster"]], on=["fov", "label"])
+    table["cell_meta_cluster"] = "som" + table.pop("cell_som_cluster").astype(str)
+    return table
 
 
 def main() -> int:
@@ -1123,7 +1482,9 @@ def main() -> int:
     from ark_tpu_torch.ops import _kernels
     from ark_tpu_torch.segmentation import synthetic
 
-    print(gpu_name_and_power())            # the card's name and power limit
+    global CARD
+    CARD = gpu_name_and_power()
+    print(CARD)                            # the card's name and power limit
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     missing = missing_host_packages()
@@ -1169,7 +1530,19 @@ def main() -> int:
     cohort = quant_cohort(dense)
     _, _, tables = run_cell_table(cohort, "dense")
     with tempfile.TemporaryDirectory() as tmp_dir:
-        run_cell_clustering(cohort, tables, tmp_dir)
+        labeled = run_cell_clustering(cohort, tables, tmp_dir)
+
+    # spatial analysis (the four spatial templates), then the main path's
+    # cells from masks to enrichment z-scores
+    check_distances(np.random.default_rng(49))
+    spatial = spatial_cohort()
+    check_enrichment_null(spatial)
+    run_spatial_stage(spatial, "10 x 3000 planted", SPATIAL_TYPES[:2],
+                      SPATIAL_TYPES[2:4])
+    main_table = main_path_spatial_table(tables, labeled)
+    by_size = main_table["cell_meta_cluster"].value_counts().index.tolist()
+    run_spatial_stage(main_table, "main path (dense cell tables, cell SOM types)",
+                      by_size[:10], by_size[10:20])
 
     claim_ms = claim_timing[CLAIM_TIMED[0]]
     seg_ms = seg_timing[4 + N_QUANT_CHANNELS]

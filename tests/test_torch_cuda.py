@@ -13,12 +13,24 @@ tolerance of tests/test_torch_som.py; a duplicated node's tie goes to the
 lowest index. The segment-sum kernel is bitwise equal to the plain version
 run on a CPU copy (row 0, the background, is zero on both) and to a second
 run of itself, and the plan kernel's boxes equal its plain version's.
+
+The spatial stage has no kernel of its own; its device work is held to the
+CPU port: distances (D <= 4), neighbor counts, distance files and the
+enrichment null given the same permutations bitwise; D > 4 within the
+summation-order bound of tests/test_torch_distances.py; k-means (f64, the
+same seeding on every device) to equal labels.
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
+from ark_tpu_torch.analysis import spatial_analysis_utils as TSA
+from ark_tpu_torch.analysis import spatial_enrichment as TSE
+from ark_tpu_torch.ops import distances as TD
+from ark_tpu_torch.ops import kmeans as TK
 from ark_tpu_torch.ops import segment_reduce as TSR
 from ark_tpu_torch.ops import som as tsom
 from ark_tpu_torch.ops import watershed as TW
@@ -202,3 +214,92 @@ def test_segment_sum_kernel_matches_plain_on_cuda(card):
         TSR.segment_sum(torch.ones(3, dtype=torch.float64, device=card), lab, 6)
     with pytest.raises(ValueError, match="CUDA"):
         TSR.segment_sum(torch.ones(3, device=card), lab.cpu(), 6)
+
+
+@pytest.mark.cuda
+def test_distances_and_neighbor_counts_match_cpu_on_cuda(card):
+    rng = np.random.default_rng(21)
+    for d in (1, 2, 3, 4):
+        pts = (5000 * (0.75 + 0.25 * rng.random((1500, d)))).astype(np.float32)
+        pts[1] = pts[0]
+        pts[1, 0] -= 1.5
+        cpu = torch.as_tensor(pts)
+        dev = cpu.to(card)
+        for zero in (False, True):
+            got = TD.pairwise_distances(dev, dev, zero_diagonal=zero)
+            assert torch.equal(got.cpu(), TD.pairwise_distances(cpu, cpu,
+                                                                 zero_diagonal=zero))
+        assert float(got[0, 1]) == 1.5 and bool((torch.diagonal(got) == 0).all())
+    x = rng.poisson(3.0, (900, 20)).astype(np.float32)
+    got = TD.squared_distances(torch.as_tensor(x, device=card),
+                               torch.as_tensor(x, device=card), True).cpu().double()
+    want = TD.squared_distances(torch.as_tensor(x), torch.as_tensor(x), True).double()
+    norms = (torch.as_tensor(x).double() ** 2).sum(1)
+    assert bool(((got - want).abs() <= 4 * 19 * 2.0 ** -24
+                 * (norms[:, None] + norms[None, :])).all())
+    assert bool((torch.diagonal(got) == 0).all())
+    coords = rng.uniform(0, 2000, (5000, 2)).astype(np.float32)
+    onehot = np.eye(6, dtype=np.float32)[rng.integers(0, 6, 5000)]
+    for block in (333, 4096):
+        got = TD.blocked_neighbor_counts(coords, onehot, 60.0, block_rows=block,
+                                         device=card)
+        assert np.array_equal(got, TD.blocked_neighbor_counts(
+            coords, onehot, 60.0, block_rows=block, device="cpu"))
+    dist = TD.cdist(coords[:800], device=card)
+    assert np.array_equal(dist, TD.cdist(coords[:800], device="cpu"))
+    got = TD.knn_mean_distance(torch.as_tensor(dist, device=card), 5).cpu()
+    torch.testing.assert_close(got, TD.knn_mean_distance(torch.as_tensor(dist), 5),
+                               rtol=1e-6, atol=0)
+    labels = rng.integers(0, 4, len(x))
+    assert TD.silhouette_score(x, labels, device=card) == pytest.approx(
+        TD.silhouette_score(x, labels, device="cpu"), rel=1e-5)
+
+
+@pytest.mark.cuda
+def test_dist_matrix_files_and_neighbor_counts_match_cpu_on_cuda(card, tmp_path):
+    import pandas as pd
+
+    rng = np.random.default_rng(22)
+    table = pd.DataFrame({"fov": np.repeat(["f1", "f2", "f3"], 400),
+                          "label": np.tile(np.arange(1, 401), 3),
+                          "centroid-0": rng.uniform(0, 1024, 1200),
+                          "centroid-1": rng.uniform(0, 1024, 1200),
+                          "cell_meta_cluster": rng.choice(["A", "B", "C"], 1200)})
+    for device in ("cpu", card):
+        os.makedirs(tmp_path / device)
+        TSA.calc_dist_matrix(table, str(tmp_path / device), device=device)
+    for fov in ("f1", "f2", "f3"):
+        got = TSA.load_dist_matrix(str(tmp_path / card), fov)
+        want = TSA.load_dist_matrix(str(tmp_path / "cpu"), fov)
+        assert got.equals(want)
+        cells = table[table["fov"] == fov]
+        for g, w in zip(TSA.compute_neighbor_counts(cells, got, 50, device=card),
+                        TSA.compute_neighbor_counts(cells, want, 50, device="cpu")):
+            pd.testing.assert_frame_equal(g, w, check_exact=True)
+
+
+@pytest.mark.cuda
+def test_enrichment_null_matches_cpu_on_cuda(card, monkeypatch):
+    rng = np.random.default_rng(23)
+    pts = rng.uniform(0, 600, (700, 2)).astype(np.float32)
+    dist = TD.cdist(pts, device="cpu")
+    pos = (rng.random((7, 700)) < 0.2).astype(np.float32)
+    perms = TSE.draw_permutations(700, 40, seed=9)
+    want = TSE._enrichment(dist, pos, 50, perms, "cpu")
+    got = TSE._enrichment(dist, pos, 50, perms, card)
+    monkeypatch.setattr(TSE, "NULL_CHUNK_BYTES", 3 * 2 * 4 * 7 * 700)
+    chunked = TSE._enrichment(dist, pos, 50, perms, card)
+    for key, val in want.items():
+        assert np.array_equal(got[key], val), key
+        assert np.array_equal(chunked[key], val), key
+
+
+@pytest.mark.cuda
+def test_kmeans_matches_cpu_on_cuda(card):
+    rng = np.random.default_rng(24)
+    data = rng.poisson(4.0, (3000, 12)).astype(np.float32)
+    for k in (2, 6, 10):
+        got, inertia = TK.kmeans(data, k, seed=7, device=card)
+        want, want_inertia = TK.kmeans(data, k, seed=7, device="cpu")
+        assert np.array_equal(got, want)
+        assert inertia == pytest.approx(want_inertia, rel=1e-12)

@@ -138,3 +138,30 @@ def test_settings_match():
 
     names = [n for n in dir(TS) if n.isupper()]
     assert names and all(getattr(TS, n) == getattr(JS, n) for n in names)
+
+
+ARRAYS = {"jax": JDataArray, "port": DataArray}
+
+
+@pytest.mark.parametrize("writer,reader", DIRECTIONS)
+@pytest.mark.parametrize("layout", ["netcdf", "h5"])
+def test_dist_matrix_round_trip(tmp_path, writer, reader, layout):
+    """A `<fov>_dist_mat.xr` written by one package's DataArray reads equal
+    through the other's `from_file` (netCDF-3, the reference's format) and
+    `from_h5` (the legacy HDF5 layout); string coords too."""
+    rng = np.random.default_rng(5)
+    d = rng.random((6, 6)).astype(np.float32)
+    np.fill_diagonal(d, 0.0)
+    for coords in ({"dim_0": np.arange(1, 7), "dim_1": np.arange(1, 7)},
+                   {"dim_0": [f"αSMA{i}" for i in range(6)], "dim_1": np.arange(6)}):
+        path = str(tmp_path / f"fov1_dist_mat_{layout}.xr")
+        arr = ARRAYS[writer](d, coords=coords)
+        (arr.to_netcdf if layout == "netcdf" else arr.to_h5)(path)
+        got = ARRAYS[reader].from_file(path)
+        want = JDataArray.from_file(path)
+        assert got.dims == want.dims == ("dim_0", "dim_1")
+        np.testing.assert_array_equal(got.values, d)
+        for dim in got.dims:
+            np.testing.assert_array_equal(got.coords[dim], want.coords[dim])
+            assert [str(v) for v in got.coords[dim]] == [str(v) for v in coords[dim]]
+        assert ARRAYS[reader].from_h5(path).equals(got)

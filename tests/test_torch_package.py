@@ -5,7 +5,8 @@ The port never imports jax, nor anything of the JAX package ``ark_tpu``
 repo's style gate; a kernel's wrapper on CPU tensors never builds or loads
 the CUDA library, while a tensor on any other device never falls back to
 the plain version; and the modules that run on the card import without the
-host packages the card's machine lacks (imageio, sklearn).
+host packages the card's machine may lack (imageio, sklearn, tqdm, h5py,
+matplotlib, seaborn).
 """
 
 import ast
@@ -23,6 +24,8 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "ark_tpu_torch")
+# host packages the card's machine may lack
+CARD_MISSING = ("imageio", "sklearn", "tqdm", "h5py", "matplotlib", "seaborn")
 
 
 def _files(suffixes):
@@ -91,13 +94,13 @@ def test_no_ark_tpu_import_in_sources():
 
 
 def test_port_and_smoke_load_nothing_of_ark_tpu():
-    """Importing every port module and chip_smoke, with imageio and sklearn
-    blocked as on the card's machine, loads no ``ark_tpu`` module and leaves
+    """Importing every port module and chip_smoke, with the host packages the
+    card's machine may lack blocked, loads no ``ark_tpu`` module and leaves
     jax's compilation-cache variable unset (``ark_tpu/__init__.py`` sets
     it)."""
     code = ("import importlib, os, sys\n"
-            "sys.modules['imageio'] = None\n"
-            "sys.modules['sklearn'] = None\n"
+            f"for blocked in {CARD_MISSING!r}:\n"
+            "    sys.modules[blocked] = None\n"
             f"for m in {sorted(_modules()) + ['chip_smoke']!r}:\n"
             "    importlib.import_module(m)\n"
             "loaded = [m for m in sys.modules\n"
@@ -223,6 +226,13 @@ def test_cpu_claim_round_never_touches_the_cuda_library(monkeypatch):
     assert watershed.claim_round.launches == before
 
 
+SPATIAL_MODULES = [
+    "ark_tpu_torch.utils.netcdf3", "ark_tpu_torch.ops.distances",
+    "ark_tpu_torch.ops.kmeans", "ark_tpu_torch.analysis.spatial_analysis_utils",
+    "ark_tpu_torch.analysis.spatial_enrichment",
+    "ark_tpu_torch.analysis.neighborhood_analysis",
+    "ark_tpu_torch.analysis.cell_neighborhood_stats",
+]
 QUANT_AND_CELL_MODULES = [
     "ark_tpu_torch.ops.segment_reduce", "ark_tpu_torch.ops.convex",
     "ark_tpu_torch.ops.relabel", "ark_tpu_torch.ops.morphology",
@@ -239,17 +249,23 @@ QUANT_AND_CELL_MODULES = [
 
 
 def test_card_modules_import_without_imageio_and_sklearn():
-    """The card's machine has neither imageio nor sklearn; the
-    quantification and cell-clustering modules import there, and the
-    in-memory cell table runs, with both blocked."""
-    code = ("import importlib, sys\n"
-            "sys.modules['imageio'] = None\n"
-            "sys.modules['sklearn'] = None\n"
-            f"for m in {QUANT_AND_CELL_MODULES!r}:\n"
+    """The card's machine may lack imageio, sklearn, tqdm, h5py, matplotlib
+    and seaborn; the quantification, cell-clustering and spatial modules
+    import there, and the in-memory cell table and a spatial run (distance
+    matrices to netCDF, neighbor counts, k-means, enrichment) work, with
+    all six blocked."""
+    code = ("import importlib, os, sys, tempfile\n"
+            f"for blocked in {CARD_MISSING!r}:\n"
+            "    sys.modules[blocked] = None\n"
+            f"for m in {QUANT_AND_CELL_MODULES + SPATIAL_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
             "import numpy as np\n"
+            "import pandas as pd\n"
             "from ark_tpu_torch.utils.labeled_array import DataArray\n"
             "from ark_tpu_torch.segmentation import marker_quantification as q\n"
+            "from ark_tpu_torch.analysis import neighborhood_analysis as na\n"
+            "from ark_tpu_torch.analysis import spatial_analysis_utils as sa\n"
+            "from ark_tpu_torch.analysis import spatial_enrichment as se\n"
             "lab = np.zeros((1, 16, 16, 2), np.int32)\n"
             "lab[0, 2:9, 3:10] = 4\n"
             "lab[0, 4:7, 4:7, 1] = 2\n"
@@ -260,13 +276,26 @@ def test_card_modules_import_without_imageio_and_sklearn():
             "    DataArray(img, coords={**c, 'channels': ['a', 'b']}),\n"
             "    nuclear_counts=True, split_large_nuclei=True, device='cpu')\n"
             "assert norm['cell_size'].tolist() == [49.0], norm\n"
+            "rng = np.random.default_rng(0)\n"
+            "t = pd.DataFrame({'fov': 'f', 'label': np.arange(1, 41),\n"
+            "                  'centroid-0': rng.uniform(0, 60, 40),\n"
+            "                  'centroid-1': rng.uniform(0, 60, 40),\n"
+            "                  'cell_meta_cluster': ['A', 'B'] * 20})\n"
+            "with tempfile.TemporaryDirectory() as d:\n"
+            "    sa.calc_dist_matrix(t, d, device='cpu')\n"
+            "    counts, _ = na.create_neighborhood_matrix(t, d, distlim=30, device='cpu')\n"
+            "    dm = sa.load_dist_matrix(d, 'f')\n"
+            "labels = sa.generate_cluster_labels(counts[['A', 'B']], 2, device='cpu')\n"
+            "names, res = se.calculate_cluster_spatial_enrichment(\n"
+            "    'f', t, dm, dist_lim=30, bootstrap_num=5, device='cpu')\n"
+            "assert set(labels) == {1, 2} and res['close_num'].shape == (2, 2)\n"
             "assert 'jax' not in sys.modules\n"
             "assert not [m for m in sys.modules if m.startswith('ark_tpu.')]\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert set(QUANT_AND_CELL_MODULES) <= set(_modules())
+    assert set(QUANT_AND_CELL_MODULES + SPATIAL_MODULES) <= set(_modules())
 
 
 def test_cpu_segment_sum_never_touches_the_cuda_library(monkeypatch):
