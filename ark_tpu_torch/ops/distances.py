@@ -74,6 +74,20 @@ def _sqrt(d2: torch.Tensor) -> torch.Tensor:
     return r
 
 
+def _sqrt_close(d2: torch.Tensor) -> torch.Tensor:
+    """f32 square root within an ulp of the exact one, in every process: one
+    f64 Newton step from torch's own estimate, (y + d2 / y) / 2, rounded to
+    f32, and no midpoint test (a third of ``_sqrt``'s passes). It brings an
+    estimate off by 3.3e-4, the worst seen of torch's first CPU sqrt of a
+    process (scripts/port_spatial_numerics.py), to within 6e-8. For sums of
+    many distances that are held to 1e-5."""
+    y = torch.sqrt(d2)
+    r = y.to(torch.float64)
+    r = r.addcdiv_(d2.to(torch.float64), r).mul_(0.5).to(torch.float32)
+    # y = 0 and y = inf give 0 / 0 and inf / inf: there y itself is right
+    return torch.where(torch.isnan(r), y, r)
+
+
 def _force_zero_diagonal(d: torch.Tensor, col_offset: int = 0) -> torch.Tensor:
     """d[i, i + col_offset] = 0 in place, by index, where that is in d."""
     first = max(0, -col_offset)
@@ -195,8 +209,9 @@ def _silhouette_block(block: torch.Tensor, row_labels: torch.Tensor,
                       counts: torch.Tensor, row_offset: int) -> torch.Tensor:
     """Per-point silhouette values of one row block: distance sums to every
     cluster by one (B, N) x (N, K) product, then (b - a) / max(a, b)."""
-    # a mean of N distances, held to 1e-5: torch's own sqrt is close enough
-    d = _force_zero_diagonal(squared_distances(block, data).sqrt_(), row_offset)
+    # a mean of N distances, held to 1e-5: within an ulp is close enough, but
+    # torch's own CPU sqrt is not always (the first call of a process)
+    d = _force_zero_diagonal(_sqrt_close(squared_distances(block, data)), row_offset)
     sums = d @ onehot                                             # (B, K)
     own_count = counts[row_labels]
     own_sum = torch.gather(sums, 1, row_labels[:, None])[:, 0]

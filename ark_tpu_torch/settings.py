@@ -39,3 +39,14 @@ REGIONPROPS_SINGLE_COMP = [
     "num_concavities",
 ]
 REGIONPROPS_MULTI_COMP = ["nc_ratio"]
+
+FIBER_OBJECT_PROPS = (
+    "label",
+    "centroid",
+    "major_axis_length",
+    "minor_axis_length",
+    "orientation",
+    "area",
+    "eccentricity",
+    "euler_number",
+)

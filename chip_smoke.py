@@ -5,7 +5,7 @@ Run from the repository root on a machine with an NVIDIA H100 and nvcc:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels (ark_tpu_torch/csrc/*.cu, one nvcc each,
-started together) and drives three paths on the card:
+started together) and drives these paths on the card:
 
 - the Pixie pixel clustering stage (template 2): the BMU kernel against its
   plain torch version at the stage's shapes, the stage at 4 x 1024^2 x 16,
@@ -27,7 +27,23 @@ started together) and drives three paths on the card:
   through create_marker_count_matrices (nuclear counts, split nuclei, every
   default regionprop, and fast_extraction), held against the CPU port; and
   the cell SOM (normalization, 10x10 training, BMU assignment) and the
-  weighted channel product on a ~100k-cell, 102-FOV cell cohort.
+  weighted channel product on a ~100k-cell, 102-FOV cell cohort;
+- spatial analysis (the four spatial templates), each step against the CPU
+  port: (a) the distance rules (a far-corner pair, D = 20, 50,000 cells'
+  blocked neighbor counts), (b) the enrichment null given the same
+  permutations, (c) the templates' steps on 10 FOVs x 3000 planted cells,
+  (d) the same steps on the main path's own cells (the dense cell tables
+  typed by the cell SOM);
+- the classical image ops with their two consumers, which launch no kernel
+  of their own: (e) the squared EDT bitwise against the CPU port (the ridge
+  mask, no background, all background, a ragged shape, 2048^2 with its peak
+  memory) and CLAHE, Frangi, Sobel and Meijering within their tolerance,
+  each timed with its launches; (f) the fiber stage with run_fiber_
+  segmentation's defaults on a planted-ridge 1024^2 FOV (seconds per step,
+  FOVs per second, the device's busy share, the segment-sum launches of its
+  property table), its labels held to the CPU port's by the near-threshold
+  rule, then calculate_fiber_alignment; (g) ez_seg's _create_object_mask at
+  1024^2 as a blob and as a projection, equal to the CPU port's.
 
 It exits non-zero, without the final result line, when there is no CUDA
 device or any phase fails. Its last line is one JSON object naming the
@@ -940,16 +956,16 @@ def quant_cohort(masks_by_comp, seed=45):
     return out
 
 
-def tables_agree(got, want, what):
-    """The CPU tests' rule: same schema; sums bitwise, DERIVED_COLUMNS within
-    DERIVED_TOL. Returns the largest difference in a derived column."""
+def tables_agree(got, want, what, derived=DERIVED_COLUMNS):
+    """The CPU tests' rule: same schema; sums bitwise, the `derived` columns
+    within DERIVED_TOL. Returns the largest difference in a derived column."""
     check(list(got.columns) == list(want.columns) and
           list(got.dtypes) == list(want.dtypes), f"{what}: schemas differ")
     worst = 0.0
     for col in want.columns:
         g, w = got[col].to_numpy(), want[col].to_numpy()
         base = col[:-len("_nuclear")] if col.endswith("_nuclear") else col
-        if base in DERIVED_COLUMNS:
+        if base in derived:
             check(np.allclose(g, w, rtol=DERIVED_TOL, atol=DERIVED_TOL,
                               equal_nan=True), f"{what} {col}: beyond {DERIVED_TOL}")
             both = np.isfinite(g) & np.isfinite(w)
@@ -1390,9 +1406,9 @@ def spatial_outputs_agree(got, want, fovs, what):
                   f"{what} {fov} enrichment {key}: CUDA and CPU differ")
 
 
-def device_profile(fn):
-    """(device seconds, the three entries with the most device time) of one
-    call of `fn`, from torch.profiler (kernels and copies)."""
+def device_events(fn):
+    """torch.profiler's device-side entries (kernels and copies, summed by
+    name) of one call of `fn`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1400,7 +1416,13 @@ def device_profile(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def device_profile(fn):
+    """(device seconds, the three entries with the most device time) of one
+    call of `fn`."""
+    events = device_events(fn)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:3]
     return (sum(e.self_device_time_total for e in events) / 1e6,
             [(e.key[:60], e.self_device_time_total / 1e6) for e in top])
@@ -1471,6 +1493,357 @@ def main_path_spatial_table(tables, labeled):
     table = table.merge(first[["fov", "label", "cell_som_cluster"]], on=["fov", "label"])
     table["cell_meta_cluster"] = "som" + table.pop("cell_som_cluster").astype(str)
     return table
+
+
+# --- the classical image ops, fiber segmentation and ez_seg
+
+# run_fiber_segmentation's defaults
+FIBER_DEFAULTS = dict(blur=2, contrast_scaling_divisor=128, fiber_widths=(1, 3, 5, 7, 9),
+                      ridge_cutoff=0.1, sobel_blur=1, min_fiber_size=15)
+# the classical ops' floats, the card against the CPU port: of each output's
+# largest magnitude (the CPU tests hold the port to the JAX package by the same)
+CLASSICAL_RTOL, CLASSICAL_ATOL = 1e-5, 1e-6
+# the near-threshold rule of the fiber labels. The ridge image is Frangi's
+# response x 10000, and the response's factor 1 - exp(-S^2 / 2 gamma^2) is a
+# difference from 1, so it moves in steps of 2^-24 (6e-4 after the scaling):
+# a ridge value within three steps of ridge_cutoff may fall on either side. A
+# blurred distance within DT_RTOL |cut| + DT_ATOL of a multi-Otsu cut may too.
+RIDGE_TOL = 2e-3
+DT_RTOL, DT_ATOL = 1e-5, 1e-6
+# a flipped mask pixel moves the distance map around it, and the two sigma-1
+# blurs after the EDT carry that 4 px each: an object within this many pixels
+# of a near-threshold pixel counts as that pixel's
+FLIP_REACH = 8
+# the most pixels the rule may excuse, as a share of the image
+EXCUSED_SHARE = 2e-3
+
+
+def fiber_image(rng, size=1024, n_fibers=60):
+    """The fiber benchmark's relief: `n_fibers` planted ridges (Gaussian
+    profile of sd 2 px, lengths 80-300 px, random angles) of height 0.6 on
+    noise 0.05 +/- 0.02, clipped to [0, 1]. Noise alone gives Frangi nothing
+    to enhance."""
+    img = rng.normal(0.05, 0.02, size=(size, size)).astype(np.float32)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    for _ in range(n_fibers):
+        x0, y0 = rng.uniform(0, size, 2)
+        theta = rng.uniform(0, np.pi)
+        length = rng.uniform(80, 300)
+        nx, ny = -np.sin(theta), np.cos(theta)  # ridge normal
+        tx, ty = np.cos(theta), np.sin(theta)
+        t = (xx - x0) * tx + (yy - y0) * ty
+        dist = np.abs((xx - x0) * nx + (yy - y0) * ny)
+        prof = np.exp(-(dist ** 2) / (2 * 2.0 ** 2))
+        prof *= ((t > 0) & (t < length))
+        img += 0.6 * prof
+    return np.clip(img, 0, 1)
+
+
+def near_threshold_pixels(steps, ridge_cutoff):
+    """The pixels of a ``_fiber_steps`` run that float noise may move across
+    a threshold: ridge values within RIDGE_TOL of `ridge_cutoff`, distances
+    within DT_RTOL |cut| + DT_ATOL of a multi-Otsu cut."""
+    from ark_tpu_torch.ops import classical
+
+    dt = steps["distance_transformed"]
+    near = np.abs(steps["ridges"] - ridge_cutoff) <= RIDGE_TOL
+    for cut in classical.multi_otsu(dt, classes=3):
+        near |= np.abs(dt - cut) <= DT_RTOL * abs(cut) + DT_ATOL
+    return near
+
+
+def fiber_labels_differ(got, want, ridge_cutoff):
+    """The near-threshold rule for two runs of ``_fiber_steps`` (with their
+    intermediates) on one image. A pixel differs when its pair of labels is
+    not the pairing most of its two objects' pixels have (so renumbering
+    does not count, and background is a label). It is excused only if, in
+    `want`, its ridge value lies within RIDGE_TOL of `ridge_cutoff`, or its
+    distance within DT_RTOL |cut| + DT_ATOL of a multi-Otsu cut, or its
+    object (an 8-connected component of either run's fibers, grown by
+    FLIP_REACH pixels) holds such a pixel. Returns (differing, excused, not excused)
+    pixel counts."""
+    from scipy import ndimage as ndi
+
+    a, b = got["labeled_filtered"], want["labeled_filtered"]
+    joint = np.bincount(a.ravel().astype(np.int64) * (int(b.max()) + 1) + b.ravel(),
+                        minlength=(int(a.max()) + 1) * (int(b.max()) + 1)
+                        ).reshape(int(a.max()) + 1, int(b.max()) + 1)
+    differ = (joint.argmax(1)[a] != b) | (joint.argmax(0)[b] != a)
+    if not differ.any():
+        return 0, 0, 0
+    near = near_threshold_pixels(want, ridge_cutoff)
+    eight = np.ones((3, 3), bool)
+    objects, _ = ndi.label(ndi.binary_dilation((a > 0) | (b > 0), structure=eight,
+                                               iterations=FLIP_REACH), structure=eight)
+    touched = np.unique(objects[near])
+    excused = near | np.isin(objects, touched[touched > 0])
+    return int(differ.sum()), int((differ & excused).sum()), int((differ & ~excused).sum())
+
+
+def check_fiber_labels(got, want, ridge_cutoff, what):
+    """Hold two fiber runs to the near-threshold rule; returns the text to
+    print."""
+    differ, excused, left = fiber_labels_differ(got, want, ridge_cutoff)
+    size = want["labeled_filtered"].size
+    check(left == 0, f"{what}: {left} label pixels differ away from any threshold")
+    check(excused <= EXCUSED_SHARE * size, f"{what}: the near-threshold rule excused "
+          f"{excused} pixels, more than {EXCUSED_SHARE:g} of the image")
+    return (f"{differ} label pixels differ, {excused} excused by the near-threshold "
+            f"rule (limit {int(EXCUSED_SHARE * size)}), {left} not")
+
+
+def kernels_per_call(fn):
+    """(device ms, kernels and copies launched) of one call of `fn` after
+    one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    events = device_events(fn)
+    return (sum(e.self_device_time_total for e in events) / 1e3,
+            sum(e.count for e in events))
+
+
+def floats_agree(got, want, what):
+    """`got` (a tensor on the card) against `want` (the CPU port's) within
+    CLASSICAL_RTOL and CLASSICAL_ATOL of want's largest magnitude; returns
+    the largest difference."""
+    import torch
+
+    got = got.cpu()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{what}: shape {tuple(got.shape)} or not finite")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=CLASSICAL_RTOL, atol=CLASSICAL_ATOL * scale),
+          f"{what}: the card and the CPU port differ by {err} (scale {scale})")
+    return err
+
+
+def check_classical_ops(img):
+    """Phase (e): the classical ops on the card against the CPU port. The
+    squared EDT bitwise (int32 min-plus) and its root bitwise: the planted
+    FOV's ridge mask at 1024^2, an image with no background, one that is all
+    background, a ragged (257, 1000) mask that crosses the 256-column block,
+    and a 2048^2 mask (held to scipy's transform too), with the peak device
+    memory. CLAHE, Frangi, Sobel and Meijering at 1024^2 within
+    CLASSICAL_RTOL; each timed (CUDA events and device time) with its
+    launches. Returns the timings."""
+    import torch
+    from scipy import ndimage as ndi
+
+    from ark_tpu_torch.ops import classical, edt
+
+    rng = np.random.default_rng(51)
+    h = img.shape[0]
+    x_cpu = torch.as_tensor(img / img.max())
+    x = x_cpu.to(DEVICE)
+    geometry = classical._clahe_geometry(h, h, h / FIBER_DEFAULTS["contrast_scaling_divisor"])
+    widths = FIBER_DEFAULTS["fiber_widths"]
+    contrast_cpu = classical._clahe_device(x_cpu, *geometry, 0.01, 256)
+    ridges_cpu = classical._frangi_device(contrast_cpu, widths)
+    masks = {"ridge mask": (ridges_cpu * 10000 > FIBER_DEFAULTS["ridge_cutoff"]).numpy(),
+             "no background": np.ones((h, h), bool),
+             "all background": np.zeros((h, h), bool),
+             "ragged (257, 1000)": rng.random((257, 1000)) < 0.99,
+             "2048^2": rng.random((2048, 2048)) < 0.999}
+    t = {}
+    for name, fg in masks.items():
+        fg_dev = torch.as_tensor(fg, device=DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        d2 = edt._edt2_int(fg_dev)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 20
+        d2_cpu = edt._edt2_int(torch.as_tensor(fg))
+        check(torch.equal(d2.cpu(), d2_cpu), f"squared EDT {name}: "
+              f"{int((d2.cpu() != d2_cpu).sum())} pixels differ from the CPU port's")
+        dist = edt.distance_transform_edt(fg_dev, device=DEVICE)
+        dist_cpu = edt.distance_transform_edt(fg, device="cpu")
+        check(torch.equal(dist.cpu(), dist_cpu), f"EDT {name}: the root differs from "
+              f"the CPU port's")
+        if fg.all():
+            check(bool(torch.isinf(dist).all()), "EDT with no background is not +inf")
+        else:
+            want = np.rint(ndi.distance_transform_edt(fg) ** 2).astype(np.int32)
+            check(np.array_equal(d2_cpu.numpy(), want), f"squared EDT {name} differs "
+                  f"from scipy's")
+        ms = time_ms(lambda: edt._edt2_int(fg_dev), reps=5)
+        t[name] = (ms, peak)
+        print(f"EDT {name} {fg.shape} on {DEVICE} [{CARD}]: squared transform and root "
+              f"bitwise equal to the CPU port's"
+              + ("" if fg.all() else ", squared transform equal to scipy's")
+              + f"; {ms:.3f} ms per squared transform (CUDA events, median of 5), peak "
+              f"device memory above its input {peak:.1f} MiB (pass-2 block limit "
+              f"{edt.PASS2_BYTES / 2 ** 20:.0f} MiB)")
+        del fg_dev, d2, dist
+
+    contrast = classical._clahe_device(x, *geometry, 0.01, 256)
+    dt_cpu = edt.distance_transform_edt(masks["ridge mask"], device="cpu")
+    dt = dt_cpu.to(DEVICE)
+    ops = {
+        "CLAHE": (lambda: classical._clahe_device(x, *geometry, 0.01, 256), contrast_cpu),
+        "Frangi": (lambda: classical._frangi_device(contrast, widths), ridges_cpu),
+        "Sobel": (lambda: classical.sobel(dt), classical.sobel(dt_cpu)),
+    }
+    for name, (fn, want) in ops.items():
+        err = floats_agree(fn(), want, name)
+        ms = time_ms(fn, reps=5)
+        dev_ms, launches = kernels_per_call(fn)
+        t[name] = (ms, dev_ms, launches)
+        print(f"{name} {h}^2 on {DEVICE} [{CARD}]: max |card - CPU port| {err:.3g} (scale "
+              f"{float(want.abs().max()):.3g}); {ms:.3f} ms per call (CUDA events, median "
+              f"of 5), device {dev_ms:.3f} ms in {launches} launches")
+    sigmas = range(1, 5)
+    binary = (x_cpu > 0.3).to(torch.float32).numpy()
+    want = torch.as_tensor(classical.meijering(binary, sigmas, device="cpu"))
+    err = floats_agree(torch.as_tensor(classical.meijering(binary, sigmas, device=DEVICE)),
+                       want, "Meijering")
+    ms = wall_ms(lambda: classical.meijering(binary, sigmas, device=DEVICE), reps=3)
+    dev_ms, launches = kernels_per_call(
+        lambda: classical.meijering(binary, sigmas, device=DEVICE))
+    t["Meijering"] = (ms, dev_ms, launches)
+    print(f"Meijering {h}^2 sigmas 1-4 on {DEVICE} [{CARD}]: max |card - CPU port| "
+          f"{err:.3g}; {ms:.3f} ms per call with its upload and readback (host clock, "
+          f"median of 3), device {dev_ms:.3f} ms in {launches} launches")
+    return t
+
+
+def run_fiber_stage(img):
+    """Phase (f): the fiber stage on the planted 1024^2 FOV on the card,
+    through ``_fiber_steps(keep_intermediates=False)`` (what
+    ``run_fiber_segmentation`` runs per FOV), ``_fiber_regionprops_table``
+    and ``calculate_fiber_alignment``: FOVs per second over 3 timed calls
+    after a warm one, seconds per step of a synchronised call, the device's
+    busy share under the profiler, the segment-sum launches, and the labels
+    held to the CPU port's by the near-threshold rule. Returns (segment-sum
+    launches, plan launches, timings)."""
+    import torch
+
+    from ark_tpu_torch import settings
+    from ark_tpu_torch.ops import segment_reduce
+    from ark_tpu_torch.segmentation import fiber_segmentation as fs
+
+    size = img.shape[0]
+    cutoff = FIBER_DEFAULTS["ridge_cutoff"]
+
+    def fov(x, device=DEVICE, **kw):
+        steps = fs._fiber_steps(x, size, *FIBER_DEFAULTS.values(), device=device, **kw)
+        table = fs._fiber_regionprops_table(steps["labeled_filtered"],
+                                            settings.FIBER_OBJECT_PROPS, device=device)
+        table.insert(0, settings.FOV_ID, "fov0")
+        return steps, fs.calculate_fiber_alignment(table, device=device)
+
+    fov(img, keep_intermediates=False)                                 # warm-up
+    torch.cuda.synchronize()
+    segment_reduce.segment_sum.launches = 0
+    segment_reduce.segment_plan.launches = 0
+    steps_only, walls = [], []
+    for i in range(3):
+        x = img * np.float32(1.0 + 1e-4 * (i + 1))
+        t0 = time.perf_counter()
+        fs._fiber_steps(x, size, *FIBER_DEFAULTS.values(), keep_intermediates=False,
+                        device=DEVICE)
+        steps_only.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        fov(x, keep_intermediates=False)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = segment_reduce.segment_sum.launches
+    plan_launches = segment_reduce.segment_plan.launches
+    check(launches == 9 and plan_launches == 6, f"fiber property tables of 3 FOVs: "
+          f"segment_sum launches {launches} (expected 9: two moment passes and the "
+          f"Euler numbers), segment_plan launches {plan_launches} (expected 6)")
+    split = {}
+    steps = fs._fiber_steps(img, size, *FIBER_DEFAULTS.values(), keep_intermediates=False,
+                            device=DEVICE, timings=split)
+    t0 = time.perf_counter()
+    table = fs._fiber_regionprops_table(steps["labeled_filtered"],
+                                        settings.FIBER_OBJECT_PROPS, device=DEVICE)
+    torch.cuda.synchronize()
+    split["property_table_s"] = time.perf_counter() - t0
+    table.insert(0, settings.FOV_ID, "fov0")
+    t0 = time.perf_counter()
+    fs.calculate_fiber_alignment(table, device=DEVICE)
+    split["alignment_s"] = time.perf_counter() - t0
+    busy_s, top = device_profile(lambda: fov(img, keep_intermediates=False))
+    wall = float(np.median(walls))
+    device_steps = ("blur_s", "clahe_s", "frangi_s", "edt_s", "sobel_s")
+    t = {"fov_s": wall, "steps_s": float(np.median(steps_only)), "busy_s": busy_s,
+         "split": split, "device_program_s": sum(split[k] for k in device_steps)}
+
+    got, got_table = fov(img, keep_intermediates=True)
+    t0 = time.perf_counter()
+    want, want_table = fov(img, device="cpu", keep_intermediates=True)
+    cpu_s = time.perf_counter() - t0
+    n_fibers = len(got_table)
+    check(n_fibers >= 10 and got["labeled_filtered"].dtype == np.int32
+          and got["labeled_filtered"].shape == img.shape, f"fiber stage: {n_fibers} fibers")
+    check(np.isfinite(got_table[["area", "major_axis_length", "orientation"]].to_numpy()
+                      ).all() and got_table["alignment_score"].notna().any(),
+          "fiber table: a property is not finite, or no fiber has an alignment score")
+    excused = check_fiber_labels(got, want, cutoff, "fiber labels, card against CPU port")
+    if np.array_equal(got["labeled_filtered"], want["labeled_filtered"]):
+        worst = tables_agree(got_table, want_table, "fiber table",
+                             DERIVED_COLUMNS | {"orientation", "alignment_score"})
+        table_note = f"property tables equal (derived columns within {worst:.3g})"
+    else:
+        table_note = "property tables not compared (the labels differ)"
+    print(f"fiber stage {size}^2 planted FOV on {DEVICE} [{CARD}]: {wall:.4f} s per FOV "
+          f"with its property table and alignment ({1 / wall:.2f} FOVs/s; median of 3 "
+          f"after a warm call, walls {[round(w, 4) for w in walls]}); _fiber_steps alone "
+          f"{t['steps_s']:.4f} s ({1 / t['steps_s']:.2f} FOVs/s); {n_fibers} fibers, "
+          f"{int(got_table['alignment_score'].notna().sum())} with an alignment score; "
+          f"segment_sum launches {launches}, segment_plan launches {plan_launches} for 3 "
+          f"FOVs; seconds per step (synchronised call): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f"; device program {t['device_program_s']:.4f} s")
+    print(f"fiber stage: device busy {busy_s:.4f} s of the {wall:.4f} s FOV "
+          f"({busy_s / wall:.1%}, profiled run); most device time: "
+          + "; ".join(f"{k} {v:.4f} s" for k, v in top))
+    print(f"fiber stage, card against CPU port (CPU run {cpu_s:.3f} s): {excused}; "
+          f"{table_note}")
+    return launches, plan_launches, t
+
+
+def ez_seg_image(rng, img):
+    """ez_seg's input at the fiber FOV's size: the planted ridges (the
+    projections) plus 40 bright disks of radius 6-20 px (the blobs)."""
+    size = img.shape[0]
+    out = img.copy()
+    yy, xx = np.mgrid[:size, :size]
+    for _ in range(40):
+        cy, cx = rng.uniform(0, size, 2)
+        out[(yy - cy) ** 2 + (xx - cx) ** 2 <= rng.uniform(6, 20) ** 2] += 0.8
+    return out
+
+
+def run_ez_seg(img):
+    """Phase (g): ez_seg's ``_create_object_mask`` at 1024^2 with
+    thresh="auto", hole_size="auto", fov_dim=400, as a blob and as a
+    projection, on the card against the CPU port (equal masks)."""
+    from ark_tpu_torch.segmentation.ez_seg import ez_object_segmentation as ez
+
+    x = ez_seg_image(np.random.default_rng(52), img)
+    t = {}
+    for shape in ("blob", "projection"):
+        kw = dict(object_shape_type=shape, thresh="auto", hole_size="auto", fov_dim=400)
+        ez._create_object_mask(x, device=DEVICE, **kw)                 # warm-up
+        t0 = time.perf_counter()
+        got = ez._create_object_mask(x, device=DEVICE, **kw)
+        t[shape] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = ez._create_object_mask(x, device="cpu", **kw)
+        cpu_s = time.perf_counter() - t0
+        n = len(np.unique(got)) - 1
+        check(got.shape == x.shape and n >= 10, f"ez_seg {shape}: {n} objects")
+        check(np.array_equal(got, want), f"ez_seg {shape}: {int((got != want).sum())} "
+              f"pixels differ from the CPU port's mask")
+        print(f"ez_seg _create_object_mask {shape} {x.shape[0]}^2 on {DEVICE} [{CARD}]: "
+              f"{t[shape]:.4f} s, {n} objects, mask equal to the CPU port's (CPU run "
+              f"{cpu_s:.3f} s)")
+    return t
 
 
 def main() -> int:
@@ -1544,6 +1917,12 @@ def main() -> int:
     run_spatial_stage(main_table, "main path (dense cell tables, cell SOM types)",
                       by_size[:10], by_size[10:20])
 
+    # the classical image ops, fiber segmentation and ez_seg
+    fiber_fov = fiber_image(np.random.default_rng(3))
+    check_classical_ops(fiber_fov)
+    fiber_launches, fiber_plan_launches, _ = run_fiber_stage(fiber_fov)
+    run_ez_seg(fiber_fov)
+
     claim_ms = claim_timing[CLAIM_TIMED[0]]
     seg_ms = seg_timing[4 + N_QUANT_CHANNELS]
     print(json.dumps({"kernels": [{
@@ -1561,12 +1940,14 @@ def main() -> int:
         "name": "segment_sum", "route": "cuda",
         "source": "ark_tpu_torch/csrc/segment_sum.cu",
         "replaces": "ark_tpu/ops/segment_reduce.py:44", "launches": seg_launches,
+        "launches_by_path": {"cell_table": seg_launches, "fiber": fiber_launches},
         "max_abs_err": seg_err, "ms": seg_ms["ms"], "plain_ms": seg_ms["plain_ms"],
         "bound_ms": seg_ms["bound_ms"], "bound_by": "bytes",
         "library_ms": seg_ms["library_ms"]}, {
         "name": "segment_plan", "route": "cuda",
         "source": "ark_tpu_torch/csrc/segment_sum.cu",
         "replaces": "ark_tpu/ops/segment_reduce.py:44", "launches": plan_launches,
+        "launches_by_path": {"cell_table": plan_launches, "fiber": fiber_plan_launches},
         "max_abs_err": plan_err, "ms": seg_ms["plan_ms"],
         "plain_ms": seg_ms["plain_plan_ms"], "bound_ms": seg_ms["plan_bound_ms"],
         "bound_by": "bytes", "library_ms": None}]}))

@@ -13,7 +13,12 @@ Prints, for the installed jax and torch:
    sqrt call on a 3002 x 3002 matrix of squared distances, against numpy's
    correctly rounded sqrt, and in how many processes it passed 1e-6;
 4. the relative error of the JAX package's f32 k-means inertia against the
-   same partition's inertia in f64, on blobs of spread 4 and 8 (k = 7).
+   same partition's inertia in f64, on blobs of spread 4 and 8 (k = 7);
+5. in fresh processes whose first torch call is the port's
+   `silhouette_score(..., device="cpu")` on (3000, 20) rows in 6 clusters,
+   its largest relative difference from the same function with the exact
+   root (`distances._sqrt`), once as the port runs it (one f64 Newton step)
+   and once resting on torch's raw sqrt.
 """
 
 from __future__ import annotations
@@ -40,6 +45,22 @@ s = q.to(torch.float32)
 r = torch.sqrt(s).numpy().astype(np.float64)
 t = np.sqrt(s.numpy().astype(np.float64))
 print(float(np.max(np.abs(r - t) / np.maximum(t, 1e-30))))
+"""
+
+FIRST_SILHOUETTE = """
+import sys
+import numpy as np, torch
+from ark_tpu_torch.ops import distances
+if sys.argv[1] == "raw":
+    distances._sqrt_close = torch.sqrt
+rng = np.random.default_rng(50)
+centers = rng.poisson(4.0, (6, 20))
+labels = rng.integers(0, 6, 3000)
+x = (rng.poisson(centers[labels] + 1.0) + rng.random((3000, 20))).astype(np.float32)
+first = distances.silhouette_score(x, labels, device="cpu")
+distances._sqrt_close = distances._sqrt
+exact = distances.silhouette_score(x, labels, device="cpu")
+print(abs(first - exact) / abs(exact))
 """
 
 
@@ -102,6 +123,20 @@ def first_sqrt(processes):
           f"{sum(e > 1e-6 for e in errs)} of {processes} fresh processes past 1e-6")
 
 
+def first_silhouette(processes):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for root, name in (("newton", "one f64 Newton step (the port)"),
+                       ("raw", "torch's raw sqrt")):
+        errs = [float(subprocess.run([sys.executable, "-c", FIRST_SILHOUETTE, root],
+                                     env=env, capture_output=True, text=True,
+                                     check=True, timeout=300).stdout)
+                for _ in range(processes)]
+        print(f"first-call silhouette (3000, 20), {name}: largest relative "
+              f"difference from the exact root {max(errs):.2g}; "
+              f"{sum(e > 1e-5 for e in errs)} of {processes} fresh processes past "
+              f"1e-5, {sum(e > 1e-7 for e in errs)} past 1e-7")
+
+
 def kmeans_inertia():
     import jax.numpy as jnp
 
@@ -129,6 +164,7 @@ def main():
     d20_units()
     first_sqrt(args.processes)
     kmeans_inertia()
+    first_silhouette(args.processes)
 
 
 if __name__ == "__main__":

@@ -19,6 +19,11 @@ CPU port: distances (D <= 4), neighbor counts, distance files and the
 enrichment null given the same permutations bitwise; D > 4 within the
 summation-order bound of tests/test_torch_distances.py; k-means (f64, the
 same seeding on every device) to equal labels.
+
+The classical image ops have no kernel either: the squared EDT (int32
+min-plus) and its correctly rounded root are bitwise equal to the CPU
+port's, and the fiber labels are held to the CPU port's by the
+near-threshold rule of ``chip_smoke.fiber_labels_differ``.
 """
 
 import os
@@ -34,7 +39,10 @@ from ark_tpu_torch.ops import kmeans as TK
 from ark_tpu_torch.ops import segment_reduce as TSR
 from ark_tpu_torch.ops import som as tsom
 from ark_tpu_torch.ops import watershed as TW
-from chip_smoke import DIST_ATOL, DIST_RTOL, claim_inputs, pixel_rows
+from ark_tpu_torch.ops import edt as TE
+from ark_tpu_torch.segmentation import fiber_segmentation as TF
+from chip_smoke import (DIST_ATOL, DIST_RTOL, EXCUSED_SHARE, FIBER_DEFAULTS, claim_inputs,
+                        fiber_image, fiber_labels_differ, pixel_rows)
 
 
 @pytest.fixture()
@@ -303,3 +311,30 @@ def test_kmeans_matches_cpu_on_cuda(card):
         want, want_inertia = TK.kmeans(data, k, seed=7, device="cpu")
         assert np.array_equal(got, want)
         assert inertia == pytest.approx(want_inertia, rel=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,p", [((33, 47), 0.5), ((257, 1000), 0.99),
+                                     ((1, 7), 0.5), ((7, 1), 0.5), ((512, 512), 0.999),
+                                     ((64, 80), 1.0), ((64, 80), 0.0)])
+def test_squared_edt_matches_cpu_on_cuda(card, shape, p):
+    rng = np.random.default_rng(25)
+    fg = rng.random(shape) < p
+    got = TE._edt2_int(torch.as_tensor(fg, device=card))
+    want = TE._edt2_int(torch.as_tensor(fg))
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+    assert torch.equal(TE.distance_transform_edt(fg, device=card).cpu(),
+                       TE.distance_transform_edt(fg, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 9])
+def test_fiber_labels_match_cpu_on_cuda(card, seed):
+    img = fiber_image(np.random.default_rng(seed), size=256, n_fibers=12)
+    args = dict(FIBER_DEFAULTS, contrast_scaling_divisor=32)
+    got = TF._fiber_steps(img, 256, *args.values(), device=card)
+    want = TF._fiber_steps(img, 256, *args.values(), device="cpu")
+    differ, excused, left = fiber_labels_differ(got, want, args["ridge_cutoff"])
+    print(f"seed {seed}: {differ} label pixels differ, {excused} excused, {left} not")
+    assert left == 0 and excused <= EXCUSED_SHARE * img.size
+    assert want["labeled_filtered"].max() >= 4

@@ -155,3 +155,49 @@ def test_sqrt_is_correctly_rounded_from_a_rough_estimate(monkeypatch, error):
     monkeypatch.setattr(torch, "sqrt", lambda t: sqrt(t) * np.float32(1 + error))
     got = TD._sqrt(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(got, np.sqrt(x))
+
+
+FIRST_CALL_SILHOUETTE = """
+import numpy as np, torch
+from ark_tpu_torch.ops import distances
+rng = np.random.default_rng(50)
+centers = rng.poisson(4.0, (6, 20))
+labels = rng.integers(0, 6, 3000)
+x = (rng.poisson(centers[labels] + 1.0) + rng.random((3000, 20))).astype(np.float32)
+first = distances.silhouette_score(x, labels, device="cpu")
+distances._sqrt_close = distances._sqrt
+exact = distances.silhouette_score(x, labels, device="cpu")
+print(first, exact)
+"""
+
+
+def test_silhouette_as_the_first_torch_call_of_a_process():
+    """torch's first CPU sqrt of a process has been off by 3.3e-4 at this
+    shape; the silhouette as a fresh process's first torch call stays within
+    1e-5 of the value the exact root gives."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", FIRST_CALL_SILHOUETTE], cwd=repo,
+                          env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    first, exact = map(float, proc.stdout.split())
+    assert first == pytest.approx(exact, rel=1e-5)
+    assert 0.0 < exact < 1.0
+
+
+@pytest.mark.parametrize("error", [0.0, 3.3e-4, -3.3e-4])
+def test_silhouette_root_recovers_from_a_rough_estimate(monkeypatch, error):
+    """One f64 Newton step brings an estimate off by 3.3e-4 to within 1e-7;
+    zeros and infinities pass through."""
+    real = torch.sqrt
+    monkeypatch.setattr(torch, "sqrt", lambda x: real(x) * (1.0 + error))
+    d2 = torch.as_tensor(np.random.default_rng(3).uniform(0, 2e6, 5000).astype(np.float32))
+    d2[:3] = torch.tensor([0.0, float("inf"), 1e-30])
+    got = TD._sqrt_close(d2).numpy().astype(np.float64)
+    want = np.sqrt(d2.numpy().astype(np.float64))
+    assert got[0] == 0.0 and np.isinf(got[1])
+    np.testing.assert_allclose(got[2:], want[2:], rtol=1.5e-7)

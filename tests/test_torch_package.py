@@ -233,6 +233,17 @@ SPATIAL_MODULES = [
     "ark_tpu_torch.analysis.neighborhood_analysis",
     "ark_tpu_torch.analysis.cell_neighborhood_stats",
 ]
+CLASSICAL_MODULES = [
+    "ark_tpu_torch.ops.edt", "ark_tpu_torch.ops.classical",
+    "ark_tpu_torch.ops.image_filters", "ark_tpu_torch.ops.morphology",
+    "ark_tpu_torch.segmentation.fiber_segmentation",
+    "ark_tpu_torch.segmentation.ez_seg",
+    "ark_tpu_torch.segmentation.ez_seg.composites",
+    "ark_tpu_torch.segmentation.ez_seg.ez_object_segmentation",
+    "ark_tpu_torch.segmentation.ez_seg.ez_seg_display",
+    "ark_tpu_torch.segmentation.ez_seg.ez_seg_utils",
+    "ark_tpu_torch.segmentation.ez_seg.merge_masks",
+]
 QUANT_AND_CELL_MODULES = [
     "ark_tpu_torch.ops.segment_reduce", "ark_tpu_torch.ops.convex",
     "ark_tpu_torch.ops.relabel", "ark_tpu_torch.ops.morphology",
@@ -333,3 +344,64 @@ def test_non_cpu_segment_sum_never_falls_back(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         segment_reduce.cell_sizes(torch.zeros(4, 4, dtype=torch.int32,
                                               device="meta"), 3)
+
+
+def test_fiber_and_ez_seg_run_without_the_cards_missing_packages():
+    """The classical ops, fiber segmentation and ez_seg import with imageio,
+    sklearn, tqdm, h5py, matplotlib and seaborn blocked, and their in-memory
+    entry points (the ones the smoke run drives on the card) work there; the
+    modules fall under the AST scans and the style gate, which walk every
+    file of the package."""
+    code = ("import importlib, sys\n"
+            f"for blocked in {CARD_MISSING!r}:\n"
+            "    sys.modules[blocked] = None\n"
+            f"for m in {CLASSICAL_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import numpy as np\n"
+            "from ark_tpu_torch import settings\n"
+            "from ark_tpu_torch.segmentation import fiber_segmentation as fs\n"
+            "from ark_tpu_torch.segmentation.ez_seg import ez_object_segmentation as ez\n"
+            "from chip_smoke import FIBER_DEFAULTS, fiber_image\n"
+            "img = fiber_image(np.random.default_rng(0), size=128, n_fibers=4)\n"
+            "args = dict(FIBER_DEFAULTS, contrast_scaling_divisor=16)\n"
+            "steps = fs._fiber_steps(img, 128, *args.values(), keep_intermediates=False,\n"
+            "                        device='cpu')\n"
+            "table = fs._fiber_regionprops_table(steps['labeled_filtered'],\n"
+            "                                    settings.FIBER_OBJECT_PROPS, device='cpu')\n"
+            "table.insert(0, 'fov', 'f')\n"
+            "table = fs.calculate_fiber_alignment(table, device='cpu')\n"
+            "assert len(table) >= 1 and 'alignment_score' in table.columns, table\n"
+            "for shape in ('blob', 'projection'):\n"
+            "    mask = ez._create_object_mask(img, shape, thresh='auto', hole_size='auto',\n"
+            "                                  fov_dim=400, device='cpu')\n"
+            "    assert mask.shape == img.shape and mask.max() > 0\n"
+            "assert 'jax' not in sys.modules\n"
+            "assert not [m for m in sys.modules if m.startswith('ark_tpu.')]\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert set(CLASSICAL_MODULES) <= set(_modules())
+
+
+def test_entry_points_of_the_classical_slice_take_a_device():
+    """Every public function of the slice that does device work takes
+    `device`, and none defaults to the CPU."""
+    import inspect
+
+    from ark_tpu_torch.ops import classical, edt, morphology
+    from ark_tpu_torch.segmentation import fiber_segmentation as fs
+    from ark_tpu_torch.segmentation.ez_seg import ez_object_segmentation as ez
+    from ark_tpu_torch.segmentation.ez_seg import ez_seg_display as disp
+
+    takers = [edt.distance_transform_edt, classical.equalize_adapthist, classical.frangi,
+              classical.meijering, classical.local_adaptive_threshold, morphology.erode_mask,
+              fs._fiber_steps, fs._fiber_regionprops_table, fs.segment_fibers,
+              fs.run_fiber_segmentation, fs.plot_fiber_segmentation_steps,
+              fs.calculate_fiber_alignment, ez.create_object_masks, ez._create_object_mask,
+              disp.overlay_mask_outlines, disp.multiple_mask_display,
+              disp.create_overlap_and_merge_visual]
+    for fn in takers:
+        param = inspect.signature(fn).parameters.get("device")
+        assert param is not None and param.kind is param.KEYWORD_ONLY, fn.__name__
+        assert param.default == "cuda", fn.__name__
