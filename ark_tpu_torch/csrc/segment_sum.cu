@@ -12,10 +12,14 @@
 // labels[i] == s, accumulated in ASCENDING pixel order, one correctly rounded
 // f32 add at a time, starting from +0.0. That is the order of a sequential
 // scatter (np.add.at, torch's CPU index_add_, XLA's CPU scatter), so the sums
-// are bitwise equal to those. Row 0 (background) is written as zero: no
-// caller reads it, and one warp walking half a FOV would take milliseconds.
-// Labels outside [0, num_segments) are dropped, as jax.ops.segment_sum drops
-// them. No float atomics, no host synchronisation.
+// are bitwise equal to those. Segment 0 is a segment like any other: the
+// background of a label image, or point 0 of UMAP's edge sums. One warp
+// walking the background of a 1024^2 FOV is a serial chain of ~0.5M adds a
+// column and takes milliseconds, so a caller that indexes by cell id and
+// never reads row 0 (the cell table, the fiber table) launches with
+// background = false, and row 0 is then written as zero. Labels outside
+// [0, num_segments) are dropped, as jax.ops.segment_sum drops them. No float
+// atomics, no host synchronisation.
 //
 // Two launches, both on the caller's stream:
 // - the plan, once per label image: each segment's bounding box (first and
@@ -23,7 +27,10 @@
 //   box whatever their order. A warp reads 32 neighbouring pixels of one row;
 //   a shuffle finds where each run of one label starts and ends, and only
 //   those lanes issue atomics (first row, last row and first column at the
-//   start, last column at the end). Every sum over that image reuses it.
+//   start, last column at the end). Label 0 has far more runs than any cell,
+//   all on one address, so each thread keeps its own box of the zeros it saw
+//   and a block issues one set of atomics for them. Every sum over that image
+//   reuses the plan.
 // - the walk: one warp per segment. It scans the box in raster order, which
 //   is ascending pixel order, 1024 box pixels at a time: the lanes load the
 //   labels together (coalesced along the rows), and a ballot per 32 pixels
@@ -106,20 +113,35 @@ box_init_kernel(int4* __restrict__ boxes, int num_segments) {
 }
 
 // boxes[s] = (first row, last row, first column, last column) of label s,
-// for labels in [1, num_segments). Block (x, y) reads columns [x * kPlanThreads,
+// for labels in [0, num_segments). Block (x, y) reads columns [x * kPlanThreads,
 // (x + 1) * kPlanThreads) of rows y, y + gridDim.y, ...; a warp's lanes share
-// a row. Every lane of a warp runs the same iterations, so the shuffles see
-// the full warp.
+// a row. Every thread of a block runs the same iterations, so the shuffles see
+// the full warp and the barriers the full block. Label 0 goes through the
+// thread's own first and last row (its column is fixed), a warp reduction,
+// shared memory, then one set of global atomics a block.
 __global__ void __launch_bounds__(kPlanThreads)
 box_kernel(const int* __restrict__ labels, int rows, int w, int num_segments,
            int* __restrict__ boxes) {
+  __shared__ int zero_box[4];
   const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   const long long c = (long long)blockIdx.x * kPlanThreads + threadIdx.x;
+  if (threadIdx.x == 0) {
+    zero_box[0] = INT_MAX;
+    zero_box[1] = -1;
+    zero_box[2] = INT_MAX;
+    zero_box[3] = -1;
+  }
+  __syncthreads();
+  int zr0 = INT_MAX, zr1 = -1;
   for (int r = blockIdx.y; r < rows; r += gridDim.y) {
-    const int l = c < w ? __ldg(labels + (long long)r * w + c) : 0;
+    const int l = c < w ? __ldg(labels + (long long)r * w + c) : -1;
     const int prev = __shfl_up_sync(full, l, 1);
     const int next = __shfl_down_sync(full, l, 1);
+    if (l == 0) {   // rows ascend, and the thread's column is fixed
+      zr0 = min(zr0, r);
+      zr1 = r;
+    }
     if (l <= 0 || l >= num_segments) continue;
     int* b = boxes + 4LL * l;
     if (lane == 0 || prev != l) {   // the first pixel of a run of l
@@ -128,6 +150,25 @@ box_kernel(const int* __restrict__ labels, int rows, int w, int num_segments,
       atomicMin(b + 2, (int)c);
     }
     if (lane == 31 || next != l) atomicMax(b + 3, (int)c);   // the last pixel of the run
+  }
+  __syncwarp();
+  const bool seen = zr1 >= 0;
+  const int wr0 = __reduce_min_sync(full, zr0);
+  const int wr1 = __reduce_max_sync(full, zr1);
+  const int wc0 = __reduce_min_sync(full, seen ? (int)c : INT_MAX);
+  const int wc1 = __reduce_max_sync(full, seen ? (int)c : -1);
+  if (lane == 0 && wr1 >= 0) {
+    atomicMin(zero_box, wr0);
+    atomicMax(zero_box + 1, wr1);
+    atomicMin(zero_box + 2, wc0);
+    atomicMax(zero_box + 3, wc1);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && zero_box[1] >= 0) {
+    atomicMin(boxes, zero_box[0]);
+    atomicMax(boxes + 1, zero_box[1]);
+    atomicMin(boxes + 2, zero_box[2]);
+    atomicMax(boxes + 3, zero_box[3]);
   }
 }
 
@@ -245,7 +286,7 @@ __device__ __forceinline__ void walk_pixels(const int* pix, int n,
 __global__ void __launch_bounds__(kThreads)
 segment_walk_kernel(const float* __restrict__ values, int k, int num_segments,
                     const int* __restrict__ labels, int w, const int4* __restrict__ boxes,
-                    bool vec4, float* __restrict__ out) {
+                    bool vec4, bool background, float* __restrict__ out) {
   __shared__ int pix_all[kWarps][kPix];
   __shared__ __align__(16) float buf_all[kWarps][kStages * kBuf];
   const int warp = threadIdx.x >> 5;
@@ -254,7 +295,8 @@ segment_walk_kernel(const float* __restrict__ values, int k, int num_segments,
   if (s >= num_segments) return;  // the whole warp: no block-wide barrier follows
   int* pix = pix_all[warp];
   float* bufs = buf_all[warp];
-  const int4 box = s == 0 ? make_int4(1, 0, 1, 0) : boxes[s];  // row 0 stays zero
+  // without the background, segment 0 is not walked and its row is zero
+  const int4 box = s == 0 && !background ? make_int4(1, 0, 1, 0) : boxes[s];
   const int bw = box.w - box.z + 1;
   const long long area = box.x <= box.y ? (long long)(box.y - box.x + 1) * bw : 0;
   for (int k0 = 0; k0 < k; k0 += kColTile) {
@@ -305,17 +347,18 @@ extern "C" int ark_segment_plan_launch(const int* labels, long long n, int w,
 // Launches the segmented sum on `stream`: values (n, k) f32 row-major, labels
 // (n,) int32 and the plan's boxes (num_segments, 4) int32 of the same image
 // (rows of width w), out (num_segments, k) f32, all contiguous device
-// pointers. Returns cudaGetLastError() of the launch (0 when it was
-// accepted). Does not synchronise.
+// pointers; background != 0 sums segment 0 too, else row 0 of out is zero.
+// Returns cudaGetLastError() of the launch (0 when it was accepted). Does
+// not synchronise.
 extern "C" int ark_segment_sum_launch(const float* values, const int* labels, int w,
-                                      const int* boxes, int num_segments, int k, float* out,
-                                      void* stream) {
+                                      const int* boxes, int num_segments, int k,
+                                      int background, float* out, void* stream) {
   if (num_segments < 1 || k < 0 || w <= 0) return (int)cudaErrorInvalidValue;
   if (k == 0) return 0;
   const long long blocks = ((long long)num_segments + kWarps - 1) / kWarps;
   segment_walk_kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       values, k, num_segments, labels, w, reinterpret_cast<const int4*>(boxes),
-      k % 4 == 0 && reinterpret_cast<uintptr_t>(values) % 16 == 0, out);
+      k % 4 == 0 && reinterpret_cast<uintptr_t>(values) % 16 == 0, background != 0, out);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,9 @@
 
 The port's copy of ``ark_tpu/io/load_utils.py``: the three loaders its
 pipelines call (``load_imgs_from_tree``, ``load_imgs_from_dir``,
-``load_imgs_from_mibitiff``), returning the port's ``DataArray``. TIFFs are
+``load_imgs_from_mibitiff``) and the tiled-grid loader of the stitcher
+(``get_tiled_fov_names``, ``load_tiled_img_data``), returning the port's
+``DataArray``. TIFFs are
 read through ``image_utils.read_image``, which imports imageio inside, and
 the header scan imports PIL inside ``load_imgs_from_tree``.
 
@@ -219,3 +221,58 @@ def load_imgs_from_mibitiff(data_dir: str, mibitiff_files: Optional[List[str]] =
                                   "rows": np.arange(out.shape[1]),
                                   "cols": np.arange(out.shape[2]),
                                   "channels": channel_names})
+
+
+def get_tiled_fov_names(fov_list: List[str], return_dims: bool = False):
+    """From RnCm-style FOV names, compute the full expected tile grid
+    (reference behavior: `alpineer.load_utils.get_tiled_fov_names`)."""
+    prefixes, rows, cols = set(), 0, 0
+    parsed = []
+    for fov in fov_list:
+        # fullmatch: an unanchored match silently drops suffixes after
+        # RnCm ('R1C1_acquisition' -> 'R1C1'), and the tiled loader then
+        # finds none of the real files and zero-fills every tile
+        m = re.fullmatch(r"(?:(.*)_)?R(\d+)C(\d+)", fov)
+        if not m:
+            raise ValueError(f"FOV {fov} is not RnCm-tiled")
+        prefix = m.group(1) or ""
+        prefixes.add(prefix)
+        parsed.append((prefix, int(m.group(2)), int(m.group(3))))
+    expected = []
+    dims = []
+    for prefix in io_utils.natsorted(prefixes):
+        rs = [r for p, r, c in parsed if p == prefix]
+        cs = [c for p, r, c in parsed if p == prefix]
+        rows, cols = max(rs), max(cs)
+        names = [f"{prefix + '_' if prefix else ''}R{r}C{c}"
+                 for r in range(1, rows + 1) for c in range(1, cols + 1)]
+        expected.append(names)
+        dims.append((prefix, rows, cols))
+    flat = [n for group in expected for n in group]
+    if return_dims:
+        return flat, dims
+    return flat
+
+
+def load_tiled_img_data(data_dir: str, fovs: List[str], expected_fovs: List[str],
+                        channel: str, single_dir: bool = False,
+                        img_sub_folder: str = "") -> DataArray:
+    """Load one channel for a tiled FOV grid, zero-filling missing tiles."""
+    io_utils.validate_paths([data_dir])
+    blocks, shape = {}, None
+    for fov in fovs:
+        if single_dir:
+            path = os.path.join(data_dir, f"{fov}_{channel}.tiff")
+        else:
+            path = os.path.join(data_dir, fov, img_sub_folder, f"{channel}.tiff")
+        img = read_image(path)
+        blocks[fov] = img
+        shape = img.shape
+    if shape is None:
+        raise ValueError("no tiles loaded")
+    out = np.zeros((len(expected_fovs),) + shape + (1,), dtype=np.float32)
+    for i, fov in enumerate(expected_fovs):
+        if fov in blocks:
+            out[i, ..., 0] = blocks[fov]
+    return DataArray(out, coords={"fovs": expected_fovs, "rows": np.arange(shape[0]),
+                                  "cols": np.arange(shape[1]), "channels": [channel]})

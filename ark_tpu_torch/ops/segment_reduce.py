@@ -15,12 +15,16 @@ image; all of them go through one function, ``segment_sum``:
   scatter in the same order (a plan is checked against the call, then
   ignored).
 
-Both give sums bitwise equal to the JAX package's CPU ``segment_sum``.
-**Row 0 (background) is zero on every device**: no caller reads it (they
-index by cell id), and one serial walk over half a FOV would take the kernel
-milliseconds. So the background row of ``centroids`` is NaN and the one of
-the moment features is that of an empty segment, where the JAX package
-reports the background's own values; rows 1: are the JAX package's.
+Both give sums bitwise equal to the JAX package's CPU ``segment_sum``, row
+0 included: segment 0 (the background of a label image, point 0 of UMAP's
+edge sums) is summed like any other. Every public function takes
+``background: bool = True``. One warp walking the background of a 1024^2
+FOV is a serial chain of ~0.5M adds a column, milliseconds where the cells'
+rows take tens of microseconds, so the callers that index by cell id and
+never read row 0 (the cell table, the fiber table) pass ``background=False``:
+row 0 of the sums is then zero on every device, the background row of
+``centroids`` NaN and the one of the moment features that of an empty
+segment. Rows 1: do not depend on it.
 
 All functions take `num_segments` = max label + 1; tensors are on the
 device the caller chose, and the results stay there.
@@ -62,12 +66,12 @@ class SegmentPlan(NamedTuple):
 def segment_boxes_plain(labels: torch.Tensor, num_segments: int) -> torch.Tensor:
     """Each segment's bounding box in torch ops: (num_segments, 4) int32 rows
     of (first row, last row, first column, last column) of the labels in
-    [1, num_segments), laid out in rows of ``_row_width(labels)``; row 0 and
-    absent labels hold the empty box. The plan kernel's plain version."""
+    [0, num_segments), laid out in rows of ``_row_width(labels)``; absent
+    labels hold the empty box. The plan kernel's plain version."""
     flat = labels.reshape(-1).to(torch.int64)
     w = _row_width(labels)
     pos = torch.arange(flat.numel(), device=flat.device)
-    keep = (flat > 0) & (flat < num_segments)
+    keep = (flat >= 0) & (flat < num_segments)
     lab = flat[keep]
     rows, cols = (pos // w)[keep], (pos % w)[keep]
     out = []
@@ -133,13 +137,13 @@ segment_plan.launches = 0
 
 
 def segment_sum_plain(values: torch.Tensor, labels: torch.Tensor,
-                      num_segments: int) -> torch.Tensor:
+                      num_segments: int, background: bool = True) -> torch.Tensor:
     """Per-segment sums of `values` (N,) or (N, K) keyed by `labels` (N
-    entries, any shape), as ``index_add_`` on the tensors' device; row 0 is
-    zero, and labels outside [0, num_segments) are dropped, as
-    ``jax.ops.segment_sum`` drops them. On the CPU ``index_add_`` adds in
-    ascending index order; on CUDA it uses atomics (any order), so the tests
-    compare the kernel with this on a CPU copy."""
+    entries, any shape), as ``index_add_`` on the tensors' device; labels
+    outside [0, num_segments) are dropped, as ``jax.ops.segment_sum`` drops
+    them, and row 0 is zero with ``background=False``. On the CPU
+    ``index_add_`` adds in ascending index order; on CUDA it uses atomics
+    (any order), so the tests compare the kernel with this on a CPU copy."""
     labels = labels.reshape(-1)
     out = torch.zeros((num_segments,) + tuple(values.shape[1:]),
                       dtype=values.dtype, device=values.device)
@@ -147,7 +151,7 @@ def segment_sum_plain(values: torch.Tensor, labels: torch.Tensor,
     if not bool(valid.all()):
         labels, values = labels[valid], values[valid]
     out.index_add_(0, labels.to(torch.int64), values)
-    if num_segments:
+    if not background:
         out[0] = 0
     return out
 
@@ -175,11 +179,14 @@ def _check_kernel_operands(values, labels, num_segments):
 
 
 def segment_sum(values: torch.Tensor, labels: torch.Tensor, num_segments: int,
-                plan: Optional[SegmentPlan] = None) -> torch.Tensor:
+                plan: Optional[SegmentPlan] = None, background: bool = True
+                ) -> torch.Tensor:
     """Per-segment sums of `values` (N,) or (N, K) keyed by `labels` ((H, W)
-    or (N,)), each accumulated in ascending pixel order; row 0 is zero and
-    labels outside [0, num_segments) are dropped. The CUDA kernel for CUDA
-    tensors, ``segment_sum_plain`` for CPU ones. `plan` is
+    or (N,)), each accumulated in ascending pixel order; labels outside
+    [0, num_segments) are dropped. With ``background=False`` segment 0 is
+    not summed and row 0 is zero (for callers that never read it: its walk
+    is one warp's serial chain over every background pixel). The CUDA kernel
+    for CUDA tensors, ``segment_sum_plain`` for CPU ones. `plan` is
     ``segment_plan(labels, num_segments)``, built once per label image and
     reused; without one, this call builds it. A plan of another shape,
     device or `num_segments` raises. On CUDA tensors the wrapper launches
@@ -189,7 +196,7 @@ def segment_sum(values: torch.Tensor, labels: torch.Tensor, num_segments: int,
     if plan is not None:
         _check_plan(plan, labels, num_segments)
     if values.device.type == "cpu" and labels.device.type == "cpu":
-        return segment_sum_plain(values, labels, num_segments)
+        return segment_sum_plain(values, labels, num_segments, background)
     _check_kernel_operands(values, labels, num_segments)
     if plan is None:
         plan = segment_plan(labels, num_segments)
@@ -203,7 +210,8 @@ def segment_sum(values: torch.Tensor, labels: torch.Tensor, num_segments: int,
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         err = lib.ark_segment_sum_launch(
             vals.data_ptr(), plan.labels.data_ptr(), _row_width(labels),
-            plan.boxes.data_ptr(), num_segments, k, out.data_ptr(), stream)
+            plan.boxes.data_ptr(), num_segments, k, int(background), out.data_ptr(),
+            stream)
     if err != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: "
                            f"{lib.ark_segment_sum_error_string(err).decode()} "
@@ -233,43 +241,46 @@ def _pixel_coords(labels: torch.Tensor):
             cc[None, :].expand(h, w).reshape(-1))
 
 
-def cell_sizes(labels: torch.Tensor, num_segments: int) -> torch.Tensor:
+def cell_sizes(labels: torch.Tensor, num_segments: int,
+               background: bool = True) -> torch.Tensor:
     """Pixel count per label; (num_segments,)."""
     return segment_sum(torch.ones(labels.numel(), dtype=torch.float32,
                                   device=labels.device),
-                       labels.to(torch.int32), num_segments)
+                       labels.to(torch.int32), num_segments, background=background)
 
 
 def channel_sums(images: torch.Tensor, labels: torch.Tensor,
-                 num_segments: int) -> torch.Tensor:
+                 num_segments: int, background: bool = True) -> torch.Tensor:
     """Total intensity per (label, channel); (num_segments, C)."""
     c = images.shape[-1]
     return segment_sum(images.reshape(-1, c).to(torch.float32),
-                       labels.to(torch.int32), num_segments)
+                       labels.to(torch.int32), num_segments, background=background)
 
 
 def positive_pixel_counts(images: torch.Tensor, labels: torch.Tensor,
-                          num_segments: int, threshold: float = 0.0
-                          ) -> torch.Tensor:
+                          num_segments: int, threshold: float = 0.0,
+                          background: bool = True) -> torch.Tensor:
     """Count of pixels with value > threshold per (label, channel)."""
     c = images.shape[-1]
     thr = torch.tensor(threshold, dtype=torch.float32, device=images.device)
     pos = (images.reshape(-1, c).to(torch.float32) > thr).to(torch.float32)
-    return segment_sum(pos, labels.to(torch.int32), num_segments)
+    return segment_sum(pos, labels.to(torch.int32), num_segments,
+                       background=background)
 
 
 def centroids(labels: torch.Tensor, num_segments: int,
-              plan: Optional[SegmentPlan] = None) -> torch.Tensor:
+              plan: Optional[SegmentPlan] = None, background: bool = True
+              ) -> torch.Tensor:
     """(num_segments, 2) centroid (row, col) per label; NaN for an empty
-    label and for row 0."""
+    label, and for row 0 with ``background=False``."""
     rr, cc = _pixel_coords(labels)
     sums = segment_sum(torch.stack([torch.ones_like(rr), rr, cc], dim=1),
-                       labels.to(torch.int32), num_segments, plan)
+                       labels.to(torch.int32), num_segments, plan, background)
     return sums[:, 1:] / sums[:, :1]
 
 
 def center_weighted_sums(images: torch.Tensor, labels: torch.Tensor,
-                         num_segments: int) -> torch.Tensor:
+                         num_segments: int, background: bool = True) -> torch.Tensor:
     """Center-weighted intensity per (label, channel): weight per pixel
     1 - d_inf(pixel, cell centroid) / (max-in-cell d_inf + 1), as the JAX
     package computes it (centroid pass, segment max, weighted sum)."""
@@ -277,14 +288,14 @@ def center_weighted_sums(images: torch.Tensor, labels: torch.Tensor,
     labels = labels.to(torch.int32)
     seg = labels.reshape(-1).to(torch.int64)
     plan = segment_plan(labels, num_segments)
-    cent = centroids(labels, num_segments, plan)
+    cent = centroids(labels, num_segments, plan, background)
     rr, cc = _pixel_coords(labels)
     own = cent[seg]
     dist = torch.maximum(torch.abs(rr - own[:, 0]), torch.abs(cc - own[:, 1]))
     dmax = segment_max(dist, seg, num_segments)
     weights = 1.0 - dist / (dmax[seg] + 1.0)
     vals = images.reshape(-1, c).to(torch.float32) * weights[:, None]
-    return segment_sum(vals, labels, num_segments, plan)
+    return segment_sum(vals, labels, num_segments, plan, background)
 
 
 def _perimeter_contributions(labels: torch.Tensor) -> torch.Tensor:
@@ -310,15 +321,17 @@ def _perimeter_contributions(labels: torch.Tensor) -> torch.Tensor:
 
 def crofton_perimeter(labels: torch.Tensor, num_segments: int) -> torch.Tensor:
     """Per-label perimeter by the 4-direction Cauchy-Crofton estimator,
-    P = (pi/8)(n_h + n_v + (n_d1 + n_d2)/sqrt2), in one segment sum."""
+    P = (pi/8)(n_h + n_v + (n_d1 + n_d2)/sqrt2), in one segment sum. The
+    background has no perimeter: row 0 is zero, as in the JAX package."""
     return segment_sum(_perimeter_contributions(labels).reshape(-1),
-                       labels.to(torch.int32), num_segments)
+                       labels.to(torch.int32), num_segments, background=False)
 
 
 def euler_numbers(labels: torch.Tensor, num_segments: int) -> torch.Tensor:
     """Per-label Euler number (objects - holes), 8-connectivity, from Gray
     bit-quad counts E = (Q1 - Q3 - 2 Qd) / 4, routed through one per-pixel
-    value image so that the reduction is one segment sum."""
+    value image so that the reduction is one segment sum. Row 0 is zero, as
+    in the JAX package."""
     h, w = labels.shape
     lab = torch.nn.functional.pad(labels.to(torch.int32), (1, 1, 1, 1), value=0)
     a, b = lab[:-1, :-1], lab[:-1, 1:]
@@ -344,7 +357,8 @@ def euler_numbers(labels: torch.Tensor, num_segments: int) -> torch.Tensor:
         oy, ox = {0: (1, 1), 1: (1, 0), 2: (0, 1), 3: (0, 0)}[slot]
         padc = torch.nn.functional.pad(contrib, (0, 1, 0, 1))
         val = val + padc[oy:oy + h, ox:ox + w]
-    return segment_sum(val.reshape(-1), labels.to(torch.int32), num_segments)
+    return segment_sum(val.reshape(-1), labels.to(torch.int32), num_segments,
+                       background=False)
 
 
 def _features_from_central(m00, cy, cx, mu20, mu02, mu11, perimeter) -> dict:
@@ -377,7 +391,7 @@ def _features_from_central(m00, cy, cx, mu20, mu02, mu11, perimeter) -> dict:
 
 
 def _central_moment_sums(labels: torch.Tensor, num_segments: int,
-                         extra_cols: torch.Tensor = None):
+                         extra_cols: torch.Tensor = None, background: bool = True):
     """Two-pass central moments: pass 1 sums [1, r, c] for exact centroids;
     pass 2 sums the CENTERED monomials, the perimeter contributions and any
     `extra_cols`. Raw second moments about the origin cancel in f32 (mu20 =
@@ -392,7 +406,7 @@ def _central_moment_sums(labels: torch.Tensor, num_segments: int,
     plan = segment_plan(labels, num_segments)
     rr, cc = _pixel_coords(labels)
     first = segment_sum(torch.stack([torch.ones_like(rr), rr, cc], dim=1), labels,
-                        num_segments, plan)
+                        num_segments, plan, background)
     m00 = first[:, 0]
     safe = torch.clamp_min(m00, 1.0)
     cy, cx = first[:, 1] / safe, first[:, 2] / safe
@@ -403,32 +417,34 @@ def _central_moment_sums(labels: torch.Tensor, num_segments: int,
     second_in = torch.stack(cols, dim=1)
     if extra_cols is not None:
         second_in = torch.cat([second_in, extra_cols], dim=1)
-    second = segment_sum(second_in, labels, num_segments, plan)
+    second = segment_sum(second_in, labels, num_segments, plan, background)
     mu20 = second[:, 0] / safe
     mu02 = second[:, 1] / safe
     mu11 = second[:, 2] / safe
-    perimeter = second[:, 3]
+    perimeter = second[:, 3].clone()
+    perimeter[0] = 0.0                    # the background has no perimeter
     extra = second[:, 4:] if extra_cols is not None else None
     return m00, cy, cx, mu20, mu02, mu11, perimeter, extra
 
 
-def moment_features(labels: torch.Tensor, num_segments: int) -> dict:
+def moment_features(labels: torch.Tensor, num_segments: int,
+                    background: bool = True) -> dict:
     """Moments-based morphology per label (skimage regionprops semantics):
     area, centroid-0/1, major/minor axis length, eccentricity, equivalent
     diameter, orientation, perimeter; (num_segments,) tensors. Two segment
     sums (centroids, then centred monomials and perimeter)."""
     m00, cy, cx, mu20, mu02, mu11, perim, _ = _central_moment_sums(
-        labels, num_segments)
+        labels, num_segments, background=background)
     return _features_from_central(m00, cy, cx, mu20, mu02, mu11, perim)
 
 
 def moment_and_channel_features(images: torch.Tensor, labels: torch.Tensor,
-                                num_segments: int):
+                                num_segments: int, background: bool = True):
     """(morphology dict, (S, C) channel sums) in two segment sums: the
     channel sums ride the second (centred-moment) pass. The default
     quantification path (``total_intensity`` and the base regionprops)."""
     c = images.shape[-1]
     m00, cy, cx, mu20, mu02, mu11, perim, chan = _central_moment_sums(
         labels, num_segments,
-        extra_cols=images.reshape(-1, c).to(torch.float32))
+        extra_cols=images.reshape(-1, c).to(torch.float32), background=background)
     return _features_from_central(m00, cy, cx, mu20, mu02, mu11, perim), chan

@@ -71,8 +71,8 @@ def _fiber_regionprops_table(labeled: np.ndarray, properties, *,
                              device="cuda") -> pd.DataFrame:
     """regionprops_table over a fiber label image by segment reductions on
     `device` (area, axes, orientation, eccentricity, euler number,
-    centroid). Only ids > 0 are read: the segment sums leave the
-    background's row at zero."""
+    centroid). Only ids > 0 are read, so row 0 (the background) is not
+    computed: the segment sums are asked for without it."""
     ids = np.unique(labeled)
     ids = ids[ids != 0]
     if len(ids) == 0:
@@ -83,7 +83,8 @@ def _fiber_regionprops_table(labeled: np.ndarray, properties, *,
     n_seg = int(labeled.max()) + 1
     lab = torch.as_tensor(np.ascontiguousarray(labeled, np.int32), device=device)
     feats = {k: v.cpu().numpy()[ids]
-             for k, v in segment_reduce.moment_features(lab, n_seg).items()}
+             for k, v in segment_reduce.moment_features(
+                 lab, n_seg, background=False).items()}
     feats["euler_number"] = segment_reduce.euler_numbers(lab, n_seg).cpu().numpy()[ids]
     feats["label"] = ids
     out = {}

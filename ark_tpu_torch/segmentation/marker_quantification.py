@@ -63,7 +63,9 @@ def _compartment_features(labels: np.ndarray, images: torch.Tensor,
     """(len(cell_ids), n_features) matrix for one compartment's label image;
     `images` is the FOV's (H, W, C) f32 tensor on `device`.
 
-    Column order: [cell_size] + channels + regionprops_names."""
+    Column order: [cell_size] + channels + regionprops_names. The reductions
+    are read at `cell_ids` only, so their row 0 (the background) is not
+    computed."""
     t0 = time.perf_counter()
     n_cells = len(cell_ids)
     n_seg = int(labels.max()) + 1 if labels.size else 1
@@ -71,9 +73,9 @@ def _compartment_features(labels: np.ndarray, images: torch.Tensor,
     if extraction == "total_intensity" and not sig_kwargs:
         # default path: morphology and channel sums in two segment sums
         feats_t, counts_t = segment_reduce.moment_and_channel_features(
-            images, lab_t, n_seg)
+            images, lab_t, n_seg, background=False)
     else:
-        feats_t = segment_reduce.moment_features(lab_t, n_seg)
+        feats_t = segment_reduce.moment_features(lab_t, n_seg, background=False)
         counts_t = EXTRACTION_FUNCTION_BATCH[extraction](
             images, lab_t, n_seg, **sig_kwargs)
     feats = {k: v.cpu().numpy() for k, v in feats_t.items()}

@@ -2,8 +2,9 @@
 expression transforms, CSV concatenation, boundary images.
 
 Port of ``ark_tpu/segmentation/segmentation_utils.py``. Everything but
-``save_segmentation_labels`` is numpy and pandas; the boundary image runs
-``find_boundaries`` on `device`. Host IO is the port's ``ark_tpu_torch.io``.
+``save_segmentation_labels`` is numpy and pandas; the boundary image and
+the channel overlay run ``find_boundaries`` on `device`. Host IO is the
+port's ``ark_tpu_torch.io``.
 """
 
 from __future__ import annotations
@@ -130,14 +131,9 @@ def concatenate_csv(base_dir, csv_files, column_name="fov", column_values=None):
 def save_segmentation_labels(segmentation_dir, data_dir, output_dir, fovs,
                              channels=None, *, device):
     """Save each FOV's segmentation-border image (inner boundaries of the
-    whole-cell mask, 255 on a uint8 image), computed on `device`. The
-    channel overlay (`channels`) needs ``ark_tpu.utils.plot_utils``, which
-    the port has not ported yet, so it raises."""
-    if channels is not None:
-        raise NotImplementedError(
-            "save_segmentation_labels(channels=...) draws overlays with "
-            "plot_utils, which the port does not have yet")
-
+    whole-cell mask, 255 on a uint8 image) and, with `channels`, the overlay
+    of those borders on the rescaled channel data
+    (``plot_utils.create_overlay``); both computed on `device`."""
     for fov in fovs:
         labels_da = load_utils.load_imgs_from_dir(
             data_dir=segmentation_dir, files=[fov + "_whole_cell.tiff"],
@@ -150,3 +146,11 @@ def save_segmentation_labels(segmentation_dir, data_dir, output_dir, fovs,
         contour_mask[contour_mask > 0] = 255
         save_image(os.path.join(output_dir, f"{fov}_segmentation_borders.tiff"),
                    contour_mask)
+        if channels is not None:
+            from ark_tpu_torch.utils import plot_utils
+            chans = np.array(channels)
+            channel_overlay = plot_utils.create_overlay(
+                fov=fov, segmentation_dir=segmentation_dir, data_dir=data_dir,
+                img_overlay_chans=chans, seg_overlay_comp="whole_cell", device=device)
+            save_path = "_".join([f"{fov}", *chans.astype("str"), "overlay.tiff"])
+            save_image(os.path.join(output_dir, save_path), channel_overlay)

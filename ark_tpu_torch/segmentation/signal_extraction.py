@@ -7,7 +7,8 @@ Port of ``ark_tpu/segmentation/signal_extraction.py``, two tiers:
   custom extractors and as the tests' per-cell oracle;
 - ``EXTRACTION_FUNCTION_BATCH``: whole-FOV reducers over torch tensors
   (``ark_tpu_torch.ops.segment_reduce``), every cell at once on the tensors'
-  device; the quantification engine uses these.
+  device; the quantification engine uses these. It indexes them by cell id,
+  so row 0 (the background) is not computed there: it is zero.
 """
 
 from __future__ import annotations
@@ -47,15 +48,16 @@ EXTRACTION_FUNCTION = {
 
 def _batch_positive(images, labels, num_segments, **kwargs):
     return segment_reduce.positive_pixel_counts(
-        images, labels, num_segments, kwargs.get("threshold", 0))
+        images, labels, num_segments, kwargs.get("threshold", 0), background=False)
 
 
 def _batch_center_weighting(images, labels, num_segments, **kwargs):
-    return segment_reduce.center_weighted_sums(images, labels, num_segments)
+    return segment_reduce.center_weighted_sums(images, labels, num_segments,
+                                               background=False)
 
 
 def _batch_total(images, labels, num_segments, **kwargs):
-    return segment_reduce.channel_sums(images, labels, num_segments)
+    return segment_reduce.channel_sums(images, labels, num_segments, background=False)
 
 
 EXTRACTION_FUNCTION_BATCH = {

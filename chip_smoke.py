@@ -31,7 +31,8 @@ started together) and drives these paths on the card:
 - spatial analysis (the four spatial templates), each step against the CPU
   port: (a) the distance rules (a far-corner pair, D = 20, 50,000 cells'
   blocked neighbor counts), (b) the enrichment null given the same
-  permutations, (c) the templates' steps on 10 FOVs x 3000 planted cells,
+  permutations, (c) the templates' steps on 10 FOVs x 3000 planted cells
+  (timed on all 10, held to the CPU port on the first 4),
   (d) the same steps on the main path's own cells (the dense cell tables
   typed by the cell SOM);
 - the classical image ops with their two consumers, which launch no kernel
@@ -43,7 +44,19 @@ started together) and drives these paths on the card:
   FOVs per second, the device's busy share, the segment-sum launches of its
   property table), its labels held to the CPU port's by the near-threshold
   rule, then calculate_fiber_alignment; (g) ez_seg's _create_object_mask at
-  1024^2 as a blob and as a projection, equal to the CPU port's.
+  1024^2 as a blob and as a projection, equal to the CPU port's;
+- cluster masks, overlays and the embeddings: (h) the dense masks with the
+  cell SOM's types through ClusterMaskData, erode_mask and
+  label_cells_by_cluster, the colour gather, one pixel-cluster mask from the
+  pixel stage's assignments and one overlay, equal to the CPU port's;
+  (i) UMAP and PCA on the ~100k cells of the cell-clustering cohort and
+  t-SNE on a 10,000-cell sample through reduce_dimensions (seconds per
+  step, the segment-sum launches of the fit, peak memory, k-NN purity of
+  the cell SOM's clusters, beside a small CPU run); (j) the embeddings'
+  steps on the card against the CPU port given the same inputs (k-NN,
+  bandwidths, the seeded negatives, the PCA start, a few epochs of
+  _optimize, the t-SNE affinities and a few descent steps); and the
+  segment-sum kernel bitwise against its plain version at UMAP's edge shape.
 
 It exits non-zero, without the final result line, when there is no CUDA
 device or any phase fails. Its last line is one JSON object naming the
@@ -176,6 +189,24 @@ def time_ms(fn, reps=10):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def batch_ms(fn, reps=20):
+    """ms per call from one pair of CUDA events around `reps` back-to-back
+    calls after a warm-up: the launches queue up, so this is the kernels'
+    own time without the host's gaps between single calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def pixel_rows(rng, n, c):
@@ -355,8 +386,9 @@ def drive_slice(raws, device, seed=42, blur_factor=2, subset_proportion=0.1,
     """The device phases of pixie_fused.run_pixel_clustering, in its order,
     on an in-memory cohort: channel percentiles, q05 threshold, blur and
     row-normalize, seeded subset and per-FOV 99.9% quantiles, SOM training,
-    BMU assignment. Returns the weights, the 1-indexed labels and the BMU
-    input rows per FOV, and the per-phase seconds."""
+    BMU assignment. Returns the weights, the 1-indexed labels, the flat
+    indices of the pixels they belong to and the BMU input rows per FOV,
+    and the per-phase seconds."""
     import torch
 
     from ark_tpu_torch.ops import som
@@ -393,10 +425,11 @@ def drive_slice(raws, device, seed=42, blur_factor=2, subset_proportion=0.1,
     mark("blur_rownorm_s", t0)
 
     t0 = time.perf_counter()
-    kept, subsets, fov_q = [], [], []
+    kept, subsets, fov_q, kept_pixels = [], [], [], []
     for norm, rowsums, anynz in parts:
         keep = np.flatnonzero(pixie_fused._valid_mask_device(
             rowsums, anynz, thresh).cpu().numpy())
+        kept_pixels.append(keep)
         norm_keep = norm[torch.as_tensor(keep, device=device)]
         np.random.seed(seed)
         locs = np.random.choice(len(keep), size=int(round(
@@ -435,7 +468,8 @@ def drive_slice(raws, device, seed=42, blur_factor=2, subset_proportion=0.1,
         mapped.append(normalized)
     mark("bmu_assign_s", t0)
     return {"weights": weights, "labels": labels, "mapped": mapped,
-            "seconds": seconds, "thresh": thresh, "n_train": train.shape[0]}
+            "kept_pixels": kept_pixels, "seconds": seconds, "thresh": thresh,
+            "n_train": train.shape[0]}
 
 
 def check_slice_outputs(out, n_nodes):
@@ -487,12 +521,19 @@ def run_full_driver(raws, device):
         w = feather.read_dataframe(
             os.path.join(base, "pixel_som_weights.feather"))
         check(np.isfinite(w.values).all(), "SOM weights not finite")
-    return timings
+        first = feather.read_dataframe(os.path.join(base, "pixel_mat_data",
+                                                    fovs[0] + ".feather"))
+        width = raws[0].shape[1]
+        assigned = (first["row_index"].to_numpy() * width + first["column_index"].to_numpy(),
+                    first["pixel_som_cluster"].to_numpy())
+    return timings, assigned
 
 
 def run_pixel_stage(missing):
     """Phase 4: the pixel stage at real size through the port's entry
-    points; returns the BMU kernel's launches in that run."""
+    points; returns the BMU kernel's launches in that run and FOV 0's
+    assignments (the flat indices of its clustered pixels, their 1-indexed
+    SOM clusters)."""
     import torch
 
     from ark_tpu_torch.ops import som
@@ -509,11 +550,12 @@ def run_pixel_stage(missing):
         launches = som.bmu.launches
         check_slice_outputs(out, 100)
         seconds = out["seconds"]
+        assigned = (out["kept_pixels"][0], out["labels"][0])
         print(f"pixel stage: threshold {out['thresh']:.6g}, "
               f"{out['n_train']} training rows, "
               f"{sum(lab.size for lab in out['labels'])} pixels assigned")
     else:
-        seconds = run_full_driver(raws, "cuda")
+        seconds, assigned = run_full_driver(raws, "cuda")
         torch.cuda.synchronize()
         launches = som.bmu.launches
     total = time.perf_counter() - t0
@@ -521,7 +563,7 @@ def run_pixel_stage(missing):
     print(f"pixel stage 4 x 1024^2 x 16ch on cuda: {total:.3f} s; per phase "
           + ", ".join(f"{k} {v:.4f}" for k, v in seconds.items()))
     print(f"pixel stage bmu kernel launches: {launches}")
-    return launches
+    return launches, assigned
 
 
 def compare_pixel_cpu_cuda():
@@ -818,12 +860,15 @@ def segment_inputs(rng, labels, k):
 def check_segment_sum(masks_by_comp, name="dense"):
     """Phase 11, on 3 x 1024^2 masks (the dense ones, then the segmented
     ones, as `name` says): the plan kernel (each
-    segment's bounding box) against segment_boxes_plain, and the segment-sum
-    kernel against index_add_ on a CPU copy, both bitwise, and against a
-    second CUDA run of itself with a fresh plan, at K = 3 and K = 44 on the
-    whole-cell masks; then, on FOV 0, per-call times of the plan, of the sum
-    given its plan, of both, of the plain version and of CUDA index_add_,
-    each beside its bound; and one FOV's segment sums as the default cell
+    segment's bounding box, the background's included) against
+    segment_boxes_plain, and the segment-sum kernel with the background row
+    against index_add_ on a CPU copy, both bitwise, against a second CUDA
+    run of itself with a fresh plan, and against itself without the
+    background (row 0 zero, rows 1: the same bits), at K = 3 and K = 44 on
+    the whole-cell masks; then, on FOV 0, per-call times of the plan, of the
+    sum given its plan without the background row (what the cell table
+    launches) and with it, of both, of the plain version and of CUDA
+    index_add_, each beside its bound; and one FOV's segment sums as the default cell
     table makes them (marker_quantification's _compartment_features ->
     moment_and_channel_features: per compartment one plan, the K = 3 and the
     K = 44 pass). Returns (max error of the sums, max error of the boxes,
@@ -849,6 +894,7 @@ def check_segment_sum(masks_by_comp, name="dense"):
                       f"differ from segment_boxes_plain")
             got = sr.segment_sum(val_gpu, lab_gpu, n_seg, plan)
             again = sr.segment_sum(val_gpu, lab_gpu, n_seg)
+            cells_only = sr.segment_sum(val_gpu, lab_gpu, n_seg, plan, background=False)
             want = sr.segment_sum_plain(val_cpu, lab_cpu, n_seg)
             torch.cuda.synchronize()
             err = float((got.cpu() - want).abs().max())
@@ -856,23 +902,35 @@ def check_segment_sum(masks_by_comp, name="dense"):
             check(torch.equal(got.cpu(), want),
                   f"segment_sum K={k} FOV {i}: {int((got.cpu() != want).sum())} "
                   f"sums differ from index_add_ on the CPU (max {err})")
+            check(bool((want[0] != 0).all()) and torch.equal(got[0].cpu(), want[0]),
+                  f"segment_sum K={k} FOV {i}: the background row differs")
             check(torch.equal(got, again), f"segment_sum K={k} FOV {i}: two "
                   f"CUDA runs differ")
+            check(not bool(cells_only[0].any()) and torch.equal(cells_only[1:], got[1:]),
+                  f"segment_sum K={k} FOV {i}: background=False changes rows 1:")
             if i == 0:
                 fg = int((lab > 0).sum())
                 flat = lab_gpu.reshape(-1).long()
-                box = sr.segment_boxes_plain(lab_gpu, n_seg).to(torch.int64)
-                box = box[box[:, 1] >= box[:, 0]]          # present labels only
+                box = sr.segment_boxes_plain(lab_gpu, n_seg).to(torch.int64)[1:]
+                box = box[box[:, 1] >= box[:, 0]]          # present cells only
                 box_px = ((box[:, 1] - box[:, 0] + 1) * (box[:, 3] - box[:, 2] + 1)).sum()
                 t = {"plan_ms": time_ms(lambda: sr.segment_plan(lab_gpu, n_seg)),
                      "plain_plan_ms": time_ms(lambda: sr.segment_boxes_plain(lab_gpu,
                                                                              n_seg)),
                      "plan_device_ms": device_ms(lambda: sr.segment_plan(lab_gpu, n_seg)),
-                     "ms": time_ms(lambda: sr.segment_sum(val_gpu, lab_gpu, n_seg, plan)),
-                     "device_ms": device_ms(lambda: sr.segment_sum(val_gpu, lab_gpu, n_seg,
-                                                                   plan)),
-                     "plan_and_sum_ms": time_ms(lambda: sr.segment_sum(val_gpu, lab_gpu,
-                                                                       n_seg)),
+                     "ms": time_ms(lambda: sr.segment_sum(val_gpu, lab_gpu, n_seg, plan,
+                                                          background=False)),
+                     "device_ms": device_ms(lambda: sr.segment_sum(
+                         val_gpu, lab_gpu, n_seg, plan, background=False)),
+                     "batch_ms": batch_ms(lambda: sr.segment_sum(
+                         val_gpu, lab_gpu, n_seg, plan, background=False)),
+                     "bg_ms": time_ms(lambda: sr.segment_sum(val_gpu, lab_gpu, n_seg, plan)),
+                     "bg_batch_ms": batch_ms(lambda: sr.segment_sum(val_gpu, lab_gpu, n_seg,
+                                                                    plan), reps=5),
+                     "bg_device_ms": device_ms(lambda: sr.segment_sum(val_gpu, lab_gpu,
+                                                                      n_seg, plan)),
+                     "plan_and_sum_ms": time_ms(lambda: sr.segment_sum(
+                         val_gpu, lab_gpu, n_seg, background=False)),
                      "plain_ms": time_ms(lambda: sr.segment_sum_plain(val_gpu, lab_gpu,
                                                                       n_seg)),
                      "library_ms": time_ms(lambda: torch.zeros(
@@ -880,6 +938,9 @@ def check_segment_sum(masks_by_comp, name="dense"):
                      # the foreground's values and every label read once, the
                      # sums written once; the plan: labels in, boxes out
                      "bound_ms": bound_ms(nbytes=4.0 * (fg * k + lab.size + n_seg * k))[0],
+                     # with the background row every pixel's values are read
+                     "bg_bound_ms": bound_ms(
+                         nbytes=4.0 * (lab.size * k + lab.size + n_seg * k))[0],
                      "plan_bound_ms": bound_ms(nbytes=4.0 * lab.size + 16.0 * n_seg)[0],
                      # the walk's label reads per foreground pixel (its cost model)
                      "box_over_cell": float(box_px) / max(fg, 1)}
@@ -887,15 +948,22 @@ def check_segment_sum(masks_by_comp, name="dense"):
         t = timing[k]
         print(f"segment_sum K={k} on {len(masks)} x {masks[0].shape} {name} masks "
               f"({[int(m.max()) for m in masks]} max labels): bitwise equal to "
-              f"index_add_ on the CPU and across two CUDA runs, boxes equal to "
-              f"the plain version's; FOV 0 per call (CUDA events, median of 10): "
+              f"index_add_ on the CPU, the background row included, and across two "
+              f"CUDA runs, boxes equal to the plain version's; FOV 0 per call (CUDA "
+              f"events, median of 10): "
               f"plan {t['plan_ms']:.4f} ms (device {fmt_ms(t['plan_device_ms'])}; bound "
               f"{t['plan_bound_ms']:.4f}, share {share(t['plan_bound_ms'], t['plan_ms']):.2f},"
               f" {share(t['plan_bound_ms'], t['plan_device_ms']):.2f} of the device time; "
               f"plain {t['plain_plan_ms']:.4f}), sum given its plan {t['ms']:.4f} ms "
-              f"(device {fmt_ms(t['device_ms'])}; bound {t['bound_ms']:.4f}, share "
+              f"(device {fmt_ms(t['device_ms'])}, {t['batch_ms']:.4f} ms a call in a "
+              f"batch of 20; bound {t['bound_ms']:.4f}, share "
               f"{share(t['bound_ms'], t['ms']):.2f}, "
-              f"{share(t['bound_ms'], t['device_ms']):.2f} of the device time), both "
+              f"{share(t['bound_ms'], t['device_ms']):.2f} of the device time), with "
+              f"the background row {t['bg_ms']:.4f} ms (device "
+              f"{fmt_ms(t['bg_device_ms'])}, {t['bg_batch_ms']:.4f} ms a call in a batch "
+              f"of 5; bound {t['bg_bound_ms']:.4f}, share "
+              f"{share(t['bg_bound_ms'], t['bg_batch_ms']):.3f} of the batch time), "
+              f"plan and sum "
               f"{t['plan_and_sum_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, CUDA "
               f"index_add_ {t['library_ms']:.4f} ms; box area / cell area "
               f"{t['box_over_cell']:.3f}")
@@ -909,8 +977,8 @@ def check_segment_sum(masks_by_comp, name="dense"):
     def fov_sums():
         for lab, n_seg, v3, v44 in values.values():
             plan = sr.segment_plan(lab, n_seg)
-            sr.segment_sum(v3, lab, n_seg, plan)
-            sr.segment_sum(v44, lab, n_seg, plan)
+            sr.segment_sum(v3, lab, n_seg, plan, background=False)
+            sr.segment_sum(v44, lab, n_seg, plan, background=False)
 
     timing["fov_ms"] = time_ms(fov_sums)
     timing["fov_device_ms"] = device_ms(fov_sums)
@@ -1050,7 +1118,8 @@ def run_cell_clustering(cohort, tables, tmp_dir):
     tiled to 102 FOVs; CellSOMCluster's normalization, 10x10 training and
     BMU assignment on the card, held against the CPU port given the same
     weights; the weighted channel product on the card against the CPU.
-    Returns the cells with their cell_som_cluster."""
+    Returns the cells (normalized counts) with their cell_som_cluster, and
+    the names of the count columns."""
     import pandas as pd
     import torch
 
@@ -1129,7 +1198,7 @@ def run_cell_clustering(cohort, tables, tmp_dir):
     print(f"weighted channel product ({len(cells)} x {len(count_cols)}) . "
           f"({len(count_cols)} x {N_QUANT_CHANNELS}) on cuda: {wc_s:.4f} s with the "
           f"table around it, within rtol {MATMUL_RTOL} of the CPU")
-    return labeled
+    return labeled, count_cols
 
 
 # --- spatial analysis (the neighborhood_analysis, mixing_scores,
@@ -1149,6 +1218,9 @@ F32_EPS = 2.0 ** -24
 KNN_RTOL, SWEEP_RTOL = 1e-6, 1e-5
 SPATIAL_TEMPLATE = dict(distlim=50, cluster_num=6, k=5, dist_lim=100,
                         bootstrap_num=100)
+# phase (c) times the card on all 10 FOVs and holds it to the CPU port on
+# the first 4 (12,000 cells): the CPU replay of all 10 took 104-141 s of the run
+SPATIAL_REPLAY_FOVS = 4
 
 
 def spatial_cohort(seed=48, n_fovs=10, n_cells=3000, size=1024, n_niches=6,
@@ -1428,12 +1500,15 @@ def device_profile(fn):
             [(e.key[:60], e.self_device_time_total / 1e6) for e in top])
 
 
-def run_spatial_stage(table, name, target, reference):
+def run_spatial_stage(table, name, target, reference, replay_fovs=None):
     """Spatial phases (c) and (d): the templates' steps on the card, then on
     the CPU port, held to each other; prints seconds per step,
     permutations per second, the share of calc_dist_matrix's wall spent
     writing netCDF, and the device's busy share (a second card run under
-    the profiler). Returns the card's seconds per step."""
+    the profiler). With `replay_fovs`, the card is timed on the whole table
+    and held to the CPU port on the table's first `replay_fovs` FOVs (one
+    more card run there): the CPU's silhouette sweep is quadratic in the
+    cells. Returns the card's seconds per step."""
     from ark_tpu_torch.ops import segment_reduce, som, watershed
 
     counters = (som.bmu, watershed.claim_round, segment_reduce.segment_sum,
@@ -1449,12 +1524,19 @@ def run_spatial_stage(table, name, target, reference):
         os.makedirs(os.path.join(base, "profiled"))
         busy_s, top = device_profile(lambda: spatial_steps(
             table, os.path.join(base, "profiled"), DEVICE, target, reference))
+        held, held_fovs, held_got = table, fovs, got
+        if replay_fovs is not None and replay_fovs < len(fovs):
+            held_fovs = fovs[:replay_fovs]
+            held = table[table["fov"].isin(held_fovs)].reset_index(drop=True)
+            os.makedirs(os.path.join(base, "cuda_held"))
+            held_got, _, _ = spatial_steps(held, os.path.join(base, "cuda_held"), DEVICE,
+                                           target, reference)
         os.makedirs(os.path.join(base, "cpu"))
         t0 = time.perf_counter()
-        want, _, _ = spatial_steps(table, os.path.join(base, "cpu"), "cpu", target,
+        want, _, _ = spatial_steps(held, os.path.join(base, "cpu"), "cpu", target,
                                    reference)
         cpu_s = time.perf_counter() - t0
-        spatial_outputs_agree(got, want, fovs, name)
+        spatial_outputs_agree(held_got, want, held_fovs, name)
     total = sum(seconds.values())
     perms = len(fovs) * SPATIAL_TEMPLATE["bootstrap_num"]
     z = np.concatenate([r["z"].ravel() for r in got["enrichment"].values()])
@@ -1466,7 +1548,8 @@ def run_spatial_stage(table, name, target, reference):
           f"calc_dist_matrix: netCDF writes {split['netcdf_write_s']:.4f} s "
           f"({split['netcdf_write_s'] / seconds['calc_dist_matrix']:.1%} of its wall), "
           f"waiting for distances {split['distances_s']:.4f} s; every step equal to "
-          f"the CPU port's (CPU run {cpu_s:.3f} s); kernel launches (bmu, claim, "
+          f"the CPU port's on {len(held_fovs)} FOVs, {len(held)} cells (CPU run "
+          f"{cpu_s:.3f} s); kernel launches (bmu, claim, "
           f"segment_sum, segment_plan) {launches}")
     print(f"spatial stage {name}: device busy {busy_s:.4f} s of the {total:.3f} s "
           f"stage ({busy_s / total:.1%}, profiled run); most device time: "
@@ -1846,6 +1929,399 @@ def run_ez_seg(img):
     return t
 
 
+# --- cluster masks, overlays and the embeddings (UMAP, PCA, t-SNE)
+
+# the embeddings, the card against the CPU port given the same inputs. k-NN:
+# both expand |r|^2 - 2 r.c + |c|^2 in f32 with the D products summed in
+# another order, so the squared distances agree within knn_bound = 4 (D - 1)
+# 2^-24 (|r|^2 + max |c|^2), the rule ops/distances is held to (near-copies
+# of a cell, which the tiled cohort holds, cancel to d^2 ~ 1e-6 and carry
+# that as their whole value). A row's neighbour lists may differ at a rank
+# whose squared distance is closer than that bound to the next or the
+# previous rank's (the k + 1st included).
+EMBED_RTOL = 1e-5
+# UMAP's epochs are a chaotic map (a term near its +-4 clip, a negative that
+# lands beside its point): pow differs in the last bits between the devices,
+# and single coordinates part. After OPT_EPOCHS epochs all but OPT_OUTLIERS
+# of the coordinates agree within OPT_ATOL, every one within OPT_WORST.
+OPT_EPOCHS, OPT_ATOL, OPT_OUTLIERS, OPT_WORST = 3, 1e-4, 0.005, 5e-3
+# t-SNE's descent multiplies a last-bit difference ~5x every few steps while
+# the coordinates grow from 1e-4 to ~5 (the CPU tests' rule for 10 steps)
+TSNE_STEPS, TSNE_ATOL = 10, 1e-3
+KNN_COMPARE_CELLS = 20_000       # the k-NN of this many cells, card against CPU
+TSNE_CELLS = 10_000              # the sample size ark_tpu/ops/tsne.py is written for
+CPU_UMAP_CELLS, CPU_TSNE_CELLS = 2_500, 500
+
+
+def cluster_mask_inputs(masks, table, pixel_assigned, seed=53):
+    """Phase (h)'s inputs, as cluster_mask_steps takes them: the dense
+    whole-cell masks by FOV name, the cells' types, a seeded colour table,
+    two seeded channels for FOV 0's overlay and FOV 0's pixel assignments
+    (flat indices, cluster ids)."""
+    rng = np.random.default_rng(seed)
+    by_fov = {f"fov{i}": m for i, m in enumerate(masks)}
+    n_types = table["cell_meta_cluster"].nunique()
+    colors = rng.integers(0, 256, (n_types + 2, 4)).astype(np.uint8)
+    h, w = masks[0].shape
+    channels = rng.gamma(1.0, 30.0, (h, w, 2)).astype(np.float32)
+    channels[rng.random((h, w, 2)) < 0.3] = 0.0
+    return by_fov, table, colors, channels, pixel_assigned
+
+
+def cluster_mask_steps(by_fov, table, colors, channels, pixel_assigned, device):
+    """The cluster-mask chain on `device`: ClusterMaskData, per FOV the
+    eroded cell-cluster mask and its coloured image, FOV 0's pixel-cluster
+    mask and overlay. Returns the outputs and the seconds per step."""
+    import torch
+
+    from ark_tpu_torch.utils import data_utils, plot_utils
+
+    def mark(name, t0):
+        if device != "cpu":
+            torch.cuda.synchronize()
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+
+    seconds, out = {}, {"cell_masks": {}, "colored": {}}
+    t0 = time.perf_counter()
+    cmd = data_utils.ClusterMaskData(table, "fov", "label", "cell_meta_cluster")
+    mark("cluster_mask_data_s", t0)
+    for fov, labels in by_fov.items():
+        t0 = time.perf_counter()
+        eroded = data_utils.erode_mask(labels, connectivity=2, mode="thick", device=device)
+        mark("erode_s", t0)
+        t0 = time.perf_counter()
+        out["cell_masks"][fov] = data_utils.label_cells_by_cluster(fov, cmd, eroded,
+                                                                   device=device)
+        mark("relabel_s", t0)
+        t0 = time.perf_counter()
+        out["colored"][fov] = plot_utils.gather_colors(out["cell_masks"][fov], colors,
+                                                       device=device)
+        mark("color_s", t0)
+    first = next(iter(by_fov.values()))
+    t0 = time.perf_counter()
+    out["pixel_mask"] = data_utils.scatter_pixel_clusters(first.shape, *pixel_assigned,
+                                                          device=device)
+    mark("pixel_mask_s", t0)
+    t0 = time.perf_counter()
+    out["overlay"] = plot_utils.overlay_from_arrays(channels, first, device=device)
+    mark("overlay_s", t0)
+    out["mapping"] = cmd.mapping
+    return out, seconds
+
+
+def run_cluster_masks(masks, table, pixel_assigned):
+    """Phase (h): the dense 3 x 1024^2 masks with the cell SOM's types
+    through ClusterMaskData, erode_mask and label_cells_by_cluster, the
+    colour gather, one pixel-cluster mask from the pixel stage's
+    assignments and one overlay with two seeded channels, on the card, held
+    equal to the CPU port's (integers and uint8: exact). Prints seconds per
+    FOV and per step, and the device's busy share."""
+    inputs = cluster_mask_inputs(masks, table, pixel_assigned)
+    cluster_mask_steps(*inputs, DEVICE)                                # warm-up
+    got, seconds = cluster_mask_steps(*inputs, DEVICE)
+    busy_s, top = device_profile(lambda: cluster_mask_steps(*inputs, DEVICE))
+    t0 = time.perf_counter()
+    want, _ = cluster_mask_steps(*inputs, "cpu")
+    cpu_s = time.perf_counter() - t0
+    n_fovs = len(masks)
+    for fov in want["cell_masks"]:
+        for key in ("cell_masks", "colored"):
+            check(got[key][fov].dtype == want[key][fov].dtype
+                  and np.array_equal(got[key][fov], want[key][fov]),
+                  f"cluster masks {fov} {key}: the card and the CPU port differ")
+        ids = np.unique(got["cell_masks"][fov])
+        check(got["cell_masks"][fov].dtype == np.int16 and ids[0] == 0 and len(ids) > 10,
+              f"cluster mask {fov}: {len(ids)} ids")
+    for key in ("pixel_mask", "overlay"):
+        check(got[key].dtype == want[key].dtype and np.array_equal(got[key], want[key]),
+              f"{key}: the card and the CPU port differ")
+    check(got["mapping"].equals(want["mapping"]), "ClusterMaskData.mapping differs")
+    check(got["overlay"].dtype == np.uint8 and got["overlay"].max() == 255
+          and len(np.unique(got["overlay"])) > 200, "overlay: not a rescaled uint8 image")
+    check(got["pixel_mask"].dtype == np.int16 and got["pixel_mask"].max() <= 100
+          and (got["pixel_mask"] > 0).mean() > 0.3, "pixel-cluster mask: too few pixels")
+    total = sum(seconds.values())
+    per_fov = (seconds["erode_s"] + seconds["relabel_s"] + seconds["color_s"]) / n_fovs
+    print(f"cluster masks {n_fovs} x {masks[0].shape} dense masks, "
+          f"{table['cell_meta_cluster'].nunique()} cell types on {DEVICE} [{CARD}]: "
+          f"{per_fov:.4f} s per FOV (erode, relabel, colour gather); per step "
+          + ", ".join(f"{k} {v:.4f}" for k, v in seconds.items())
+          + f"; cell masks, coloured masks, the pixel-cluster mask "
+          f"({int((got['pixel_mask'] > 0).sum())} pixels) and the overlay equal to the "
+          f"CPU port's (CPU run {cpu_s:.3f} s)")
+    print(f"cluster masks: device busy {busy_s:.4f} s of the {total:.4f} s chain "
+          f"({busy_s / total:.1%}, profiled run); most device time: "
+          + "; ".join(f"{k} {v:.4f} s" for k, v in top))
+    return seconds
+
+
+def knn_purity(emb, labels, k=10, sample=5000, seed=54, device="cpu"):
+    """Share of the `k` nearest neighbours in the embedding (among all
+    points) that carry their point's label, over a seeded sample of points."""
+    import torch
+
+    from ark_tpu_torch.ops import umap
+
+    emb_t = torch.as_tensor(np.asarray(emb, np.float32), device=device)
+    idx, _ = umap._knn(emb_t, k)
+    rows = np.random.default_rng(seed).choice(len(emb), size=min(sample, len(emb)),
+                                              replace=False)
+    nn = idx.cpu().numpy()[rows]
+    return float((labels[nn] == labels[rows][:, None]).mean())
+
+
+def run_embeddings(data, labels):
+    """Phase (i): the embeddings at full width through
+    dimensionality_reduction.reduce_dimensions on the card: UMAP with its
+    defaults (k = 15, 200 epochs, 5 negatives) and PCA on every cell of the
+    cell-clustering cohort, t-SNE with its defaults (1000 iterations) on a
+    TSNE_CELLS sample. Prints seconds per step, the segment-sum and plan
+    launches of the UMAP fit, peak device memory, and the k-NN purity of
+    the cell SOM's clusters in each embedding, for the card and for a CPU
+    run at a size the CPU finishes in seconds. Returns (segment_sum
+    launches, segment_plan launches) of the UMAP fit."""
+    import torch
+
+    from ark_tpu_torch.analysis import dimensionality_reduction as dr
+    from ark_tpu_torch.ops import segment_reduce
+
+    n, c = data.shape
+    rng = np.random.default_rng(55)
+    small = np.sort(rng.choice(n, size=min(2000, n), replace=False))
+    dr.reduce_dimensions(data[small], "UMAP", device=DEVICE)              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    segment_reduce.segment_sum.launches = 0
+    segment_reduce.segment_plan.launches = 0
+    steps = {}
+    t0 = time.perf_counter()
+    emb = dr.reduce_dimensions(data, "UMAP", device=DEVICE, timings=steps)
+    umap_s = time.perf_counter() - t0
+    launches = segment_reduce.segment_sum.launches
+    plan_launches = segment_reduce.segment_plan.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    check(emb.shape == (n, 2) and np.isfinite(emb).all(), "UMAP: not a finite (N, 2) array")
+    check(launches == 400 and plan_launches == 2, f"UMAP fit: segment_sum launches "
+          f"{launches} (expected 2 x 200 epochs), segment_plan launches {plan_launches} "
+          f"(expected 2)")
+    purity = knn_purity(emb, labels, device=DEVICE)
+    sub = np.sort(rng.choice(n, size=min(CPU_UMAP_CELLS, n), replace=False))
+    t0 = time.perf_counter()
+    emb_cpu = dr.reduce_dimensions(data[sub], "UMAP", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    purity_cpu = knn_purity(emb_cpu, labels[sub])
+    # chance: the share of pairs of cells with one label; an embedding that
+    # keeps the clusters together puts most of a cell's neighbours in its own
+    chance = float((np.bincount(labels) / n) @ (np.bincount(labels) / n))
+    floor = max(0.5, 2 * chance)
+    check(purity > floor and purity_cpu > floor, f"UMAP: k-NN purity "
+          f"{purity:.3f} (card), {purity_cpu:.3f} (CPU) against chance {chance:.3f}")
+    print(f"UMAP {n} cells x {c} columns (k=15, 200 epochs, 5 negatives) on {DEVICE} "
+          f"[{CARD}]: {umap_s:.3f} s; per step "
+          + ", ".join(f"{k} {v:.4f}" for k, v in steps.items())
+          + f"; segment_sum launches {launches}, segment_plan launches {plan_launches}; "
+          f"peak device memory {peak:.1f} MiB; 10-NN purity of the cell SOM's clusters "
+          f"{purity:.3f} (chance {chance:.3f}); CPU port on {len(sub)} cells: "
+          f"{cpu_s:.3f} s, purity {purity_cpu:.3f}")
+
+    t0 = time.perf_counter()
+    pca = dr.reduce_dimensions(data, "PCA", device=DEVICE)
+    pca_s = time.perf_counter() - t0
+    pca_cpu = dr.reduce_dimensions(data, "PCA", device="cpu")
+    differ = int((pca != pca_cpu).sum())
+    check(pca.shape == (n, 2) and np.allclose(pca, pca_cpu, rtol=EMBED_RTOL,
+                                              atol=EMBED_RTOL * np.abs(pca_cpu).max()),
+          "PCA: the card and the CPU port differ")
+    print(f"PCA {n} cells x {c} columns on {DEVICE}: {pca_s:.4f} s; {differ} of "
+          f"{pca.size} scores differ from the CPU port's in the last bit (f64 sums "
+          f"rounded to f32), none beyond rtol {EMBED_RTOL}")
+
+    sample = np.sort(rng.choice(n, size=min(TSNE_CELLS, n), replace=False))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ts = dr.reduce_dimensions(data[sample], "tSNE", device=DEVICE)
+    tsne_s = time.perf_counter() - t0
+    tsne_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    check(ts.shape == (len(sample), 2) and np.isfinite(ts).all(), "t-SNE: not finite")
+    tsne_purity = knn_purity(ts, labels[sample], device=DEVICE)
+    tiny = sample[:CPU_TSNE_CELLS]
+    t0 = time.perf_counter()
+    ts_cpu = dr.reduce_dimensions(data[tiny], "tSNE", device="cpu")
+    tsne_cpu_s = time.perf_counter() - t0
+    tsne_purity_cpu = knn_purity(ts_cpu, labels[tiny])
+    check(tsne_purity > floor and tsne_purity_cpu > floor, f"t-SNE: k-NN purity "
+          f"{tsne_purity:.3f} (card), {tsne_purity_cpu:.3f} (CPU) against chance "
+          f"{chance:.3f}")
+    print(f"t-SNE {len(sample)} cells x {c} columns (perplexity 30, 1000 iterations) on "
+          f"{DEVICE} [{CARD}]: {tsne_s:.3f} s with its affinities; peak device memory "
+          f"{tsne_peak:.1f} MiB; 10-NN purity "
+          f"{tsne_purity:.3f}; CPU port on {len(tiny)} cells: {tsne_cpu_s:.3f} s, purity "
+          f"{tsne_purity_cpu:.3f}")
+    return launches, plan_launches
+
+
+def compare_embedding_steps(data):
+    """Phase (j): the embeddings' steps on the card against the CPU port,
+    given the same inputs: the k-NN of KNN_COMPARE_CELLS cells (distances
+    within knn_bound, neighbours equal outside near-tie ranks),
+    the bandwidths, the seeded negatives (equal), the PCA start, OPT_EPOCHS
+    epochs of _optimize from the same graph, start and negatives, the
+    t-SNE affinities and TSNE_STEPS descent steps from the same y0."""
+    import torch
+
+    from ark_tpu_torch.analysis import dimensionality_reduction as dr
+    from ark_tpu_torch.ops import tsne, umap
+
+    rng = np.random.default_rng(56)
+    rows = np.sort(rng.choice(len(data), size=min(KNN_COMPARE_CELLS, len(data)),
+                              replace=False))
+    x = dr.standardize_columns(data[rows]).astype(np.float32)
+    x_cpu, x_gpu = torch.as_tensor(x), torch.as_tensor(x, device=DEVICE)
+    k = 15
+    idx_g, d_g = umap._knn(x_gpu, k)
+    idx_c, d_c = umap._knn(x_cpu, k)
+    sq = (x_cpu * x_cpu).sum(1)
+    knn_bound = 4 * (x.shape[1] - 1) * F32_EPS * (sq[:, None] + sq.max())
+    d2_err = (d_g.cpu() ** 2 - d_c ** 2).abs()
+    check(bool((d2_err <= knn_bound).all()), f"k-NN squared distances: the card and the "
+          f"CPU port differ by {float(d2_err.max())}, beyond 4 (D - 1) 2^-24 (|r|^2 + "
+          f"max |c|^2)")
+    _, wider = umap._knn(x_cpu, k + 1)
+    close = torch.diff(wider * wider, dim=1) < knn_bound
+    ties = close.clone()                      # rank j against rank j + 1 ...
+    ties[:, 1:] |= close[:, :-1]              # ... and against rank j - 1
+    differ = idx_g.cpu() != idx_c
+    check(not bool((differ & ~ties).any()),
+          f"k-NN: {int((differ & ~ties).sum())} neighbours differ outside near-ties "
+          f"({int(ties.sum())} near-tie ranks)")
+    rho_g, sigma_g = umap._smooth_knn(d_c.to(DEVICE))
+    rho_c, sigma_c = umap._smooth_knn(d_c)
+    check(torch.equal(rho_g.cpu(), rho_c) and torch.allclose(
+        sigma_g.cpu(), sigma_c, rtol=EMBED_RTOL), "_smooth_knn: the card and the CPU differ")
+    print(f"k-NN {len(rows)} cells x {x.shape[1]} columns, k={k}, card against CPU port: "
+          f"max |squared-distance difference| {float(d2_err.max()):.3g} (bound "
+          f"{float(knn_bound.min()):.3g} and up), "
+          f"{int(differ.sum())} of {differ.numel()} neighbours differ, all among the "
+          f"{int(ties.sum())} near-tie ranks; bandwidths within rtol {EMBED_RTOL} (max relative "
+          f"{float(((sigma_g.cpu() - sigma_c) / sigma_c).abs().max()):.3g})")
+
+    heads, tails, w = umap.fuzzy_graph(idx_c, d_c)
+    n, n_edges = len(rows), len(heads)
+    for epoch in (0, 199):
+        check(torch.equal(umap.draw_negatives(42, epoch, 5, n_edges, n, DEVICE).cpu(),
+                          umap.draw_negatives(42, epoch, 5, n_edges, n, "cpu")),
+              f"negatives of epoch {epoch}: the card and the CPU differ")
+    negs = umap.draw_negatives(42, 0, 5, n_edges, n, "cpu")
+    counts = torch.bincount(negs.reshape(-1), minlength=n).double()
+    chi2 = float(((counts - counts.mean()) ** 2 / counts.mean()).sum())
+    check(abs(chi2 - (n - 1)) < 6 * (2 * (n - 1)) ** 0.5, f"negatives: chi-square {chi2} "
+          f"for {n - 1} degrees of freedom")
+    emb0_g = umap._pca(x_gpu, 2)
+    emb0_c = umap._pca(x_cpu, 2)
+    pca_differ = int((emb0_g.cpu() != emb0_c).sum())
+    check(torch.allclose(emb0_g.cpu(), emb0_c, rtol=EMBED_RTOL,
+                         atol=EMBED_RTOL * float(emb0_c.abs().max())),
+          "PCA start: the card and the CPU differ")
+    xs = x_cpu[:2000]
+    y0 = tsne.initial_embedding(len(xs), 2, 42)
+    check(torch.equal(y0, tsne.initial_embedding(len(xs), 2, 42))
+          and y0.device.type == "cpu",
+          "t-SNE's seeded start is not one CPU draw")
+    emb0 = emb0_c / (emb0_c.abs().max() + 1e-12) * 10.0
+    opt_c = umap._optimize(emb0, heads, tails, w, 42, n_epochs=OPT_EPOCHS)
+    opt_g = umap._optimize(emb0.to(DEVICE), heads.to(DEVICE), tails.to(DEVICE),
+                           w.to(DEVICE), 42, n_epochs=OPT_EPOCHS).cpu()
+    err = (opt_g - opt_c).abs()
+    outliers = float((err > OPT_ATOL).float().mean())
+    check(outliers <= OPT_OUTLIERS and float(err.max()) <= OPT_WORST,
+          f"_optimize {OPT_EPOCHS} epochs: {outliers:.4%} of the coordinates beyond "
+          f"{OPT_ATOL}, max {float(err.max()):.3g}")
+    print(f"UMAP on {n} cells, card against CPU port: negatives of epochs 0 and 199 equal "
+          f"({5 * n_edges} draws, chi-square {chi2:.0f} for {n - 1} degrees of freedom); "
+          f"PCA start: {pca_differ} of {emb0_c.numel()} scores differ in the last bit; "
+          f"{OPT_EPOCHS} epochs of _optimize from the same graph, start and negatives: "
+          f"max |difference| {float(err.max()):.3g}, {outliers:.4%} beyond {OPT_ATOL}")
+
+    d2 = tsne._squared_dists(xs)
+    p_c = tsne._conditional_affinities(d2, 30.0)
+    p_g = tsne._conditional_affinities(d2.to(DEVICE), 30.0).cpu()
+    check(torch.allclose(p_g, p_c, rtol=EMBED_RTOL, atol=1e-9),
+          f"_conditional_affinities: differ by {float((p_g - p_c).abs().max())}")
+    p_sym = torch.clamp_min((p_c + p_c.T) / (2.0 * len(xs)), 1e-12)
+    lr = max(len(xs) / 48.0, 50.0)
+    y_c = tsne._embed(p_sym, 42, TSNE_STEPS, TSNE_STEPS, lr, y0=y0)
+    y_g = tsne._embed(p_sym.to(DEVICE), 42, TSNE_STEPS, TSNE_STEPS, lr, y0=y0).cpu()
+    check(torch.allclose(y_g, y_c, rtol=0, atol=TSNE_ATOL),
+          f"_embed {TSNE_STEPS} steps: differ by {float((y_g - y_c).abs().max())}")
+    print(f"t-SNE on {len(xs)} cells, card against CPU port: affinities within rtol "
+          f"{EMBED_RTOL} (max |difference| {float((p_g - p_c).abs().max()):.3g}); "
+          f"{TSNE_STEPS} steps of _embed from the same start: max |difference| "
+          f"{float((y_g - y_c).abs().max()):.3g} on coordinates up to "
+          f"{float(y_c.abs().max()):.3g} (atol {TSNE_ATOL})")
+
+
+def check_edge_sums(data):
+    """The segment-sum kernel at the shape UMAP's epoch gives it: the fuzzy
+    graph's edges of every cell (N x 15 sorted point ids, 2 columns, N
+    segments, point 0 a real row), heads and stably sorted tails, each
+    bitwise against segment_sum_plain on a CPU copy; timed on the tails
+    beside the plan, the plain version, CUDA index_add_ and the byte bound.
+    Returns (max error, timings)."""
+    import torch
+
+    from ark_tpu_torch.analysis import dimensionality_reduction as dr
+    from ark_tpu_torch.ops import segment_reduce as sr
+    from ark_tpu_torch.ops import umap
+
+    x = torch.as_tensor(dr.standardize_columns(data).astype(np.float32), device=DEVICE)
+    n = x.shape[0]
+    idx, _ = umap._knn(x, 15)
+    heads = torch.arange(n, device=DEVICE).repeat_interleave(idx.shape[1]).to(torch.int32)
+    tails = torch.sort(idx.reshape(-1), stable=True).values.to(torch.int32)
+    vals = torch.as_tensor(np.random.default_rng(57).normal(
+        size=(heads.numel(), 2)).astype(np.float32), device=DEVICE)
+    max_err = 0.0
+    for name, ids in (("heads", heads), ("tails", tails)):
+        plan = sr.segment_plan(ids, n)
+        got = sr.segment_sum(vals, ids, n, plan)
+        want = sr.segment_sum_plain(vals.cpu(), ids.cpu(), n)
+        torch.cuda.synchronize()
+        max_err = max(max_err, float((got.cpu() - want).abs().max()))
+        check(torch.equal(got.cpu(), want) and bool((want[0] != 0).any()),
+              f"segment_sum over UMAP's {name}: {int((got.cpu() != want).sum())} sums "
+              f"differ from index_add_ on the CPU")
+        if plan.boxes is not None:            # CUDA plans carry the boxes
+            check(torch.equal(plan.boxes, sr.segment_boxes_plain(ids, n)),
+                  f"segment_plan over UMAP's {name}: boxes differ from the plain "
+                  f"version's")
+    flat = tails.long()
+    longest = int(torch.bincount(flat, minlength=n).max())
+    t = {"ms": time_ms(lambda: sr.segment_sum(vals, tails, n, plan)),
+         "device_ms": device_ms(lambda: sr.segment_sum(vals, tails, n, plan)),
+         "batch_ms": batch_ms(lambda: sr.segment_sum(vals, tails, n, plan)),
+         "library_batch_ms": batch_ms(lambda: torch.zeros((n, 2), device=DEVICE).index_add_(
+             0, flat, vals)),
+         "plan_ms": time_ms(lambda: sr.segment_plan(tails, n)),
+         "plan_device_ms": device_ms(lambda: sr.segment_plan(tails, n)),
+         "plain_ms": time_ms(lambda: sr.segment_sum_plain(vals, tails, n)),
+         "library_ms": time_ms(lambda: torch.zeros((n, 2), device=DEVICE).index_add_(
+             0, flat, vals)),
+         # every edge's two values and its label read once, the sums written once
+         "bound_ms": bound_ms(nbytes=4.0 * (3 * tails.numel() + 2 * n))[0],
+         "plan_bound_ms": bound_ms(nbytes=4.0 * tails.numel() + 16.0 * n)[0]}
+    print(f"segment_sum at UMAP's edge shape ({tails.numel()} sorted ids x 2 columns, {n} "
+          f"segments, longest {longest}) on {DEVICE} [{CARD}]: heads and tails bitwise equal "
+          f"to index_add_ on the CPU, row 0 included; tails per call (CUDA events, median "
+          f"of 10): sum given its plan {t['ms']:.4f} ms (device {fmt_ms(t['device_ms'])}, "
+          f"{t['batch_ms']:.4f} ms a call in a batch of 20; bound {t['bound_ms']:.4f}, share "
+          f"{share(t['bound_ms'], t['batch_ms']):.3f} of the batch time), plan "
+          f"{t['plan_ms']:.4f} ms (device {fmt_ms(t['plan_device_ms'])}; bound "
+          f"{t['plan_bound_ms']:.4f}), plain "
+          f"{t['plain_ms']:.4f} ms, CUDA index_add_ {t['library_ms']:.4f} ms "
+          f"({t['library_batch_ms']:.4f} in a batch)")
+    return max_err, t
+
+
 def main() -> int:
     import torch
 
@@ -1868,12 +2344,21 @@ def main() -> int:
     built = _kernels.build_all()
     print(f"kernel builds (nvcc sm_90a, {sorted(built)}, in parallel): "
           f"{time.perf_counter() - t0:.2f} s")
+    sections = {}                    # the run's wall seconds by section
+    clock = time.perf_counter()
+
+    def section_done(name):
+        nonlocal clock
+        sections[name] = time.perf_counter() - clock
+        clock = time.perf_counter()
 
     # the pixel stage (template 2)
     rng = np.random.default_rng(42)
     max_err, timing = check_kernel(rng)
-    bmu_launches = run_pixel_stage(missing)
+    bmu_launches, pixel_assigned = run_pixel_stage(missing)
     compare_pixel_cpu_cuda()
+
+    section_done("pixel stage")
 
     # segmentation (template 1)
     claim_err, claim_timing = check_claim_kernel(np.random.default_rng(43))
@@ -1893,6 +2378,8 @@ def main() -> int:
     compare_level_flood(app, cohorts["8x512"][0])
     compare_segmentation_cpu_cuda()
 
+    section_done("segmentation")
+
     # quantification (template 1's cell table) and cell clustering (template 3)
     dense = dense_masks()
     seg_err, plan_err, seg_timing = check_segment_sum(dense)
@@ -1903,7 +2390,9 @@ def main() -> int:
     cohort = quant_cohort(dense)
     _, _, tables = run_cell_table(cohort, "dense")
     with tempfile.TemporaryDirectory() as tmp_dir:
-        labeled = run_cell_clustering(cohort, tables, tmp_dir)
+        labeled, count_cols = run_cell_clustering(cohort, tables, tmp_dir)
+
+    section_done("cell table and cell clustering")
 
     # spatial analysis (the four spatial templates), then the main path's
     # cells from masks to enrichment z-scores
@@ -1911,17 +2400,33 @@ def main() -> int:
     spatial = spatial_cohort()
     check_enrichment_null(spatial)
     run_spatial_stage(spatial, "10 x 3000 planted", SPATIAL_TYPES[:2],
-                      SPATIAL_TYPES[2:4])
+                      SPATIAL_TYPES[2:4], replay_fovs=SPATIAL_REPLAY_FOVS)
     main_table = main_path_spatial_table(tables, labeled)
     by_size = main_table["cell_meta_cluster"].value_counts().index.tolist()
     run_spatial_stage(main_table, "main path (dense cell tables, cell SOM types)",
                       by_size[:10], by_size[10:20])
+
+    section_done("spatial analysis")
 
     # the classical image ops, fiber segmentation and ez_seg
     fiber_fov = fiber_image(np.random.default_rng(3))
     check_classical_ops(fiber_fov)
     fiber_launches, fiber_plan_launches, _ = run_fiber_stage(fiber_fov)
     run_ez_seg(fiber_fov)
+
+    section_done("classical ops, fiber, ez_seg")
+
+    # cluster masks and overlays, then the embeddings of the cell-clustering
+    # cohort's cells (UMAP, PCA, t-SNE)
+    run_cluster_masks(dense["whole_cell"], main_table, pixel_assigned)
+    cell_counts = labeled[count_cols].to_numpy(np.float32)
+    edge_err, edge_timing = check_edge_sums(cell_counts)
+    umap_launches, umap_plan_launches = run_embeddings(
+        cell_counts, labeled["cell_som_cluster"].to_numpy())
+    compare_embedding_steps(cell_counts)
+    section_done("cluster masks and embeddings")
+    print("smoke run seconds by section (host clock, CPU replays included): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in sections.items()))
 
     claim_ms = claim_timing[CLAIM_TIMED[0]]
     seg_ms = seg_timing[4 + N_QUANT_CHANNELS]
@@ -1940,14 +2445,21 @@ def main() -> int:
         "name": "segment_sum", "route": "cuda",
         "source": "ark_tpu_torch/csrc/segment_sum.cu",
         "replaces": "ark_tpu/ops/segment_reduce.py:44", "launches": seg_launches,
-        "launches_by_path": {"cell_table": seg_launches, "fiber": fiber_launches},
-        "max_abs_err": seg_err, "ms": seg_ms["ms"], "plain_ms": seg_ms["plain_ms"],
-        "bound_ms": seg_ms["bound_ms"], "bound_by": "bytes",
-        "library_ms": seg_ms["library_ms"]}, {
+        "launches_by_path": {"cell_table": seg_launches, "fiber": fiber_launches,
+                             "umap": umap_launches},
+        "max_abs_err": max(seg_err, edge_err), "ms": seg_ms["ms"],
+        "plain_ms": seg_ms["plain_ms"], "bound_ms": seg_ms["bound_ms"],
+        "bound_by": "bytes", "library_ms": seg_ms["library_ms"],
+        "by_shape": {
+            "k44_with_background": {"ms": seg_ms["bg_ms"],
+                                    "bound_ms": seg_ms["bg_bound_ms"]},
+            "umap_edges": {key: edge_timing[key] for key in
+                           ("ms", "plain_ms", "bound_ms", "library_ms")}}}, {
         "name": "segment_plan", "route": "cuda",
         "source": "ark_tpu_torch/csrc/segment_sum.cu",
         "replaces": "ark_tpu/ops/segment_reduce.py:44", "launches": plan_launches,
-        "launches_by_path": {"cell_table": plan_launches, "fiber": fiber_plan_launches},
+        "launches_by_path": {"cell_table": plan_launches, "fiber": fiber_plan_launches,
+                             "umap": umap_plan_launches},
         "max_abs_err": plan_err, "ms": seg_ms["plan_ms"],
         "plain_ms": seg_ms["plain_plan_ms"], "bound_ms": seg_ms["plan_bound_ms"],
         "bound_by": "bytes", "library_ms": None}]}))

@@ -20,8 +20,15 @@ new, old), CUDA events, median of 10 calls each:
   other candidate, an int32 CSR by a stable sort and a binary search), the
   sum given its plan, and both, against the old call and CUDA index_add_;
   then one FOV's four sums as the default cell table makes them (two
-  compartments x two passes). All sums must be bitwise equal to index_add_
-  on a CPU copy.
+  compartments x two passes), all without the background row, as the cell
+  table asks for them. All sums must be bitwise equal to index_add_ on a CPU
+  copy;
+- the segment sum's two other shapes: the dense FOV with the background row
+  (K = 3 and K = 44: one warp walks every background pixel), and UMAP's
+  edge sums (101,932 points x 15 sorted ids x 2 columns, point 0 a real row:
+  the heads, and tails drawn with hubs and sorted), against the old call
+  (whose row 0 is zero, so rows 1: are compared), CUDA index_add_ and the
+  byte bound.
 
 Kernel times are also taken as device time (torch.profiler, every kernel a
 call launches), which leaves out the host's launch work that CUDA events
@@ -204,9 +211,9 @@ def segment_ab(lib, cohorts, rows):
         fg = int((cells > 0).sum())
         for k in (3, 44):
             vals = segment_inputs(masks[0][0], k, k)
-            want = sr.segment_sum_plain(vals.cpu(), cells.cpu(), n_seg)
+            want = sr.segment_sum_plain(vals.cpu(), cells.cpu(), n_seg, background=False)
             plan = sr.segment_plan(cells, n_seg)
-            got = sr.segment_sum(vals, cells, n_seg, plan)
+            got = sr.segment_sum(vals, cells, n_seg, plan, background=False)
             torch.cuda.synchronize()
             if not torch.equal(got.cpu(), want):
                 raise SystemExit(f"segment_sum {name} K={k}: not bitwise")
@@ -214,7 +221,8 @@ def segment_ab(lib, cohorts, rows):
                 raise SystemExit(f"old segment_sum {name} K={k}: not bitwise")
             nbytes = 4.0 * (fg * k + cells.numel() + n_seg * k)
             bound = nbytes / HBM_BYTES_PER_S * 1e3
-            walk = lambda: sr.segment_sum(vals, cells, n_seg, plan)     # noqa: E731
+            walk = lambda: sr.segment_sum(vals, cells, n_seg, plan,      # noqa: E731
+                                          background=False)
             row = {"kernel": "segment_sum", "cohort": name, "k": k, "segments": n_seg,
                    "foreground": fg, "bound_ms": bound,
                    "library_ms": time_ms(lambda: torch.zeros(
@@ -229,7 +237,7 @@ def segment_ab(lib, cohorts, rows):
                                                                       n_seg))}
             old_ms, new_ms, turns = in_turns(
                 lambda: old_segment_sum(lib, vals, cells, n_seg),
-                lambda: sr.segment_sum(vals, cells, n_seg))
+                lambda: sr.segment_sum(vals, cells, n_seg, background=False))
             row.update(old_ms=old_ms, new_ms=new_ms, turns_ms=turns,
                        share=bound / row["walk_device_ms"])
             rows.append(row)
@@ -252,8 +260,8 @@ def segment_ab(lib, cohorts, rows):
             for lab, v3, v44 in inputs:
                 s = masks_max[id(lab)] + 1
                 plan = sr.segment_plan(lab, s)
-                sr.segment_sum(v3, lab, s, plan)
-                sr.segment_sum(v44, lab, s, plan)
+                sr.segment_sum(v3, lab, s, plan, background=False)
+                sr.segment_sum(v44, lab, s, plan, background=False)
 
         def four_old():
             for lab, v3, v44 in inputs:
@@ -271,6 +279,65 @@ def segment_ab(lib, cohorts, rows):
               f"(plan, K=3, K=44)): old {old_ms:.4f} ms, new {new_ms:.4f} ms (turns "
               f"{[round(t, 4) for t in turns]}); device time old {dev_old:.4f}, new "
               f"{dev_new:.4f} ms")
+
+
+def edge_ids(n=101_932, k=15, seed=58):
+    """UMAP's two id lists at the cell cohort's size: each point id `k`
+    times (the heads), and as many ids drawn with hubs (a tenth of the
+    points take half the edges) and sorted (the tails)."""
+    rng = np.random.default_rng(seed)
+    heads = np.repeat(np.arange(n, dtype=np.int32), k)
+    hubs = rng.choice(n, size=n // 10, replace=False)
+    tails = np.where(rng.random(n * k) < 0.5, rng.choice(hubs, size=n * k),
+                     rng.integers(0, n, n * k)).astype(np.int32)
+    return {"umap_heads": heads, "umap_tails": np.sort(tails, kind="stable")}, n
+
+
+def segment_row0_ab(lib, dense_cells, rows):
+    """The shapes whose row 0 is read: old design (row 0 zero) against the
+    kernel with the background row, in turns."""
+    import torch
+
+    from ark_tpu_torch.ops import segment_reduce as sr
+    from chip_smoke import device_ms, time_ms
+
+    ids, n_points = edge_ids()
+    cases = [(f"dense_background_k{k}", dense_cells, int(dense_cells.max()) + 1,
+              segment_inputs(dense_cells, k, k)) for k in (3, 44)]
+    rng = np.random.default_rng(59)
+    cases += [(name, lab, n_points, torch.as_tensor(
+        rng.normal(size=(lab.size, 2)).astype(np.float32), device="cuda"))
+        for name, lab in ids.items()]
+    for name, lab_np, n_seg, vals in cases:
+        lab = torch.as_tensor(lab_np, device="cuda")
+        k = vals.shape[1]
+        want = sr.segment_sum_plain(vals.cpu(), lab.cpu(), n_seg)
+        plan = sr.segment_plan(lab, n_seg)
+        got = sr.segment_sum(vals, lab, n_seg, plan)
+        torch.cuda.synchronize()
+        if not torch.equal(got.cpu(), want):
+            raise SystemExit(f"segment_sum {name}: not bitwise")
+        if not torch.equal(old_segment_sum(lib, vals, lab, n_seg).cpu()[1:], want[1:]):
+            raise SystemExit(f"old segment_sum {name}: rows 1: not bitwise")
+        bound = 4.0 * (lab.numel() * (k + 1) + n_seg * k) / HBM_BYTES_PER_S * 1e3
+        walk = lambda: sr.segment_sum(vals, lab, n_seg, plan)            # noqa: E731
+        old_ms, new_ms, turns = in_turns(lambda: old_segment_sum(lib, vals, lab, n_seg),
+                                         lambda: sr.segment_sum(vals, lab, n_seg))
+        row = {"kernel": "segment_sum", "shape": name, "k": k, "segments": n_seg,
+               "entries": lab.numel(), "bound_ms": bound, "old_ms": old_ms,
+               "new_ms": new_ms, "turns_ms": turns, "walk_ms": time_ms(walk),
+               "walk_device_ms": device_ms(walk),
+               "plan_device_ms": device_ms(lambda: sr.segment_plan(lab, n_seg)),
+               "library_ms": time_ms(lambda: torch.zeros((n_seg, k), device="cuda").index_add_(
+                   0, lab.reshape(-1).long(), vals))}
+        rows.append(row)
+        print(f"segment_sum {name} ({lab.numel()} entries, {n_seg} segments, K={k}, row 0 "
+              f"summed): old (CSR build + walk, row 0 zero) {old_ms:.4f} ms, new (plan + "
+              f"walk) {new_ms:.4f} ms (turns {[round(t, 4) for t in turns]}); walk "
+              f"{row['walk_ms']:.4f} ms (device {row['walk_device_ms']:.4f}), plan device "
+              f"{row['plan_device_ms']:.4f} ms; CUDA index_add_ {row['library_ms']:.4f} ms; "
+              f"bound {bound:.4f} ms (HBM), walk device share "
+              f"{bound / row['walk_device_ms']:.3f}; bitwise equal")
 
 
 def main():
@@ -300,6 +367,7 @@ def main():
         cohorts = {"dense": (dense["whole_cell"], dense["nuclear"]),
                    "planted": (cells.astype(np.int32), nucs.astype(np.int32))}
         segment_ab(libs["segment_sum"], cohorts, rows)
+        segment_row0_ab(libs["segment_sum"], dense["whole_cell"][0], rows)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -11,8 +11,9 @@ indices may differ only where the plain version's two best nodes are closer
 than 1e-6 * max(|d|, 1), and distances carry the f32 summation-order
 tolerance of tests/test_torch_som.py; a duplicated node's tie goes to the
 lowest index. The segment-sum kernel is bitwise equal to the plain version
-run on a CPU copy (row 0, the background, is zero on both) and to a second
-run of itself, and the plan kernel's boxes equal its plain version's.
+run on a CPU copy (row 0, the background's sums, included; zero on both with
+``background=False``) and to a second run of itself, and the plan kernel's
+boxes equal its plain version's.
 
 The spatial stage has no kernel of its own; its device work is held to the
 CPU port: distances (D <= 4), neighbor counts, distance files and the
@@ -24,6 +25,12 @@ The classical image ops have no kernel either: the squared EDT (int32
 min-plus) and its correctly rounded root are bitwise equal to the CPU
 port's, and the fiber labels are held to the CPU port's by the
 near-threshold rule of ``chip_smoke.fiber_labels_differ``.
+
+Cluster masks, overlays and coloured masks are integers and uint8: equal to
+the CPU port's. UMAP's epochs go through the segment-sum kernel (2 sums an
+epoch, 2 plans a fit); its seeded negatives are equal on both devices, and
+a few epochs from the same start agree by ``chip_smoke``'s rule for them
+(pow differs in the last bits, and the epochs are a chaotic map).
 """
 
 import os
@@ -40,8 +47,12 @@ from ark_tpu_torch.ops import segment_reduce as TSR
 from ark_tpu_torch.ops import som as tsom
 from ark_tpu_torch.ops import watershed as TW
 from ark_tpu_torch.ops import edt as TE
+from ark_tpu_torch.ops import umap as TU
 from ark_tpu_torch.segmentation import fiber_segmentation as TF
-from chip_smoke import (DIST_ATOL, DIST_RTOL, EXCUSED_SHARE, FIBER_DEFAULTS, claim_inputs,
+from ark_tpu_torch.utils import data_utils as TDU
+from ark_tpu_torch.utils import plot_utils as TPU
+from chip_smoke import (DIST_ATOL, DIST_RTOL, EXCUSED_SHARE, FIBER_DEFAULTS, OPT_ATOL,
+                        OPT_EPOCHS, OPT_OUTLIERS, OPT_WORST, claim_inputs, dense_masks,
                         fiber_image, fiber_labels_differ, pixel_rows)
 
 
@@ -210,8 +221,9 @@ def test_segment_sum_kernel_matches_plain_on_cuda(card):
         want = TSR.segment_sum_plain(torch.as_tensor(val_np),
                                      torch.as_tensor(lab_np), n_seg)
         assert torch.equal(got.cpu(), want) and torch.equal(got, again)
-        assert not bool(got[0].any())
-        assert TSR.segment_sum.launches == before + (2 if lab_np.size else 0)
+        cells = TSR.segment_sum(val, lab, n_seg, background=False)
+        assert not bool(cells[0].any()) and torch.equal(cells[1:], got[1:])
+        assert TSR.segment_sum.launches == before + (3 if lab_np.size else 0)
     with pytest.raises(ValueError, match="num_segments"):
         TSR.segment_sum(val[:0], lab[:0], 0)
     # labels outside [0, num_segments) are dropped, as in jax.ops.segment_sum
@@ -338,3 +350,88 @@ def test_fiber_labels_match_cpu_on_cuda(card, seed):
     print(f"seed {seed}: {differ} label pixels differ, {excused} excused, {left} not")
     assert left == 0 and excused <= EXCUSED_SHARE * img.size
     assert want["labeled_filtered"].max() >= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 44])
+def test_segment_sum_background_row_on_cuda(card, k):
+    """Row 0 on the card is bitwise the CPU port's: a label image that is
+    mostly background (one warp walks ~50,000 pixels in pixel order), and
+    flat sorted labels that start at 0 (UMAP's shape: point 0 is a row)."""
+    rng = np.random.default_rng(k)
+    lab_np = dense_masks(seed=k, n_fovs=1, size=256, n_cells=25, cell_radius=12,
+                         nuc_radius=3)["whole_cell"][0]
+    assert (lab_np == 0).mean() > 0.6
+    flat_np = np.sort(rng.integers(0, 500, 20_000).astype(np.int32), kind="stable")
+    for labels_np, n_seg in ((lab_np, int(lab_np.max()) + 1), (flat_np, 500)):
+        vals_np = rng.normal(size=(labels_np.size, k)).astype(np.float32)
+        labels, vals = (torch.as_tensor(a, device=card) for a in (labels_np, vals_np))
+        want = TSR.segment_sum_plain(torch.as_tensor(vals_np), torch.as_tensor(labels_np),
+                                     n_seg)
+        plan = TSR.segment_plan(labels, n_seg)
+        assert torch.equal(plan.boxes.cpu(),
+                           TSR.segment_boxes_plain(torch.as_tensor(labels_np), n_seg))
+        got = TSR.segment_sum(vals, labels, n_seg, plan)
+        assert bool(want[0].any()) and torch.equal(got.cpu(), want)
+    sizes = TSR.cell_sizes(torch.as_tensor(lab_np, device=card), int(lab_np.max()) + 1)
+    assert int(sizes[0]) == int((lab_np == 0).sum())
+    cent = TSR.centroids(torch.as_tensor(lab_np, device=card), int(lab_np.max()) + 1)
+    assert torch.equal(cent.cpu(), TSR.centroids(torch.as_tensor(lab_np),
+                                                 int(lab_np.max()) + 1))
+
+
+@pytest.mark.cuda
+def test_umap_epochs_on_cuda(card):
+    """A fit's sums launch the segment-sum kernel (2 an epoch, 2 plans);
+    the seeded negatives are equal on both devices; OPT_EPOCHS epochs from
+    the same graph and start agree with the CPU port by chip_smoke's rule;
+    two fits on the card are bitwise equal."""
+    rng = np.random.default_rng(5)
+    data = np.concatenate([rng.normal(c, 0.5, (400, 8)) for c in (0, 4, 8)]
+                          ).astype(np.float32)
+    x = torch.as_tensor(data)
+    idx, dists = TU._knn(x, 15)
+    heads, tails, w = TU.fuzzy_graph(idx, dists)
+    n, n_edges = len(data), len(heads)
+    assert torch.equal(TU.draw_negatives(7, 3, 5, n_edges, n, card).cpu(),
+                       TU.draw_negatives(7, 3, 5, n_edges, n, "cpu"))
+    emb0 = TU._pca(x, 2)
+    emb0 = emb0 / (emb0.abs().max() + 1e-12) * 10.0
+    want = TU._optimize(emb0, heads, tails, w, 42, n_epochs=OPT_EPOCHS)
+    sums, plans = TSR.segment_sum.launches, TSR.segment_plan.launches
+    got = TU._optimize(emb0.to(card), heads.to(card), tails.to(card), w.to(card), 42,
+                       n_epochs=OPT_EPOCHS).cpu()
+    assert TSR.segment_sum.launches == sums + 2 * OPT_EPOCHS
+    assert TSR.segment_plan.launches == plans + 2
+    err = (got - want).abs()
+    assert float((err > OPT_ATOL).float().mean()) <= OPT_OUTLIERS
+    assert float(err.max()) <= OPT_WORST
+    a = TU.UMAP(n_epochs=30, device=card).fit_transform(data)
+    np.testing.assert_array_equal(a, TU.UMAP(n_epochs=30, device=card).fit_transform(data))
+
+
+@pytest.mark.cuda
+def test_cluster_masks_and_overlay_match_cpu_on_cuda(card):
+    import pandas as pd
+
+    lab = dense_masks(seed=4, n_fovs=1, size=256, n_cells=80, cell_radius=10,
+                      nuc_radius=3)["whole_cell"][0]
+    rng = np.random.default_rng(4)
+    table = pd.DataFrame({"fov": "fov0", "label": np.unique(lab)[1:-1]})
+    table["cell_meta_cluster"] = ["t%d" % (i % 5) for i in table["label"]]
+    cmd = TDU.ClusterMaskData(table, "fov", "label", "cell_meta_cluster")
+    masks = {dev: TDU.cluster_mask_from_labels("fov0", lab, cmd, device=dev)
+             for dev in (card, "cpu")}
+    np.testing.assert_array_equal(masks[card], masks["cpu"])
+    colors = rng.integers(0, 256, (7, 4)).astype(np.uint8)
+    np.testing.assert_array_equal(TPU.gather_colors(masks[card], colors, device=card),
+                                  colors[masks["cpu"]])
+    flat = rng.permutation(lab.size)[:30_000]
+    ids = rng.integers(1, 21, len(flat))
+    np.testing.assert_array_equal(
+        TDU.scatter_pixel_clusters(lab.shape, flat, ids, device=card),
+        TDU.scatter_pixel_clusters(lab.shape, flat, ids, device="cpu"))
+    chans = rng.gamma(1.0, 30.0, lab.shape + (2,)).astype(np.float32)
+    np.testing.assert_array_equal(
+        TPU.overlay_from_arrays(chans, lab, np.roll(lab, 2, 0), device=card),
+        TPU.overlay_from_arrays(chans, lab, np.roll(lab, 2, 0), device="cpu"))

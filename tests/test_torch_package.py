@@ -321,7 +321,9 @@ def test_cpu_segment_sum_never_touches_the_cuda_library(monkeypatch):
     labels = torch.tensor([0, 2, 1, 2, 2], dtype=torch.int32)
     values = torch.tensor([[9.0], [1.0], [2.0], [3.0], [4.0]])
     got = segment_reduce.segment_sum(values, labels, 4)
-    assert got[:, 0].tolist() == [0.0, 2.0, 8.0, 0.0]
+    assert got[:, 0].tolist() == [9.0, 2.0, 8.0, 0.0]
+    cells = segment_reduce.segment_sum(values, labels, 4, background=False)
+    assert cells[:, 0].tolist() == [0.0, 2.0, 8.0, 0.0]
     assert segment_reduce.segment_sum.launches == before
 
 
@@ -405,3 +407,92 @@ def test_entry_points_of_the_classical_slice_take_a_device():
         param = inspect.signature(fn).parameters.get("device")
         assert param is not None and param.kind is param.KEYWORD_ONLY, fn.__name__
         assert param.default == "cuda", fn.__name__
+
+
+EMBEDDING_MODULES = [
+    "ark_tpu_torch.utils.data_utils", "ark_tpu_torch.utils.plot_utils",
+    "ark_tpu_torch.utils.masking_utils", "ark_tpu_torch.phenotyping.post_cluster_utils",
+    "ark_tpu_torch.ops.umap", "ark_tpu_torch.ops.tsne",
+    "ark_tpu_torch.analysis.dimensionality_reduction",
+]
+
+
+def test_mask_and_embedding_modules_run_without_the_cards_missing_packages():
+    """Cluster masks, overlays, masking and the embeddings import with
+    imageio, sklearn, tqdm, h5py, matplotlib and seaborn blocked, and their
+    in-memory entry points (the ones the smoke run drives on the card) work
+    there; the modules fall under the AST scans and the style gate, which
+    walk every file of the package."""
+    code = ("import importlib, sys\n"
+            f"for blocked in {CARD_MISSING!r}:\n"
+            "    sys.modules[blocked] = None\n"
+            f"for m in {EMBEDDING_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import numpy as np\n"
+            "import pandas as pd\n"
+            "from ark_tpu_torch.analysis import dimensionality_reduction as dr\n"
+            "from ark_tpu_torch.utils import data_utils, masking_utils, plot_utils\n"
+            "rng = np.random.default_rng(0)\n"
+            "lab = np.zeros((32, 32), np.int32)\n"
+            "lab[2:12, 3:13], lab[15:30, 10:28] = 1, 2\n"
+            "table = pd.DataFrame({'fov': 'f', 'label': [1, 2],\n"
+            "                      'cell_meta_cluster': ['a', 'b']})\n"
+            "cmd = data_utils.ClusterMaskData(table, 'fov', 'label', 'cell_meta_cluster')\n"
+            "mask = data_utils.cluster_mask_from_labels('f', lab, cmd, device='cpu')\n"
+            "assert mask.dtype == np.int16 and set(np.unique(mask)) == {0, 1, 2}\n"
+            "px = data_utils.scatter_pixel_clusters((32, 32), [5, 70], [3, 4], device='cpu')\n"
+            "assert px[0, 5] == 3 and px[2, 6] == 4 and px.sum() == 7\n"
+            "colors = rng.integers(0, 255, (3, 4)).astype(np.uint8)\n"
+            "assert plot_utils.gather_colors(mask, colors, device='cpu').shape == (32, 32, 4)\n"
+            "over = plot_utils.overlay_from_arrays(\n"
+            "    rng.random((32, 32, 2)).astype(np.float32), lab, device='cpu')\n"
+            "assert over.shape == (32, 32, 3) and over.max() == 255\n"
+            "cells = masking_utils.create_cell_mask(lab, table, 'f', ['a'], sigma=1,\n"
+            "                                       max_hole_area=10, device='cpu')\n"
+            "assert cells[5, 5] == 1 and cells[20, 20] == 0\n"
+            "x = np.concatenate([rng.normal(c, 0.3, (40, 5)) for c in (0, 6)])\n"
+            "for algorithm in ('UMAP', 'PCA', 'tSNE'):\n"
+            "    emb = dr.reduce_dimensions(x, algorithm, device='cpu')\n"
+            "    assert emb.shape == (80, 2) and np.isfinite(emb).all(), algorithm\n"
+            "assert 'jax' not in sys.modules\n"
+            "assert not [m for m in sys.modules if m.startswith('ark_tpu.')]\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    assert set(EMBEDDING_MODULES) <= set(_modules())
+
+
+def test_entry_points_of_the_mask_and_embedding_slice_take_a_device():
+    """Every public function of the slice that does device work takes
+    `device`, keyword-only, and none defaults to the CPU."""
+    import inspect
+
+    from ark_tpu_torch.analysis import dimensionality_reduction as dr
+    from ark_tpu_torch.ops import tsne, umap
+    from ark_tpu_torch.phenotyping import post_cluster_utils
+    from ark_tpu_torch.segmentation import segmentation_utils
+    from ark_tpu_torch.utils import data_utils, masking_utils, plot_utils
+
+    takers = [data_utils.erode_mask, data_utils.label_cells_by_cluster,
+              data_utils.map_segmentation_labels, data_utils.cluster_mask_from_labels,
+              data_utils.generate_cluster_mask, data_utils.scatter_pixel_clusters,
+              data_utils.generate_pixel_cluster_mask,
+              data_utils.generate_and_save_cell_cluster_masks,
+              data_utils.generate_and_save_pixel_cluster_masks,
+              data_utils.generate_and_save_neighborhood_cluster_masks,
+              plot_utils.overlay_from_arrays, plot_utils.create_overlay,
+              plot_utils.gather_colors, plot_utils.save_colored_mask,
+              plot_utils.save_colored_masks, plot_utils.cohort_cluster_plot,
+              plot_utils.color_segmentation_by_stat, plot_utils.plot_pixel_cell_cluster,
+              post_cluster_utils.create_mantis_project, masking_utils.create_cell_mask,
+              masking_utils.generate_cell_masks, masking_utils.generate_signal_masks,
+              umap.UMAP.__init__, umap.pca_transform, tsne.tsne, tsne.TSNE.__init__,
+              dr.reduce_dimensions, dr.visualize_dimensionality_reduction]
+    for fn in takers:
+        param = inspect.signature(fn).parameters.get("device")
+        assert param is not None and param.kind is param.KEYWORD_ONLY, fn.__qualname__
+        assert param.default == "cuda", fn.__qualname__
+    # no default at all: the caller names the device
+    param = inspect.signature(segmentation_utils.save_segmentation_labels).parameters["device"]
+    assert param.kind is param.KEYWORD_ONLY and param.default is param.empty

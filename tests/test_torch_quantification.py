@@ -333,9 +333,26 @@ def test_save_segmentation_labels_matches_jax(tmp_path):
         read_image(str(tmp_path / "jax" / name))
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError, match="plot_utils"):
-        TU.save_segmentation_labels(str(tmp_path), None, str(tmp_path), ["fov0"],
-                                    channels=["chan0"], device="cpu")
+    # with channels: the overlay of the borders on the rescaled channel data,
+    # the same uint8 bytes (the rescale truncates in f64, so exact)
+    _, nucs, _ = _fov(8)
+    save_image(str(tmp_path / "fov0_nuclear.tiff"), nucs)
+    (tmp_path / "data").mkdir()
+    rng = np.random.default_rng(8)
+    save_image(str(tmp_path / "data" / "fov0.tiff"),
+               rng.gamma(1.0, 3.0, cells.shape + (2,)).astype(np.float32))
+    chans = ["nuclear_channel", "membrane_channel"]
+    JU.save_segmentation_labels(str(tmp_path), str(tmp_path / "data"),
+                                str(tmp_path / "jax"), ["fov0"], channels=chans)
+    TU.save_segmentation_labels(str(tmp_path), str(tmp_path / "data"),
+                                str(tmp_path / "torch"), ["fov0"], channels=chans,
+                                device="cpu")
+    name = "fov0_nuclear_channel_membrane_channel_overlay.tiff"
+    got, want = read_image(str(tmp_path / "torch" / name)), \
+        read_image(str(tmp_path / "jax" / name))
+    assert got.dtype == want.dtype == np.uint8 and got.shape == cells.shape + (3,)
+    assert want.max() == 255 and len(np.unique(want)) > 50
+    np.testing.assert_array_equal(got, want)
 
 
 def test_smoke_quantification_phases_rehearse_on_cpu(monkeypatch, tmp_path):
@@ -350,6 +367,7 @@ def test_smoke_quantification_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "MIN_CELLS", {"segmented": 10, "dense": 10})
     monkeypatch.setattr(chip_smoke, "COHORT_COPIES", 2)
     monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, reps=10: (fn(), 0.0)[1])
+    monkeypatch.setattr(chip_smoke, "batch_ms", lambda fn, reps=20: (fn(), 0.0)[1])
     # a profiler that sees no device time, as on a machine without a card
     monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, reps=10: (fn(), None)[1])
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)

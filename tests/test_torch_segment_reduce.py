@@ -4,9 +4,9 @@ package's, on the CPU.
 Tolerances: every segment sum (sizes, channel sums, positive counts,
 centroid and centre-weighted sums, Crofton and Euler sums, the centroid and
 central-moment passes and the channel sums riding the second pass) is
-bitwise equal in rows 1:. Row 0, the background, is zero on every device in
-the port (no caller reads it), where the JAX package holds the background's
-own sums; the tests check that it is zero. The derived features (axis
+bitwise equal in every row, row 0 (the background's own sums) included. With
+``background=False``, which the cell table and the fiber table pass, row 0
+of the sums is zero and rows 1: are unchanged. The derived features (axis
 lengths, eccentricity, orientation, equivalent diameter) are held to
 rtol = atol = 1e-6: XLA's atan2 and its fusion of the eigenvalue arithmetic
 round differently from torch's in the last bit; area, centroids and
@@ -70,16 +70,10 @@ def case(request):
     return lab, img, int(lab.max()) + 1
 
 
-def _rows(jax_out, torch_out):
-    """Rows 1: of both, as numpy; row 0 of the port must be zero."""
-    t = torch_out.numpy()
-    assert not np.any(t[0]), "row 0 (background) must be zero"
-    return np.asarray(jax_out)[1:], t[1:]
-
-
 def _assert_bitwise(jax_out, torch_out):
-    j, t = _rows(jax_out, torch_out)
-    np.testing.assert_array_equal(t, j)
+    """Every row, the background's included (NaN rows of absent labels
+    compare equal)."""
+    np.testing.assert_array_equal(torch_out.numpy(), np.asarray(jax_out))
 
 
 def test_segment_sums_bitwise(case):
@@ -94,11 +88,82 @@ def test_segment_sums_bitwise(case):
     _assert_bitwise(JSR.crofton_perimeter(jl, s), TSR.crofton_perimeter(tl, s))
     _assert_bitwise(JSR.euler_numbers(jl, s), TSR.euler_numbers(tl, s))
     # centroids and centre weights: NaN rows (absent labels) on both sides
-    j, t = np.asarray(JSR.centroids(jl, s))[1:], TSR.centroids(tl, s).numpy()[1:]
-    np.testing.assert_array_equal(t, j)
-    j = np.asarray(JSR.center_weighted_sums(ji, jl, s))[1:]
-    t = TSR.center_weighted_sums(ti, tl, s).numpy()[1:]
-    np.testing.assert_array_equal(t, j)
+    _assert_bitwise(JSR.centroids(jl, s), TSR.centroids(tl, s))
+    _assert_bitwise(JSR.center_weighted_sums(ji, jl, s),
+                    TSR.center_weighted_sums(ti, tl, s))
+
+
+def _background_image(seed=11, shape=(72, 90)):
+    """Seeded blobs on a background that holds more than half the pixels."""
+    lab = _blobs(np.random.default_rng(seed), shape, 25, rmax=6)
+    assert (lab == 0).mean() > 0.5
+    return lab
+
+
+REDUCERS = {
+    "segment_sum": lambda m, img, lab, s, **kw: (
+        jax.ops.segment_sum(img.reshape(-1, img.shape[-1]), lab.reshape(-1),
+                            num_segments=s) if m is JSR
+        else m.segment_sum(img.reshape(-1, img.shape[-1]), lab.reshape(-1), s, **kw)),
+    "cell_sizes": lambda m, img, lab, s, **kw: m.cell_sizes(lab, s, **kw),
+    "channel_sums": lambda m, img, lab, s, **kw: m.channel_sums(img, lab, s, **kw),
+    "positive_pixel_counts": lambda m, img, lab, s, **kw: m.positive_pixel_counts(
+        img, lab, s, 1.5, **kw),
+    "centroids": lambda m, img, lab, s, **kw: m.centroids(lab, s, **kw),
+    "center_weighted_sums": lambda m, img, lab, s, **kw: m.center_weighted_sums(
+        img, lab, s, **kw),
+}
+# quotients of the sums: held to the file's tolerance for derived columns
+QUOTIENTS = ("centroids",)
+
+
+@pytest.mark.parametrize("name", sorted(REDUCERS))
+def test_background_row_matches_jax(name):
+    """Row 0 is the JAX package's: the sums of the label-0 pixels in
+    ascending pixel order (bitwise), the centroid of the background within
+    1e-6; with background=False row 0 is zero (NaN for the centroid) and
+    rows 1: keep their bits."""
+    lab = _background_image()
+    s = int(lab.max()) + 1
+    img = np.random.default_rng(12).gamma(1.0, 3.0, lab.shape + (4,)).astype(np.float32)
+    want = np.asarray(REDUCERS[name](JSR, jnp.asarray(img), jnp.asarray(lab), s))
+    args = (TSR, torch.as_tensor(img), torch.as_tensor(lab), s)
+    got = REDUCERS[name](*args).numpy()
+    assert np.all(np.isfinite(want[0])) and np.any(want[0] != 0)
+    if name in QUOTIENTS:
+        np.testing.assert_allclose(got[0], want[0], rtol=DERIVED_TOL, atol=DERIVED_TOL)
+    else:
+        np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1:], want[1:])
+    without = REDUCERS[name](*args, background=False).numpy()
+    np.testing.assert_array_equal(without[1:], got[1:])
+    if name == "centroids":
+        assert np.isnan(without[0]).all()
+    elif name != "center_weighted_sums":     # its row 0 is a sum of NaN weights
+        assert not without[0].any()
+
+
+@pytest.mark.parametrize("n_points,k", [(1, 1), (40, 3), (500, 15)])
+def test_flat_sorted_labels_from_zero(n_points, k):
+    """The shape of UMAP's edge sums: flat sorted labels that start at 0
+    (each point id `k` times, then a stable sort of arbitrary ids), two
+    columns; segment 0 is point 0, a real row. Bitwise the JAX package's
+    sorted segment_sum, with and without a plan."""
+    rng = np.random.default_rng(n_points)
+    vals = rng.normal(size=(n_points * k, 2)).astype(np.float32)
+    heads = np.repeat(np.arange(n_points, dtype=np.int32), k)
+    tails = np.sort(rng.integers(0, n_points, n_points * k).astype(np.int32),
+                    kind="stable")
+    for ids in (heads, tails):
+        want = np.asarray(jax.ops.segment_sum(
+            jnp.asarray(vals), jnp.asarray(ids), num_segments=n_points,
+            indices_are_sorted=True))
+        ids_t, vals_t = torch.as_tensor(ids), torch.as_tensor(vals)
+        plan = TSR.segment_plan(ids_t, n_points)
+        for got in (TSR.segment_sum(vals_t, ids_t, n_points),
+                    TSR.segment_sum(vals_t, ids_t, n_points, plan)):
+            np.testing.assert_array_equal(got.numpy(), want)
+        assert np.any(want[0] != 0)
 
 
 def test_central_moment_passes_bitwise(case):
@@ -112,7 +177,7 @@ def test_central_moment_passes_bitwise(case):
     got = TSR._central_moment_sums(torch.as_tensor(lab), s, torch.as_tensor(extra))
     for name, j, t in zip(("m00", "cy", "cx", "mu20", "mu02", "mu11",
                            "perimeter", "extra"), want, got):
-        np.testing.assert_array_equal(t.numpy()[1:], np.asarray(j)[1:], err_msg=name)
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=name)
 
 
 def test_moment_features_match_jax(case):
@@ -126,7 +191,7 @@ def test_moment_features_match_jax(case):
     assert sorted(tf) == sorted(jf) == sorted(tm) == sorted(jm)
     for feats_j, feats_t in ((jf, tf), (jm, tm)):
         for name in feats_j:
-            j, t = np.asarray(feats_j[name])[1:], feats_t[name].numpy()[1:]
+            j, t = np.asarray(feats_j[name]), feats_t[name].numpy()
             if name in BITWISE_FEATURES:
                 np.testing.assert_array_equal(t, j, err_msg=name)
             else:
@@ -162,7 +227,7 @@ def test_far_corner_cell_keeps_its_shape():
 
 def test_segment_sum_plain_is_a_sequential_scatter():
     """index_add_ on the CPU adds in ascending index order: bitwise equal to
-    np.add.at, row 0 zeroed; num_segments past the largest label gives zero
+    np.add.at, row 0 included; num_segments past the largest label gives zero
     rows; 1-D and 2-D values; no launch is counted."""
     rng = np.random.default_rng(0)
     lab = rng.integers(0, 50, 20_000).astype(np.int32)
@@ -171,7 +236,6 @@ def test_segment_sum_plain_is_a_sequential_scatter():
                  rng.random(lab.size, dtype=np.float32)):
         want = np.zeros((1200,) + vals.shape[1:], np.float32)
         np.add.at(want, lab, vals)
-        want[0] = 0
         before = TSR.segment_sum.launches
         got = TSR.segment_sum(torch.as_tensor(vals), torch.as_tensor(lab), 1200)
         np.testing.assert_array_equal(got.numpy(), want)
@@ -241,7 +305,7 @@ def test_segment_sum_with_a_plan_matches_plain(k):
     """Edge cases at every column count the kernel tiles differently:
     labels outside [0, num_segments) dropped, empty segments zero, one
     segment (only the background), 1-D values for K = 1; a reused plan
-    gives the fresh call's sums."""
+    gives the fresh call's sums, and background=False zeroes row 0 alone."""
     rng = np.random.default_rng(k)
     lab = torch.as_tensor(_plan_case(rng))
     s = int(lab.max()) - 10                   # some labels past num_segments
@@ -254,9 +318,13 @@ def test_segment_sum_with_a_plan_matches_plain(k):
                 TSR.segment_sum(vals, lab, s)):
         np.testing.assert_array_equal(got.numpy(), want.numpy())
     absent = np.setdiff1d(np.arange(1, s), lab.numpy())
-    assert absent.size and not want[0].any() and not want[absent].any()
+    assert absent.size and want[0].all() and not want[absent].any()
+    without = TSR.segment_sum(vals, lab, s, plan, background=False)
+    assert not without[0].any() and torch.equal(without[1:], want[1:])
     one = TSR.segment_sum(vals, lab, 1, TSR.segment_plan(lab, 1))
-    assert one.shape == (1,) + tuple(vals.shape[1:]) and not one.any()
+    assert one.shape == (1,) + tuple(vals.shape[1:])
+    assert torch.equal(one[0], want[0])
+    assert not TSR.segment_sum(vals, lab, 1, background=False).any()
 
 
 def test_mismatched_plan_raises():
@@ -273,7 +341,7 @@ def test_mismatched_plan_raises():
 
 def test_boxes_hold_every_pixel_and_raster_order_is_pixel_order():
     """The plan kernel's plain version gives each segment's tightest box
-    (empty for row 0 and absent labels); adding a segment's pixels while
+    (empty for absent labels; row 0 holds the background's); adding a segment's pixels while
     scanning its box in raster order, as the walk does, is the sequential
     scatter, bit for bit."""
     rng = np.random.default_rng(5)
@@ -287,7 +355,7 @@ def test_boxes_hold_every_pixel_and_raster_order_is_pixel_order():
     flat_vals = vals.reshape(lab.shape + (3,))
     for seg in range(s):
         ys, xs = np.nonzero(lab == seg)
-        if seg == 0 or ys.size == 0:
+        if ys.size == 0:
             assert boxes[seg].tolist() == empty
             continue
         assert boxes[seg].tolist() == [ys.min(), ys.max(), xs.min(), xs.max()]
