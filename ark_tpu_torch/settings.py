@@ -50,3 +50,7 @@ FIBER_OBJECT_PROPS = (
     "eccentricity",
     "euler_number",
 )
+
+# --- spatial-LDA -------------------------------------------------------
+BASE_COLS = [FOV_ID, CELL_LABEL, CELL_SIZE, CENTROID_0, CENTROID_1, CELL_TYPE]
+LDA_PLOT_TYPES = ["adjacency", "topic_assignment"]

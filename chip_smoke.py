@@ -56,7 +56,16 @@ started together) and drives these paths on the card:
   steps on the card against the CPU port given the same inputs (k-NN,
   bandwidths, the seeded negatives, the PCA start, a few epochs of
   _optimize, the t-SNE affinities and a few descent steps); and the
-  segment-sum kernel bitwise against its plain version at UMAP's edge shape.
+  segment-sum kernel bitwise against its plain version at UMAP's edge shape;
+- spatial LDA (the LDA_Preprocessing and LDA_Training_and_Inference
+  templates), which launches no kernel of its own: (k) on phase (c)'s
+  10 x 3000 cells, featurization (radius 100), the MST difference matrices,
+  the topic EDA over 3..7 topics with 25 bootstraps, training (5 topics, 50
+  iterations), inference (30) and the pkl and csv files (seconds per step,
+  peak memory), again under the profiler with its EDA and training cut in
+  depth (the device's busy share, the kernels and copies of each step, the
+  EM's per fit); the niche purity of the inferred topics; and every step on
+  the card held to the CPU port on the first 2 FOVs.
 
 It exits non-zero, without the final result line, when there is no CUDA
 device or any phase fails. Its last line is one JSON object naming the
@@ -1478,6 +1487,22 @@ def spatial_outputs_agree(got, want, fovs, what):
                   f"{what} {fov} enrichment {key}: CUDA and CPU differ")
 
 
+def device_totals(fn):
+    """(fn's result, device seconds, kernels and copies) of one call of `fn`
+    under torch.profiler, summed over its raw events: ``key_averages`` builds
+    a Python object per event, minutes for the ~185,000 of an LDA fit."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    return result, sum(e.duration_ns() for e in device) / 1e9, len(device)
+
+
 def device_events(fn):
     """torch.profiler's device-side entries (kernels and copies, summed by
     name) of one call of `fn`."""
@@ -2322,6 +2347,248 @@ def check_edge_sums(data):
     return max_err, t
 
 
+# --- spatial LDA (the LDA_Preprocessing and LDA_Training_and_Inference
+# templates, templates/lda_preprocessing_training_inference.py's flow)
+
+# the templates' defaults: radius 100, train_frac 0.75, the EDA over 3..7
+# topics with 25 bootstraps, 5 topics, penalty 0.25, 50 and 30 iterations
+LDA_TOPICS, LDA_BOOTS, LDA_N_TOPICS, LDA_PENALTY = list(range(3, 8)), 25, 5, 0.25
+LDA_TRAIN_ITERS, LDA_INFER_ITERS = 50, 30
+LDA_SEED = 42                  # np.random.seed before each gap statistic's draws
+# phase (k) times the card on all 10 FOVs and holds it to the CPU port on the
+# first 2 (4,500 training cells). At 4,500 cells the CPU's k-means and pair
+# sums take ~0.3 s a bootstrap, so the replay's EDA takes the gap statistic
+# at LDA_N_TOPICS with 5 bootstraps (LDA_REPLAY_GAP). The profiled run pays
+# the profiler ~45 us a launch (the EDA's bootstraps and the EM launch
+# ~180,000 times each): its EDA takes the gap at LDA_N_TOPICS with all 25
+# bootstraps (LDA_PROFILED_GAP), and it trains for 2 outer iterations, then
+# for 1 apart. Every outer iteration launches the same kernels on the same
+# shapes, so a fit of n launches L(1) + (n - 1) (L(2) - L(1)), and its
+# device time is read the same way.
+LDA_REPLAY_FOVS = 2
+LDA_REPLAY_GAP, LDA_PROFILED_GAP = (LDA_N_TOPICS, 5), (LDA_N_TOPICS, LDA_BOOTS)
+# card against CPU port: the bootstraps' k-means (f64) give equal labels and
+# the pair sums are f64, so the gap agrees within LDA_GAP_RTOL; the EM's
+# digamma, exp and products round differently on the two devices (the CPU
+# tests see 6e-8 on topics and 9e-6 on weights against the JAX package at
+# this cohort's shape), held to LDA_TOPICS_ATOL and LDA_WEIGHTS_ATOL
+LDA_GAP_RTOL = 1e-6
+LDA_TOPICS_ATOL, LDA_WEIGHTS_ATOL = 1e-5, 1e-3
+LDA_ROW_SUM_ATOL = 1e-4
+# niche-bound phenotypes of spatial_cohort: type t < 10 gathers around
+# niche t mod 6 in every FOV
+LDA_NICHES = 6
+
+
+def lda_topic_eda(train, device, gap=None):
+    """The template's compute_topic_eda (topics LDA_TOPICS, LDA_BOOTS
+    bootstraps, numpy seeded with LDA_SEED); with `gap` = (topics,
+    bootstraps), the EDA without bootstraps and the gap statistic at those
+    topics only, through the calls compute_topic_eda makes for it."""
+    from ark_tpu_torch.ops import kmeans
+    from ark_tpu_torch.spLDA import processing as pros
+    from ark_tpu_torch.utils import spatial_lda_utils as spu
+
+    if gap is None:
+        np.random.seed(LDA_SEED)
+        return pros.compute_topic_eda(train, "cluster", topics=LDA_TOPICS,
+                                      num_boots=LDA_BOOTS, device=device)
+    eda = pros.compute_topic_eda(train, "cluster", topics=LDA_TOPICS, device=device)
+    k, boots = gap
+    labels, _ = kmeans.kmeans(train.values.astype(np.float32), k, seed=42, device=device)
+    pooled = spu.within_cluster_sums(train.values, labels, device=device)
+    np.random.seed(LDA_SEED)
+    eda["gap_stat"][k], eda["gap_sds"][k] = pros.gap_stat(train, k, pooled, boots,
+                                                          device=device)
+    return eda
+
+
+def lda_steps(table, base, device, gap=None, profile_steps=False,
+              train_iters=LDA_TRAIN_ITERS):
+    """The LDA templates' steps with their defaults on `device`:
+    format_cell_table (every phenotype), featurize_cell_table (cluster
+    counts), create_difference_matrices, the topic EDA (``lda_topic_eda``),
+    train, infer, and the model's pkl and the weights' csv written to
+    `base`. Returns (outputs, seconds by step, {step: (device seconds,
+    kernels and copies)} when `profile_steps`)."""
+    import torch
+
+    from ark_tpu_torch.spLDA import model as lda_model
+    from ark_tpu_torch.spLDA import processing as pros
+    from ark_tpu_torch.utils import spatial_lda_utils as spu
+
+    os.makedirs(base)
+    seconds, device_use, out = {}, {}, {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        if profile_steps:
+            result, *device_use[name] = device_totals(fn)
+        else:
+            result = fn()
+            if device != "cpu":
+                torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return result
+
+    fmt = step("format_cell_table", lambda: pros.format_cell_table(
+        table, clusters=sorted(table["cell_meta_cluster"].unique())))
+    feats = step("featurize_cell_table", lambda: pros.featurize_cell_table(
+        fmt, featurization="cluster", radius=100, train_frac=0.75, device=device))
+    diffs = step("difference_matrices", lambda: pros.create_difference_matrices(fmt, feats))
+    train = feats["train_features"]
+    out["eda"] = step("topic_eda", lambda: lda_topic_eda(train, device, gap))
+    model = step("train", lambda: lda_model.train(
+        train, difference_matrices=diffs["train_diff_mat"], n_topics=LDA_N_TOPICS,
+        difference_penalty=LDA_PENALTY, n_iters=train_iters, device=device))
+    inferred = step("infer", lambda: lda_model.infer(
+        model, feats["featurized_fovs"], difference_matrices=diffs["inference_diff_mat"],
+        difference_penalty=LDA_PENALTY, n_iters=LDA_INFER_ITERS, device=device))
+
+    def save():
+        spu.save_spatial_lda_file(model, base, "lda_model", format="pkl")
+        spu.save_spatial_lda_file(inferred, base, "topic_weights", format="csv")
+
+    step("save", save)
+    back = spu.read_spatial_lda_file(base, "lda_model", format="pkl")
+    check(np.array_equal(back.components_, model.components_)
+          and os.path.exists(os.path.join(base, "topic_weights.csv")),
+          "spatial LDA: the saved model does not read back")
+    out.update(fmt=fmt, feats=feats, diffs=diffs, model=model, inferred=inferred)
+    return out, seconds, device_use
+
+
+def lda_outputs_agree(got, want, what):
+    """Phase (k)'s card outputs against the CPU port's: featurized counts,
+    the train split and the difference matrices equal; the EDA's inertia
+    within SWEEP_RTOL, its cell counts equal, its gap statistics within
+    LDA_GAP_RTOL; topics and weights within LDA_TOPICS_ATOL and
+    LDA_WEIGHTS_ATOL. Returns the largest differences."""
+    import pandas as pd
+
+    try:
+        for key in ("featurized_fovs", "train_features"):
+            pd.testing.assert_frame_equal(got["feats"][key], want["feats"][key],
+                                          check_exact=True)
+        for k in LDA_TOPICS:
+            pd.testing.assert_frame_equal(got["eda"]["cell_counts"][k],
+                                          want["eda"]["cell_counts"][k], check_exact=True)
+    except AssertionError as e:
+        raise SmokeFailure(f"{what}: CUDA and CPU differ: {e}") from e
+    for key in ("train_diff_mat", "inference_diff_mat"):
+        for fov, d in want["diffs"][key].items():
+            check(np.array_equal(got["diffs"][key][fov], d),
+                  f"{what} {key} {fov}: difference matrices differ")
+    g_eda, w_eda = got["eda"], want["eda"]
+    check(all(np.isclose(g_eda["inertia"][k], w_eda["inertia"][k], rtol=SWEEP_RTOL, atol=0)
+              for k in LDA_TOPICS), f"{what} inertia {g_eda['inertia']} vs {w_eda['inertia']}")
+    gap_err = max(abs(g_eda[s][k] - w_eda[s][k]) / abs(w_eda[s][k])
+                  for s in ("gap_stat", "gap_sds") for k in w_eda["gap_stat"])
+    check(set(g_eda["gap_stat"]) == set(w_eda["gap_stat"]) and gap_err <= LDA_GAP_RTOL,
+          f"{what} gap statistics: {g_eda['gap_stat']} vs {w_eda['gap_stat']}")
+    topics_err = float(np.abs(got["model"].components_ - want["model"].components_).max())
+    weights_err = max(
+        float(np.abs(got["model"].topic_weights.values
+                     - want["model"].topic_weights.values).max()),
+        float(np.abs(got["inferred"].values - want["inferred"].values).max()))
+    check(topics_err <= LDA_TOPICS_ATOL and weights_err <= LDA_WEIGHTS_ATOL,
+          f"{what}: topics differ by {topics_err}, weights by {weights_err}")
+    return gap_err, topics_err, weights_err
+
+
+def niche_purity(inferred, fmt):
+    """(purity, chance) of the niche-bound cells' dominant topics: the share
+    of those cells in their topic's commonest niche, and the largest niche's
+    share (what topics blind to the niches would score)."""
+    types = np.concatenate([fmt[fov]["cluster"].to_numpy()[inferred.loc[fov].index]
+                            for fov in inferred.index.get_level_values(0).unique()])
+    type_idx = np.array([SPATIAL_TYPES.index(t) for t in types])
+    bound = type_idx < len(SPATIAL_TYPES) // 2
+    niche = type_idx[bound] % LDA_NICHES
+    topic = inferred.values.argmax(1)[bound]
+    table = np.zeros((inferred.shape[1], LDA_NICHES), np.int64)
+    np.add.at(table, (topic, niche), 1)
+    return table.max(1).sum() / bound.sum(), np.bincount(niche).max() / bound.sum()
+
+
+def run_spatial_lda(table):
+    """Phase (k): the LDA templates' steps on the card at 10 FOVs x 3000
+    cells (seconds per step, peak memory), again under the profiler with the
+    EDA's gap statistic at LDA_PROFILED_GAP and 2 training iterations (the
+    device's busy share, the kernels and copies each step launches, the EM's
+    per fit), then on the first LDA_REPLAY_FOVS FOVs on the card and in the
+    CPU port with the gap at LDA_REPLAY_GAP, held to each other; the topics
+    must recover the cohort's niches. Returns the card's seconds per step."""
+    import torch
+
+    from ark_tpu_torch.spLDA import model as lda_model
+
+    fovs = list(table["fov"].unique())
+    with tempfile.TemporaryDirectory() as base:
+        torch.cuda.reset_peak_memory_stats()
+        got, seconds, _ = lda_steps(table, os.path.join(base, "card"), DEVICE)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        prof, prof_seconds, device_use = lda_steps(
+            table, os.path.join(base, "profiled"), DEVICE, gap=LDA_PROFILED_GAP,
+            profile_steps=True, train_iters=2)
+        _, em1_s, em1 = device_totals(lambda: lda_model.train(
+            prof["feats"]["train_features"], difference_matrices=prof["diffs"]["train_diff_mat"],
+            n_topics=LDA_N_TOPICS, difference_penalty=LDA_PENALTY, n_iters=1, device=DEVICE))
+        held = table[table["fov"].isin(fovs[:LDA_REPLAY_FOVS])].reset_index(drop=True)
+        held_got, _, _ = lda_steps(held, os.path.join(base, "card_held"), DEVICE,
+                                   gap=LDA_REPLAY_GAP)
+        t0 = time.perf_counter()
+        want, _, _ = lda_steps(held, os.path.join(base, "cpu"), "cpu", gap=LDA_REPLAY_GAP)
+        cpu_s = time.perf_counter() - t0
+    gap_err, topics_err, weights_err = lda_outputs_agree(held_got, want, "spatial LDA")
+    model, inferred = got["model"], got["inferred"]
+    n_train, n_features = got["feats"]["train_features"].shape
+    check(model.components_.shape == (LDA_N_TOPICS, n_features)
+          and inferred.shape == (len(got["feats"]["featurized_fovs"]), LDA_N_TOPICS)
+          and np.isfinite(model.components_).all() and np.isfinite(inferred.values).all(),
+          "spatial LDA: topics or weights of the wrong shape or not finite")
+    sums = [np.abs(model.components_.sum(1) - 1).max(),
+            np.abs(model.topic_weights.values.sum(1) - 1).max(),
+            np.abs(inferred.values.sum(1) - 1).max()]
+    check(max(sums) <= LDA_ROW_SUM_ATOL, f"spatial LDA: rows sum to 1 only within {sums}")
+    purity, chance = niche_purity(inferred, got["fmt"])
+    bar = max(0.5, 2 * chance)
+    check(purity > bar, f"spatial LDA: niche purity {purity:.3f} of the dominant topics "
+          f"(chance {chance:.3f}, bar {bar:.3f})")
+    total = sum(seconds.values())
+    busy = sum(s for s, _ in device_use.values())
+    prof_total = sum(prof_seconds.values())
+    # the steps both runs share: device seconds over the unprofiled run's wall
+    same = [k for k in seconds if k not in ("topic_eda", "train")]
+    busy_same = sum(device_use[k][0] for k in same) / sum(seconds[k] for k in same)
+    em2_s, em2 = device_use["train"]
+    em_launches = em1 + (LDA_TRAIN_ITERS - 1) * (em2 - em1)
+    em_s = em1_s + (LDA_TRAIN_ITERS - 1) * (em2_s - em1_s)
+    print(f"spatial LDA ({len(fovs)} FOVs, {len(got['feats']['featurized_fovs'])} cells, "
+          f"{table['cell_meta_cluster'].nunique()} phenotypes; {n_train} training cells x "
+          f"{n_features} features) on {DEVICE} [{CARD}]: {total:.3f} s; per step "
+          + ", ".join(f"{k} {v:.4f}" for k, v in seconds.items())
+          + f"; peak device memory {peak:.1f} MiB")
+    print(f"spatial LDA: device busy {busy:.4f} s of the {prof_total:.3f} s profiled run "
+          f"({busy / prof_total:.1%}; the EDA's gap statistic at (topics, bootstraps) "
+          f"{LDA_PROFILED_GAP}, training 2 outer iterations); the steps both runs share "
+          f"{busy_same:.1%} of their unprofiled wall; device s and kernels + copies by step: "
+          + ", ".join(f"{k} {s:.4f} s {n}" for k, (s, n) in device_use.items())
+          + f"; the EM ({LDA_N_TOPICS} topics, x 21 E-steps an outer iteration): {em1} and "
+          f"{em2} launches at 1 and 2 outer iterations, so {em_launches} launches and "
+          f"{em_s:.4f} s of device time a {LDA_TRAIN_ITERS}-iteration fit, "
+          f"{em_s / seconds['train']:.1%} of its {seconds['train']:.3f} s")
+    eda = got["eda"]
+    print(f"spatial LDA: niche purity {purity:.3f} (chance {chance:.3f}, bar {bar:.3f}); "
+          f"inertia k=3..7 {np.round([eda['inertia'][k] for k in LDA_TOPICS], 1).tolist()}, "
+          f"gap {np.round([eda['gap_stat'][k] for k in LDA_TOPICS], 4).tolist()}; "
+          f"held to the CPU port on {LDA_REPLAY_FOVS} FOVs ({len(held)} cells; counts, "
+          f"split, difference matrices, cell counts equal; gap at (topics, bootstraps) "
+          f"{LDA_REPLAY_GAP} within {gap_err:.2e}, topics {topics_err:.2e}, "
+          f"weights {weights_err:.2e}; CPU run {cpu_s:.3f} s)")
+    return seconds
+
+
 def main() -> int:
     import torch
 
@@ -2425,6 +2692,10 @@ def main() -> int:
         cell_counts, labeled["cell_som_cluster"].to_numpy())
     compare_embedding_steps(cell_counts)
     section_done("cluster masks and embeddings")
+
+    # spatial LDA on phase (c)'s cohort
+    run_spatial_lda(spatial)
+    section_done("spatial LDA")
     print("smoke run seconds by section (host clock, CPU replays included): "
           + ", ".join(f"{k} {v:.1f}" for k, v in sections.items()))
 

@@ -31,6 +31,11 @@ the CPU port's. UMAP's epochs go through the segment-sum kernel (2 sums an
 epoch, 2 plans a fit); its seeded negatives are equal on both devices, and
 a few epochs from the same start agree by ``chip_smoke``'s rule for them
 (pow differs in the last bits, and the epochs are a chaotic map).
+
+Spatial LDA has no kernel either: its featurized counts are bitwise the CPU
+port's, its digamma (XLA's Lanczos formula) within 1e-6 of the CPU's, one
+outer EM step within the CPU tests' bounds for one step against the JAX
+package.
 """
 
 import os
@@ -435,3 +440,97 @@ def test_cluster_masks_and_overlay_match_cpu_on_cuda(card):
     np.testing.assert_array_equal(
         TPU.overlay_from_arrays(chans, lab, np.roll(lab, 2, 0), device=card),
         TPU.overlay_from_arrays(chans, lab, np.roll(lab, 2, 0), device="cpu"))
+
+
+@pytest.mark.cuda
+def test_digamma_matches_cpu_on_cuda(card):
+    """XLA's Lanczos digamma in torch ops: CUDA's log1p, cos and sin round
+    differently from the CPU's, so within 1e-6 of max(|digamma|, 1) (each
+    within 5e-7 of XLA's on the CPU tests' grid); the same poles."""
+    from ark_tpu_torch.spLDA import model as TM
+
+    x = np.concatenate([np.geomspace(1e-3, 1e4, 200_001),
+                        [-4.0, -2.5, -1.0, -0.3, 0.0, 0.2, 0.5]]).astype(np.float32)
+    got = TM._digamma(torch.from_numpy(x).to(card)).cpu().numpy()
+    want = TM._digamma(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    assert np.max(np.abs(got - want)[ok] / np.maximum(np.abs(want[ok]), 1.0)) < 1e-6
+
+
+def _lda_cohort(rng, n_fovs=2, n_cells=150, n_feats=6):
+    """Count features of cells drawn from three topics, with each FOV's MST
+    difference matrix."""
+    import pandas as pd
+
+    from ark_tpu_torch.spLDA import featurization as TF
+
+    beta = np.full((3, n_feats), 0.02)
+    for k in range(3):
+        beta[k, 2 * k:2 * k + 2] = 0.47
+    theta = rng.dirichlet(np.full(3, 0.1), n_fovs * n_cells)
+    X = np.stack([rng.multinomial(60, t @ beta / (t @ beta).sum()) for t in theta])
+    index = pd.MultiIndex.from_tuples([(f"fov{i // n_cells}", i % n_cells)
+                                       for i in range(len(X))])
+    frame = pd.DataFrame(X.astype(np.float32), index=index)
+    diffs = {}
+    for f in range(n_fovs):
+        edges = TF._mst_edges(rng.uniform(0, 500, (n_cells, 2)))
+        d = np.zeros((len(edges), n_cells), np.float32)
+        d[np.arange(len(edges)), edges[:, 0]] = 1.0
+        d[np.arange(len(edges)), edges[:, 1]] = -1.0
+        diffs[f"fov{f}"] = d
+    return frame, diffs
+
+
+@pytest.mark.cuda
+def test_one_outer_em_step_matches_cpu_on_cuda(card):
+    """One outer EM iteration (20 E-steps, the M-step, the smoothing) from
+    the same lambda_0: the Laplacian blocks equal, lambda within rtol 3e-5
+    and gamma within rtol 1e-3 (the CPU tests' bounds for one iteration
+    against the JAX package)."""
+    from ark_tpu_torch.spLDA import model as TM
+
+    frame, diffs = _lda_cohort(np.random.default_rng(8))
+    lam0 = torch.from_numpy(TM.initial_topics(42, 3, frame.shape[1]))
+    out = {}
+    for dev in (card, "cpu"):
+        blocks = TM.laplacian_blocks(frame, diffs, device=dev)
+        out[dev] = ([b.cpu() for _, b in blocks], *TM._lda_em(
+            torch.tensor(frame.values, device=dev), blocks, lam0.to(dev), 3, 1 / 3, 1 / 3,
+            0.25, n_iter=1))
+    for a, b in zip(out[card][0], out["cpu"][0]):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(out[card][1].cpu().numpy(), out["cpu"][1].numpy(), rtol=3e-5)
+    np.testing.assert_allclose(out[card][2].cpu().numpy(), out["cpu"][2].numpy(), rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_lda_featurization_matches_cpu_on_cuda(card):
+    """The four neighborhood reducers on the card: counts bitwise the CPU
+    port's, averages within rtol 1e-6; the within-cluster sums (f64) within
+    rtol 1e-9."""
+    import pandas as pd
+
+    from ark_tpu_torch.spLDA import featurization as TF
+    from ark_tpu_torch.utils import spatial_lda_utils as TLU
+
+    rng = np.random.default_rng(9)
+    n = 3000
+    df = pd.DataFrame({"x": rng.uniform(0, 1024, n), "y": rng.uniform(0, 1024, n),
+                       "cluster": rng.choice([f"t{i}" for i in range(20)], n),
+                       "m1": rng.random(n), "m2": rng.random(n),
+                       "is_index": rng.random(n) < 0.9})
+    for name, kw in (("neighborhood_to_cluster", {}),
+                     ("neighborhood_to_marker", {"markers": ["m1", "m2"]}),
+                     ("neighborhood_to_count", {})):
+        fn = getattr(TF, name)
+        pd.testing.assert_frame_equal(fn(df, 100, device=card, **kw),
+                                      fn(df, 100, device="cpu", **kw), check_exact=True)
+    pd.testing.assert_frame_equal(
+        TF.neighborhood_to_avg_marker(df, 100, ["m1", "m2"], device=card),
+        TF.neighborhood_to_avg_marker(df, 100, ["m1", "m2"], device="cpu"), rtol=1e-6)
+    data = rng.uniform(0, [5, 30, 2, 9], (4000, 4))
+    labels = rng.integers(0, 5, 4000)
+    assert TLU.within_cluster_sums(data, labels, device=card) == pytest.approx(
+        TLU.within_cluster_sums(data, labels, device="cpu"), rel=1e-9)

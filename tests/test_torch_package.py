@@ -496,3 +496,74 @@ def test_entry_points_of_the_mask_and_embedding_slice_take_a_device():
     # no default at all: the caller names the device
     param = inspect.signature(segmentation_utils.save_segmentation_labels).parameters["device"]
     assert param.kind is param.KEYWORD_ONLY and param.default is param.empty
+
+
+LDA_MODULES = [
+    "ark_tpu_torch.config", "ark_tpu_torch.spLDA", "ark_tpu_torch.spLDA.featurization",
+    "ark_tpu_torch.spLDA.processing", "ark_tpu_torch.spLDA.model",
+    "ark_tpu_torch.utils.spatial_lda_utils", "ark_tpu_torch.analysis.visualize",
+]
+
+
+def test_lda_modules_run_without_the_cards_missing_packages():
+    """Spatial LDA, the config and the plots import with imageio, sklearn,
+    tqdm, h5py, matplotlib and seaborn blocked, and the steps the smoke run
+    drives on the card work there (featurization, difference matrices,
+    within-cluster sums, the gap statistic, train, infer, the files);
+    the modules fall under the AST scans and the style gate, which walk
+    every file of the package."""
+    code = ("import importlib, sys, tempfile\n"
+            f"for blocked in {CARD_MISSING!r}:\n"
+            "    sys.modules[blocked] = None\n"
+            f"for m in {LDA_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import numpy as np\n"
+            "import pandas as pd\n"
+            "from ark_tpu_torch.spLDA import model, processing\n"
+            "from ark_tpu_torch.utils import spatial_lda_utils as spu\n"
+            "rng = np.random.default_rng(0)\n"
+            "t = pd.DataFrame({'fov': np.repeat(['f0', 'f1'], 60), 'label': np.tile(\n"
+            "    np.arange(1, 61), 2), 'cell_size': 100.0,\n"
+            "    'centroid-0': rng.uniform(0, 300, 120), 'centroid-1': rng.uniform(0, 300, 120),\n"
+            "    'cell_meta_cluster': rng.choice(['A', 'B', 'C'], 120)})\n"
+            "fmt = processing.format_cell_table(t, clusters=['A', 'B', 'C'])\n"
+            "feats = processing.featurize_cell_table(fmt, radius=100, device='cpu')\n"
+            "diff = processing.create_difference_matrices(fmt, feats)\n"
+            "train = feats['train_features']\n"
+            "labels = np.arange(len(train)) % 3\n"
+            "pooled = spu.within_cluster_sums(train.values, labels, device='cpu')\n"
+            "gap, sd = processing.gap_stat(train, 3, pooled, num_boots=25, device='cpu')\n"
+            "m = model.train(train, diff['train_diff_mat'], n_topics=3, n_iters=3,\n"
+            "                device='cpu')\n"
+            "w = model.infer(m, feats['featurized_fovs'], diff['inference_diff_mat'],\n"
+            "                n_iters=3, device='cpu')\n"
+            "assert w.shape == (120, 3) and np.isfinite(gap) and np.isfinite(sd)\n"
+            "with tempfile.TemporaryDirectory() as d:\n"
+            "    spu.save_spatial_lda_file(m, d, 'lda_model')\n"
+            "    spu.save_spatial_lda_file(w, d, 'topic_weights', format='csv')\n"
+            "assert 'jax' not in sys.modules\n"
+            "assert not [m for m in sys.modules if m.startswith('ark_tpu.')]\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    assert set(LDA_MODULES) <= set(_modules())
+
+
+def test_entry_points_of_the_lda_slice_take_a_device():
+    """Every public function of the slice that does device work takes
+    `device`, keyword-only, defaulting to "cuda"."""
+    import inspect
+
+    from ark_tpu_torch.spLDA import featurization, model, processing
+    from ark_tpu_torch.utils import spatial_lda_utils
+
+    takers = [featurization.neighborhood_to_cluster, featurization.neighborhood_to_marker,
+              featurization.neighborhood_to_avg_marker, featurization.neighborhood_to_count,
+              processing.featurize_cell_table, processing.gap_stat,
+              processing.compute_topic_eda, model.laplacian_blocks, model.train, model.infer,
+              spatial_lda_utils.within_cluster_sums]
+    for fn in takers:
+        param = inspect.signature(fn).parameters.get("device")
+        assert param is not None and param.kind is param.KEYWORD_ONLY, fn.__qualname__
+        assert param.default == "cuda", fn.__qualname__
