@@ -9,14 +9,17 @@ the convolutions run in NCHW inside. As in flax, parameters are float32 and
 each layer computes in the model's ``dtype`` (bfloat16 by default):
 convolutions and the channel-dense layers cast their weights to it, batch
 norm computes in float32 and casts back, and the last dense layer of each
-head computes in float32. torch's random init cannot draw flax's
-``jax.random`` numbers, so parity with the JAX package always goes through
-``params_from_flax``.
+head computes in float32. ``model.train()`` selects flax's train mode (batch
+statistics, running averages updated); ``model.eval()`` the running
+averages. torch's random init cannot draw flax's ``jax.random`` numbers, so
+parity with the JAX package always goes through ``params_from_flax``;
+``params_to_flax`` and ``save_params_npz`` go the other way.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 from typing import Dict, Sequence
 
@@ -29,6 +32,8 @@ from torch import nn
 # reference module): backbone batch norms use 1.001e-5, the head's 1e-3
 BACKBONE_BN_EPSILON = 1.001e-5
 HEAD_BN_EPSILON = 1e-3
+# flax's running-average decay (the JAX package's BatchNorm(momentum=0.9))
+BN_MOMENTUM = 0.9
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -41,12 +46,47 @@ def location2d_grid(h: int, w: int, device=None) -> torch.Tensor:
     return torch.stack(torch.meshgrid(ys, xs, indexing="ij"), dim=-1)
 
 
+@functools.lru_cache(maxsize=64)
+def _resize_weights(n_in: int, n_out: int, dtype, device) -> torch.Tensor:
+    """(n_out, n_in) bilinear weights of ``jax.image.resize`` (its
+    ``compute_weight_mat`` for the triangle kernel when upsampling), computed
+    in f32 in its order of operations, then cast to `dtype`."""
+    f32 = np.float32
+    inv_scale = 1.0 / (n_out / n_in)
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * f32(inv_scale) - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None])
+    w = np.maximum(f32(0), f32(1) - x)
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(f32).eps),
+                 w / np.where(total != 0, total, f32(1)), f32(0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    w = np.where(inside[None, :], w, f32(0)).astype(f32)
+    return torch.from_numpy(np.ascontiguousarray(w.T)).to(device=device, dtype=dtype)
+
+
+def _resize_products(x: torch.Tensor, th: int, tw: int) -> torch.Tensor:
+    """``jax.image.resize``'s own form of the bilinear resize of NCHW `x`:
+    two products with the interpolation-weight matrices, rows then columns.
+    Its backward is two more products, where ``F.interpolate``'s scatters
+    with float atomics on CUDA."""
+    h, w = x.shape[2:]
+    rows = _resize_weights(h, th, x.dtype, x.device)
+    cols = _resize_weights(w, tw, x.dtype, x.device)
+    y = F.linear(x.transpose(2, 3), rows)                  # (B, C, W, th)
+    return F.linear(y.transpose(2, 3), cols)               # (B, C, th, tw)
+
+
 def _bilinear_resize(x: torch.Tensor, th: int, tw: int) -> torch.Tensor:
     """Bilinear resize of NCHW `x` to (th, tw) in its own dtype: half-pixel
     centres, edges clamped, no antialiasing. This is ``jax.image.resize``'s
-    'bilinear' when upsampling, and the network only ever upsamples."""
+    'bilinear' when upsampling, and the network only ever upsamples. Under
+    autograd it takes the product form (a deterministic backward); without
+    a gradient ``F.interpolate``, which reads each input once instead of
+    multiplying through mostly-zero matrices."""
     if tuple(x.shape[2:]) == (th, tw):
         return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _resize_products(x, th, tw)
     return F.interpolate(x, size=(th, tw), mode="bilinear", align_corners=False)
 
 
@@ -82,9 +122,12 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` with running averages:
-    y = (x - mean) * (rsqrt(var + eps) * scale) + bias in f32, cast to
-    `dtype`. `channel_dim` is 1 for NCHW maps and -1 for NHWC ones."""
+    """flax ``nn.BatchNorm``: y = (x - mean) * (rsqrt(var + eps) * scale) +
+    bias in f32, cast to `dtype`. In eval mode mean and var are the running
+    averages; in train mode they are the batch's (f32 mean and the fast
+    variance E[x^2] - E[x]^2 clipped at 0, flax's ``_compute_stats``), and the
+    running averages move to ``0.9 * avg + 0.1 * batch``, with the biased
+    variance. `channel_dim` is 1 for NCHW maps and -1 for NHWC ones."""
 
     def __init__(self, c: int, eps: float, dtype=torch.bfloat16,
                  channel_dim: int = 1):
@@ -95,11 +138,24 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(c))
         self.eps, self.dtype, self.channel_dim = eps, dtype, channel_dim
 
+    def _batch_stats(self, xf: torch.Tensor):
+        dims = [d for d in range(xf.ndim) if d != self.channel_dim % xf.ndim]
+        mean = xf.mean(dims)
+        # torch.maximum splits the gradient at a tie as jnp.maximum does
+        var = torch.maximum(xf.square().mean(dims) - mean.square(),
+                            torch.zeros((), device=xf.device))
+        with torch.no_grad():
+            self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
+            self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
+        return mean, var
+
     def forward(self, x):
         shape = [1] * x.ndim
         shape[self.channel_dim] = -1
-        mul = torch.rsqrt(self.var + self.eps) * self.scale
-        y = (x.to(torch.float32) - self.mean.reshape(shape)) * mul.reshape(shape)
+        xf = x.to(torch.float32)
+        mean, var = self._batch_stats(xf) if self.training else (self.mean, self.var)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        y = (xf - mean.reshape(shape)) * mul.reshape(shape)
         return (y + self.bias.reshape(shape)).to(self.dtype)
 
 
@@ -367,6 +423,49 @@ def load_params_npz(path: str, return_config: bool = False):
             node = node.setdefault(p, {})
         node[parts[-1]] = val
     return (tree, config) if return_config else tree
+
+
+def params_to_flax(state) -> Dict:
+    """A PanopticNet state dict as the JAX package's variables tree of f32
+    numpy arrays, the inverse of ``params_from_flax``: weights OIHW -> HWIO
+    and (out, in) -> (in, out) as ``kernel``, batch-norm mean and var under
+    'batch_stats', every other tensor under 'params'."""
+    tree: Dict = {"params": {}, "batch_stats": {}}
+    for name, t in state.items():
+        *path, leaf = name.split(".")
+        a = t.detach().to(device="cpu", dtype=torch.float32).numpy()
+        if leaf == "weight":
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+            leaf = "kernel"
+        node = tree["batch_stats" if leaf in ("mean", "var") else "params"]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return tree
+
+
+def save_params_npz(path: str, model_or_tree, config: Dict = None):
+    """Save a PanopticNet, or a variables tree of the JAX package's layout
+    (as ``convert_deepcell.convert`` returns), as the JAX package's
+    flattened compressed .npz ('a/b/c' keys); `config` (PanopticNet kwargs)
+    is embedded as JSON under '__config__', so either package rebuilds the
+    architecture from it."""
+    tree = model_or_tree
+    if isinstance(tree, nn.Module):
+        tree = params_to_flax(tree.state_dict())
+    flat = {}
+
+    def rec(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                rec(v, f"{prefix}/{k}" if prefix else k)
+        else:
+            flat[prefix] = np.asarray(node)
+
+    rec(tree, "")
+    if config is not None:
+        flat["__config__"] = np.array(json.dumps(config))
+    np.savez_compressed(path, **flat)
 
 
 def model_from_npz(path: str, dtype=None, *, device):

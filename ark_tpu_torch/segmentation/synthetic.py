@@ -1,9 +1,9 @@
-"""Planted-cell images and instance matching (numpy only).
+"""Planted-cell images, Mesmer training targets and instance matching.
 
-Copies of ``ark_tpu/segmentation/synthetic.py::synthetic_cells`` and
-``::match_instances``: the same `rng` gives the same images and labels. The
-JAX module imports ``ark_tpu.ops.edt``, which imports jax, so the port keeps
-its own copy of these numpy functions.
+Port of ``ark_tpu/segmentation/synthetic.py``. ``synthetic_cells`` and
+``match_instances`` are numpy copies: the same `rng` gives the same images
+and labels. ``targets_from_labels`` builds the deep-watershed targets on a
+device, through the port's exact EDT, bit for bit the JAX package's.
 """
 
 from __future__ import annotations
@@ -11,6 +11,9 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
+
+from ark_tpu_torch.ops import edt as edt_ops
 
 
 def synthetic_cells(rng: np.random.Generator, n_images: int, hw: int = 64,
@@ -77,6 +80,76 @@ def synthetic_cells(rng: np.random.Generator, n_images: int, hw: int = 64,
 
         images[i] += rng.normal(0, noise, size=(hw, hw, 2)).astype(np.float32)
     return np.clip(images, 0, None), cell_labels, nuc_labels
+
+
+def _inner_distance(lab: np.ndarray, device) -> torch.Tensor:
+    """Per-cell EDT of one (H, W) label image on `device`: each pixel's
+    distance to the nearest pixel not of its own label (deepcell's
+    'inner-distance'), so touching cells each keep their own peak. Each cell
+    is transformed in its bounding box grown by one pixel (clipped to the
+    image): every pixel outside that box is farther from the cell than the
+    box's own rim, which is not of the cell, so the distances are the whole
+    image's."""
+    import scipy.ndimage as ndi
+
+    h, w = lab.shape
+    out = torch.zeros((h, w), dtype=torch.float32, device=device)
+    lab_dev = torch.from_numpy(np.ascontiguousarray(lab)).to(device)
+    for lv, box in enumerate(ndi.find_objects(lab), start=1):
+        if box is None:
+            continue
+        y0, y1 = max(box[0].start - 1, 0), min(box[0].stop + 1, h)
+        x0, x1 = max(box[1].start - 1, 0), min(box[1].stop + 1, w)
+        m = lab_dev[y0:y1, x0:x1] == lv
+        d = edt_ops.distance_transform_edt(m, device=device)
+        box = out[y0:y1, x0:x1]
+        box.copy_(torch.where(m, d, box))
+    return out
+
+
+def _window3(lab: torch.Tensor, reduce) -> torch.Tensor:
+    """3x3 grey erosion (`reduce` = torch.minimum) or dilation
+    (torch.maximum) of (N, H, W) labels with scipy.ndimage's default
+    'reflect' border, which for a 3x3 window repeats the edge pixel."""
+    h, w = lab.shape[1:]
+    rows = torch.arange(-1, h + 1, device=lab.device).clamp(0, h - 1)
+    cols = torch.arange(-1, w + 1, device=lab.device).clamp(0, w - 1)
+    pad = lab[:, rows][:, :, cols]
+    out = pad[:, 1:h + 1, 1:w + 1]
+    for dy in range(3):
+        for dx in range(3):
+            out = reduce(out, pad[:, dy:dy + h, dx:dx + w])
+    return out
+
+
+def targets_from_labels(labels: np.ndarray, *, device="cuda") -> Dict[str, torch.Tensor]:
+    """Deep-watershed training targets from (N, H, W) instance labels, on
+    `device`: {'inner_distance': (N, H, W) float32, each cell's EDT divided
+    by its own maximum (peaks 1.0 at cell centres), 'pixelwise': (N, H, W, 3)
+    float32 one-hot [interior, border, background]}. A border pixel is a
+    foreground pixel whose 3x3 erosion or dilation differs from its label.
+    The per-cell maxima divide in f64 and round to f32, as numpy does in the
+    reference."""
+    labels = np.asarray(labels)
+    dev = torch.device(device)
+    lab = torch.from_numpy(np.ascontiguousarray(labels)).to(dev).to(torch.int64)
+    fg = lab > 0
+    inner = torch.zeros(labels.shape, dtype=torch.float32, device=dev)
+    for i in range(labels.shape[0]):
+        if not labels[i].any():
+            continue
+        edt = _inner_distance(labels[i], dev)
+        flat = lab[i].reshape(-1)
+        maxima = torch.zeros(int(labels[i].max()) + 1, dtype=torch.float32, device=dev)
+        maxima = maxima.scatter_reduce(0, flat, edt.reshape(-1), "amax")
+        per_cell_max = torch.clamp_min(maxima.to(torch.float64), 1e-6)
+        per_cell_max[0] = 1.0
+        quotient = (edt.to(torch.float64) / per_cell_max[lab[i]]).to(torch.float32)
+        inner[i] = torch.where(fg[i], quotient, 0.0)
+    border = fg & ((_window3(lab, torch.minimum) != lab)
+                   | (_window3(lab, torch.maximum) != lab))
+    pixelwise = torch.stack([fg & ~border, border, ~fg], dim=-1).to(torch.float32)
+    return {"inner_distance": inner, "pixelwise": pixelwise}
 
 
 def match_instances(pred: np.ndarray, truth: np.ndarray,

@@ -65,7 +65,22 @@ started together) and drives these paths on the card:
   peak memory), again under the profiler with its EDA and training cut in
   depth (the device's busy share, the kernels and copies of each step, the
   EM's per fit); the niche purity of the inferred topics; and every step on
-  the card held to the CPU port on the first 2 FOVs.
+  the card held to the CPU port on the first 2 FOVs;
+- Mesmer training and weight conversion, which launch no kernel of their
+  own: (l1) the published network with seeded weights on 8 x 256^2 planted
+  images and their targets, eager steps in f32 (TF32 off) and bf16 split by
+  events into forward, backward and optimizer (peak memory, the device's
+  busy share and launches of one profiled step), then train.fit's
+  CUDA-graph-replayed steps (images per second), and two f32 steps under
+  torch.use_deterministic_algorithms(True), bitwise equal; (l2) one f32
+  step at 2 x 64^2 against the CPU port (loss, every gradient, the
+  batch-norm averages); (l3) fit's graph replays bitwise against the same
+  steps launched one by one, then train_on_synthetic with the shipped
+  checkpoint's recipe (2000 steps), held to the planted test's floors on
+  its held-out sets through the device postprocess under the level engine
+  (the claim kernel's launches counted); (l4) a seeded manifest-shaped
+  Keras layer dict through the converter into the full network, against
+  the CPU port at 2 x 256^2, and graft_entry.entry on the card.
 
 It exits non-zero, without the final result line, when there is no CUDA
 device or any phase fails. Its last line is one JSON object naming the
@@ -2589,7 +2604,427 @@ def run_spatial_lda(table):
     return seconds
 
 
+# --- Mesmer training and weight conversion (phase (l))
+
+MANIFEST = os.path.join(REPO, "tests", "models", "deepcell_layer_manifest.json")
+
+
+def manifest_layers(rng):
+    """A seeded Keras layer dict shaped as deepcell-tf's Mesmer (the
+    manifest of tests/models), with values a forward can run on: kernels
+    N(0, 1 / fan_in) (fan_in: every axis but the output's), biases, beta
+    and moving means N(0, 0.1), gamma and moving variances U(0.5, 1.5)."""
+    with open(MANIFEST) as f:
+        manifest = json.load(f)["layers"]
+    draws = {"bias": lambda s: rng.normal(0, 0.1, s),
+             "beta": lambda s: rng.normal(0, 0.1, s),
+             "moving_mean": lambda s: rng.normal(0, 0.1, s),
+             "gamma": lambda s: rng.uniform(0.5, 1.5, s),
+             "moving_variance": lambda s: rng.uniform(0.5, 1.5, s),
+             "kernel": lambda s: rng.normal(0, 1, s) / np.sqrt(np.prod(s[:-1]))}
+    return {name: {w: draws[w](tuple(shape)).astype(np.float32)
+                   for w, shape in weights.items()}
+            for name, weights in manifest.items()}
+
+
+TRAIN_BATCH, TRAIN_HW = 8, 256          # the full-width training step's batch
+TRAIN_WARMUP, TRAIN_TIMED = 2, 10
+# card against the CPU port, one full-width f32 step at 2 x 64^2: the loss
+# (relative), each gradient (of its tensor's largest entry) and the updated
+# batch-norm averages (of max(|average|, 1))
+STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_BN_TOL = 1e-5, 1e-4, 1e-5
+# the shipped checkpoint's recipe (ark_tpu/models/checkpoints/README.md)
+RECIPE = dict(steps=2000, n_images=64, hw=64, seed=42, mini=True)
+# tests/segmentation/test_mesmer_planted.py:62-71 and :101-103: recall,
+# precision, matched IoU
+PLANTED_FLOORS = {"whole_cell": (0.9, 0.9, 0.8), "nuclear": (0.9, 0.9, 0.75)}
+CROWDED_FLOOR = (0.9, 0.9, 0.75)
+CONVERT_SHAPE = (2, 256, 256, 2)
+GRAPH_CHECK_STEPS = 8           # a fit's eager warm-up, then graph replays
+
+
+def training_batch(seed, n, hw, device):
+    """Planted cells (half spaced, half crowded, as train_on_synthetic
+    draws them), normalized as predict normalizes, with their four targets,
+    on `device`."""
+    import torch
+
+    from ark_tpu_torch.segmentation import mesmer, synthetic
+
+    rng = np.random.default_rng(seed)
+    spaced = synthetic.synthetic_cells(rng, n - n // 2, hw=hw)
+    crowded = synthetic.synthetic_cells(rng, n // 2, hw=hw, crowding=0.35)
+    imgs, cells, nucs = (np.concatenate(pair) for pair in zip(spaced, crowded))
+    targets = {}
+    for comp, labels in (("whole_cell", cells), ("nuclear", nucs)):
+        t = synthetic.targets_from_labels(labels, device=device)
+        targets[f"{comp}_inner_distance"] = t["inner_distance"]
+        targets[f"{comp}_pixelwise"] = t["pixelwise"]
+    return mesmer._percentile_normalize(torch.as_tensor(imgs, device=device)), targets
+
+
+def fresh_model(state, dtype, device):
+    """A full PanopticNet in train mode with the weights of `state`."""
+    from ark_tpu_torch.models import unet
+
+    model = unet.PanopticNet(dtype=dtype)
+    model.load_state_dict(state)
+    return model.to(device).train()
+
+
+def step_with_events(model, opt, x, targets):
+    """One training step with CUDA events after the forward and loss, the
+    backward and the optimizer. Returns (loss, gradients, events)."""
+    import torch
+
+    from ark_tpu_torch.segmentation import train
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    loss = train.mesmer_loss(model(x), targets, inner_weight=10.0)
+    ev[1].record()
+    grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
+    ev[2].record()
+    opt.step(grads)
+    ev[3].record()
+    return loss.detach(), grads, ev
+
+
+def replayed_step_ms(model, opt, x, targets):
+    """ms per step of `model`'s training step as a fit replays it on the
+    card: GRAPH_WARMUP eager steps on a side stream, one step captured in a
+    CUDA graph, then CUDA events around TRAIN_TIMED replays."""
+    import torch
+
+    from ark_tpu_torch.segmentation import train
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(train.GRAPH_WARMUP):
+            train.train_step(model, opt, x, targets)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        loss = train.train_step(model, opt, x, targets)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TRAIN_TIMED):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    check(bool(torch.isfinite(loss)), f"replayed step: loss {float(loss)}")
+    return start.elapsed_time(end) / TRAIN_TIMED
+
+
+def run_training_steps(x, targets):
+    """Phase (l1): the published network, seeded, on TRAIN_BATCH x
+    TRAIN_HW^2 planted images, in f32 (TF32 off) and in bf16: TRAIN_WARMUP
+    then TRAIN_TIMED eager steps, split by events into forward, backward and
+    optimizer, with peak memory and the device's busy share and launches of
+    one profiled step; then the step as train.fit replays it on the card
+    (one CUDA graph a step), with images per second; then the two forms of
+    the heads' last resize, timed at this batch and at inference's."""
+    import torch
+
+    from ark_tpu_torch.models import unet
+    from ark_tpu_torch.segmentation import train
+
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        model = unet.init_mesmer(seed=0, dtype=dtype, device=DEVICE).train()
+        opt = train.Adam(model.parameters(), 1e-3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with train.training_precision(model):
+            for _ in range(TRAIN_WARMUP):
+                step_with_events(model, opt, x, targets)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs = [step_with_events(model, opt, x, targets) for _ in range(TRAIN_TIMED)]
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / TRAIN_TIMED
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            _, busy_s, launches = device_totals(lambda: step_with_events(model, opt, x,
+                                                                         targets))
+            replay_ms = replayed_step_ms(model, opt, x, targets)
+        split = np.median([[ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+                           for _, _, ev in runs], axis=0)
+        losses = [float(loss) for loss, _, _ in runs]
+        check(all(np.isfinite(losses)), f"training {name}: losses {losses}")
+        del model, opt, runs
+        print(f"training step {name} {TRAIN_BATCH} x {TRAIN_HW}^2 (published network, "
+              f"{CARD}): eager {step_s * 1e3:.2f} ms per step; events: forward+loss "
+              f"{split[0]:.2f} ms, backward {split[1]:.2f} ms, optimizer {split[2]:.2f} ms; "
+              f"peak memory {peak:.2f} GiB; one profiled step: {busy_s * 1e3:.2f} ms device "
+              f"({busy_s / step_s:.1%} of the eager step), {launches} kernels and copies; "
+              f"as fit replays it (one CUDA graph a step): {replay_ms:.2f} ms per step, "
+              f"{TRAIN_BATCH / replay_ms * 1e3:.1f} images/s (device "
+              f"{busy_s * 1e3 / replay_ms:.1%} busy); loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    # the heads' last upsample: training's 8 x 64 x 128^2 -> 256^2 in f32,
+    # template 1's inference 4 x 64 x 512^2 -> 1024^2 in bf16
+    for shape, dtype in (((TRAIN_BATCH, 64, TRAIN_HW // 2, TRAIN_HW // 2), torch.float32),
+                         ((4, 64, 512, 512), torch.bfloat16)):
+        src = torch.rand(shape, device=DEVICE).to(dtype)
+        size = (2 * shape[2], 2 * shape[3])
+        with unet.full_f32():
+            products = time_ms(lambda: unet._resize_products(src, *size))
+            interp = time_ms(lambda: torch.nn.functional.interpolate(
+                src, size=size, mode="bilinear", align_corners=False))
+        print(f"resize {shape} -> {size} {dtype}: product form {products:.4f} ms, "
+              f"F.interpolate {interp:.4f} ms (events, median of 10)")
+
+
+def check_deterministic_steps(x, targets):
+    """Phase (l1): two identical f32 steps at full width under
+    torch.use_deterministic_algorithms(True), which raises on an op with no
+    deterministic CUDA algorithm (a float-atomic backward): gradients,
+    parameters and batch-norm averages bitwise equal."""
+    import torch
+
+    from ark_tpu_torch.models import unet
+    from ark_tpu_torch.segmentation import train
+
+    state = unet.init_mesmer(seed=1, dtype=torch.float32, device=DEVICE).state_dict()
+    runs = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(2):
+            model = fresh_model(state, torch.float32, DEVICE)
+            opt = train.Adam(model.parameters(), 1e-3)
+            with train.training_precision(model):
+                _, grads, _ = step_with_events(model, opt, x, targets)
+            runs.append((grads, model.state_dict()))
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (g0, s0), (g1, s1) = runs
+    check(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(g0, g1)),
+          "deterministic steps: gradients differ")
+    check(all(torch.equal(s0[k], s1[k]) for k in s0),
+          "deterministic steps: parameters or batch-norm averages differ")
+    print(f"deterministic f32 step {TRAIN_BATCH} x {TRAIN_HW}^2 under "
+          f"use_deterministic_algorithms(True): ran; two steps give bitwise-equal "
+          f"gradients ({sum(g is not None for g in g0)} tensors), parameters and "
+          f"averages ({len(s0)} tensors)")
+
+
+def gradient_errors(got, want):
+    """Worst error of each gradient tensor against its largest entry, over
+    the tensors `want` has; an all-zero reference must be matched exactly,
+    and a bias feeding a train-mode batch norm (zero gradient in exact
+    arithmetic) is held below STEP_GRAD_RTOL of its layer's kernel
+    gradient on both sides."""
+    worst = 0.0
+    for name, ref in want.items():
+        g = got[name]
+        if ref is None:
+            check(g is None, f"gradient {name}: None on one device only")
+            continue
+        scale = float(ref.abs().max())
+        if scale == 0.0:
+            check(not bool(g.any()), f"gradient {name}: zero on one device only")
+        elif name.endswith("dense_0.bias"):
+            kernel = float(want[name[:-len("bias")] + "weight"].abs().max())
+            check(max(scale, float(g.abs().max())) <= STEP_GRAD_RTOL * kernel,
+                  f"gradient {name}: not near zero")
+        else:
+            worst = max(worst, float((g - ref).abs().max()) / scale)
+    return worst
+
+
+def compare_training_step_cpu_cuda():
+    """Phase (l2): one full-width f32 step at 2 x 64^2 from the same weights
+    and batch on the CPU port and on the card: loss, every gradient, the
+    updated batch-norm averages."""
+    import torch
+
+    from ark_tpu_torch.models import unet
+    from ark_tpu_torch.segmentation import train
+
+    x, targets = training_batch(62, 2, 64, "cpu")
+    state = unet.init_mesmer(seed=2, dtype=torch.float32, device="cpu").state_dict()
+    res = {}
+    for dev in ("cpu", DEVICE):
+        model = fresh_model(state, torch.float32, dev)
+        with train.training_precision(model):
+            loss = train.mesmer_loss(model(x.to(dev)), {k: v.to(dev) for k, v in
+                                                        targets.items()}, inner_weight=10.0)
+            names, params = zip(*model.named_parameters())
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        res[dev] = (float(loss.detach()), {n: None if g is None else g.cpu()
+                                  for n, g in zip(names, grads)},
+                    {n: b.cpu() for n, b in model.named_buffers()})
+    (l_cpu, g_cpu, b_cpu), (l_gpu, g_gpu, b_gpu) = res["cpu"], res[DEVICE]
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    grad_err = gradient_errors(g_gpu, g_cpu)
+    bn_err = max(float(((b_gpu[k] - v).abs() / v.abs().clamp_min(1.0)).max())
+                 for k, v in b_cpu.items())
+    check(loss_err <= STEP_LOSS_RTOL, f"training step: loss differs by {loss_err}")
+    check(grad_err <= STEP_GRAD_RTOL, f"training step: gradients differ by {grad_err}")
+    check(bn_err <= STEP_BN_TOL, f"training step: batch-norm averages differ by {bn_err}")
+    print(f"cpu vs cuda full-width f32 step 2 x 64^2: loss {l_gpu:.6f} (relative "
+          f"difference {loss_err:.3g}, limit {STEP_LOSS_RTOL}), gradients within "
+          f"{grad_err:.3g} of each tensor's largest entry (limit {STEP_GRAD_RTOL}), "
+          f"batch-norm averages within {bn_err:.3g} (limit {STEP_BN_TOL})")
+
+
+def held_out_scores(app):
+    """Mesmer.predict(postprocess='device') under the level engine on the
+    planted test's held-out sets; returns ({set: {compartment: (recall,
+    precision, IoU)}}, the claim kernel's launches)."""
+    from ark_tpu_torch.ops import watershed
+    from ark_tpu_torch.segmentation import synthetic
+
+    sets = {"spaced": synthetic.synthetic_cells(np.random.default_rng(999), 4, hw=64),
+            "crowded": synthetic.synthetic_cells(np.random.default_rng(555), 4, hw=64,
+                                                 crowding=0.35)}
+    watershed._ENGINE = "levels"
+    watershed.claim_round.launches = 0
+    scores = {}
+    for name, (imgs, cells, nucs) in sets.items():
+        out = app.predict(imgs, postprocess="device")
+        scores[name] = {}
+        for comp, truth in (("whole_cell", cells), ("nuclear", nucs)):
+            stats = [synthetic.match_instances(out[comp][i], truth[i]) for i in range(4)]
+            scores[name][comp] = tuple(float(np.mean([s[k] for s in stats])) for k in
+                                       ("recall", "precision", "mean_matched_iou"))
+    launches = watershed.claim_round.launches
+    watershed._ENGINE = "minimax"
+    return scores, launches
+
+
+def check_graphed_fit(x, targets):
+    """Phase (l3): fit's CUDA-graph replays against the same steps launched
+    one by one through train_step: losses, parameters and batch-norm
+    averages bitwise equal."""
+    import torch
+
+    from ark_tpu_torch.models import unet
+    from ark_tpu_torch.segmentation import train
+
+    graphed = unet.init_mesmer_mini(seed=3, device=DEVICE)
+    _, losses = train.fit(graphed, x, targets, steps=GRAPH_CHECK_STEPS, batch_size=2,
+                          seed=5, device=DEVICE)
+    eager = unet.init_mesmer_mini(seed=3, device=DEVICE).train()
+    opt = train.Adam(eager.parameters(), 1e-3)
+    rows = torch.as_tensor(train.minibatch_order(x.shape[0], GRAPH_CHECK_STEPS, 2, 5),
+                           device=DEVICE)
+    with train.training_precision(eager):
+        ref = torch.stack([train.train_step(eager, opt, x[r], {k: v[r] for k, v in
+                                                              targets.items()})
+                           for r in rows]).cpu().numpy()
+    check(np.array_equal(losses, ref), f"graphed fit: losses {losses} != eager {ref}")
+    got, want = graphed.state_dict(), eager.eval().state_dict()
+    check(all(torch.equal(got[k], want[k]) for k in want),
+          "graphed fit: parameters or averages differ from the eager steps")
+    print(f"fit with CUDA-graph replays ({train.GRAPH_WARMUP} eager steps, "
+          f"{GRAPH_CHECK_STEPS - train.GRAPH_WARMUP} replays) == the same steps launched "
+          f"one by one: losses, parameters and averages bitwise")
+
+
+def run_training_e2e():
+    """Phase (l3): train_on_synthetic on the card with the shipped
+    checkpoint's recipe, then the planted test's floors on the held-out
+    sets. Returns the claim kernel's launches in that evaluation."""
+    import torch
+
+    from ark_tpu_torch.models import unet
+    from ark_tpu_torch.segmentation import train
+
+    # launches and device time of one step of the recipe's mini fit
+    x, targets = training_batch(63, 4, RECIPE["hw"], DEVICE)
+    check_graphed_fit(x, targets)
+    model = unet.init_mesmer_mini(seed=0, device=DEVICE).train()
+    opt = train.Adam(model.parameters(), 1e-3)
+    with train.training_precision(model):
+        train.train_step(model, opt, x, targets)
+        _, step_dev_s, step_launches = device_totals(
+            lambda: train.train_step(model, opt, x, targets))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    app, losses = train.train_on_synthetic(**RECIPE, device=DEVICE)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    check(losses.shape == (RECIPE["steps"],) and bool(np.isfinite(losses).all()),
+          "train_on_synthetic: loss curve not finite")
+    scores, claim_launches = held_out_scores(app)
+    check(claim_launches > 0, "held-out evaluation: the claim kernel never launched")
+    for comp, floor in PLANTED_FLOORS.items():
+        got = scores["spaced"][comp]
+        check(all(g >= f for g, f in zip(got, floor)),
+              f"held-out {comp}: recall, precision, IoU {got} under {floor}")
+    got = scores["crowded"]["whole_cell"]
+    check(all(g >= f for g, f in zip(got, CROWDED_FLOOR)),
+          f"crowded whole_cell: recall, precision, IoU {got} under {CROWDED_FLOOR}")
+    print(f"train_on_synthetic {RECIPE} on the card ({CARD}): {fit_s:.2f} s "
+          f"({fit_s / RECIPE['steps'] * 1e3:.2f} ms a step with the data set-up; one "
+          f"CUDA-graph replay a step after {train.GRAPH_WARMUP} eager ones); one eager "
+          f"step: {step_launches} kernels and copies, {step_dev_s * 1e3:.3f} ms device; "
+          f"loss first 10 {losses[:10].mean():.4f}, last 10 {losses[-10:].mean():.4f}")
+    for name, comps in scores.items():
+        print(f"held-out {name} (recall, precision, matched IoU; level engine): "
+              + ", ".join(f"{c} {tuple(round(v, 3) for v in r)}" for c, r in comps.items()))
+    print(f"held-out evaluation: claim kernel launches {claim_launches}")
+    return claim_launches
+
+
+def run_conversion():
+    """Phase (l4): a seeded manifest-shaped layer dict through the
+    converter and params_from_flax into the full network, on the card
+    against the CPU port (f32, TF32 off), then graft_entry.entry once."""
+    import torch
+
+    from ark_tpu_torch import graft_entry
+    from ark_tpu_torch.models import convert_deepcell, unet
+
+    t0 = time.perf_counter()
+    state = unet.params_from_flax(convert_deepcell.convert(
+        manifest_layers(np.random.default_rng(64)), convert_deepcell.template_variables()))
+    convert_s = time.perf_counter() - t0
+    x = np.random.default_rng(65).random(CONVERT_SHAPE, dtype=np.float32)
+    heads = {}
+    for dev in ("cpu", DEVICE):
+        net = unet.PanopticNet(dtype=torch.float32)
+        net.load_state_dict(state)
+        with torch.inference_mode(), unet.full_f32():
+            heads[dev] = {k: v.cpu() for k, v in net.to(dev).eval()(
+                torch.as_tensor(x, device=dev)).items()}
+    err = 0.0
+    for k, ref in heads["cpu"].items():
+        scale = float(ref.abs().max())
+        check(bool(torch.isfinite(ref).all()) and scale > 1e-3,
+              f"converted forward {k}: not finite or all zero")
+        err = max(err, float((heads[DEVICE][k] - ref).abs().max()) / max(scale, 1.0))
+    check(err <= HEADS_ATOL, f"converted forward: card and CPU differ by {err}")
+    forward, args = graft_entry.entry(device=DEVICE)
+    inner, pixelwise = forward(*args)
+    check(tuple(inner.shape) == (1, 128, 128, 1) and tuple(pixelwise.shape)
+          == (1, 128, 128, 3) and bool(torch.isfinite(pixelwise).all()),
+          "graft_entry.entry: wrong or non-finite heads")
+    print(f"conversion: manifest layers -> convert -> params_from_flax in {convert_s:.2f} s; "
+          f"forward {CONVERT_SHAPE} f32 card vs CPU port within {err:.3g} of max(|head|, 1) "
+          f"(limit {HEADS_ATOL}); graft_entry.entry(device='cuda') ran")
+
+
+def run_training_phase():
+    """Phase (l): training and conversion. Returns the claim kernel's
+    launches in the held-out evaluation of (l3)."""
+    x, targets = training_batch(61, TRAIN_BATCH, TRAIN_HW, DEVICE)
+    run_training_steps(x, targets)
+    check_deterministic_steps(x, targets)
+    del x, targets
+    compare_training_step_cpu_cuda()
+    claim_launches = run_training_e2e()
+    run_conversion()
+    return claim_launches
+
+
 def main() -> int:
+    # cuBLAS reads its workspace setting when its handle is made; phase (l)
+    # runs a step under torch.use_deterministic_algorithms, which needs it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -2696,6 +3131,10 @@ def main() -> int:
     # spatial LDA on phase (c)'s cohort
     run_spatial_lda(spatial)
     section_done("spatial LDA")
+
+    # Mesmer training and weight conversion
+    claim_train_launches = run_training_phase()
+    section_done("training and conversion")
     print("smoke run seconds by section (host clock, CPU replays included): "
           + ", ".join(f"{k} {v:.1f}" for k, v in sections.items()))
 
@@ -2710,6 +3149,8 @@ def main() -> int:
         "name": "watershed_claim", "route": "cuda",
         "source": "ark_tpu_torch/csrc/watershed_claim.cu",
         "replaces": "ark_tpu/ops/watershed.py:173", "launches": claim_launches,
+        "launches_by_path": {"segmentation": claim_launches,
+                             "training_held_out": claim_train_launches},
         "max_abs_err": claim_err, "ms": claim_ms["ms"],
         "plain_ms": claim_ms["plain_ms"], "bound_ms": claim_ms["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {

@@ -534,3 +534,51 @@ def test_lda_featurization_matches_cpu_on_cuda(card):
     labels = rng.integers(0, 5, 4000)
     assert TLU.within_cluster_sums(data, labels, device=card) == pytest.approx(
         TLU.within_cluster_sums(data, labels, device="cpu"), rel=1e-9)
+
+
+@pytest.mark.cuda
+def test_targets_from_labels_match_cpu_on_cuda(card):
+    """The training targets on the card, bitwise the CPU port's."""
+    from ark_tpu_torch.segmentation import synthetic as TSY
+
+    _, cells, nucs = TSY.synthetic_cells(np.random.default_rng(4), 3, hw=96, crowding=0.35)
+    for labels in (cells, nucs):
+        got = TSY.targets_from_labels(labels, device=card)
+        want = TSY.targets_from_labels(labels, device="cpu")
+        for k in want:
+            assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.cuda
+def test_training_steps_are_deterministic_on_cuda(card, monkeypatch):
+    """Two identical f32 steps of the published network at 2 x 64^2 under
+    torch.use_deterministic_algorithms(True) (no float-atomic backward is
+    allowed to run): gradients, parameters and averages bitwise equal."""
+    import chip_smoke
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    monkeypatch.setattr(chip_smoke, "DEVICE", card)
+    x, targets = chip_smoke.training_batch(5, 2, 64, card)
+    chip_smoke.check_deterministic_steps(x, targets)
+
+
+@pytest.mark.cuda
+def test_training_step_matches_cpu_on_cuda(card, monkeypatch):
+    """One f32 step of the published network at 2 x 64^2 on the card
+    against the CPU port: the loss within rtol 1e-5, each gradient within
+    1e-4 of its largest entry, the batch-norm averages within 1e-5."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", card)
+    chip_smoke.compare_training_step_cpu_cuda()
+
+
+@pytest.mark.cuda
+def test_graphed_fit_matches_eager_steps_on_cuda(card, monkeypatch):
+    """fit's CUDA-graph replays against the same steps launched one by one:
+    losses, parameters and batch-norm averages bitwise."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", card)
+    x, targets = chip_smoke.training_batch(6, 4, 64, card)
+    chip_smoke.check_graphed_fit(x, targets)

@@ -567,3 +567,69 @@ def test_entry_points_of_the_lda_slice_take_a_device():
         param = inspect.signature(fn).parameters.get("device")
         assert param is not None and param.kind is param.KEYWORD_ONLY, fn.__qualname__
         assert param.default == "cuda", fn.__qualname__
+
+
+TRAIN_MODULES = [
+    "ark_tpu_torch.segmentation.train", "ark_tpu_torch.segmentation.synthetic",
+    "ark_tpu_torch.models.convert_deepcell", "ark_tpu_torch.utils.deepcell_service_utils",
+    "ark_tpu_torch.graft_entry",
+]
+
+
+def test_training_and_conversion_run_without_the_cards_missing_packages():
+    """Training, conversion, the DeepCell-service helpers and the entry
+    import with h5py, imageio, PIL, sklearn (and the rest of the card's
+    missing packages) blocked, and their device work runs there: the
+    targets, a fit, train_on_synthetic without a checkpoint file, the
+    converter on a manifest-shaped layer dict, the entry's forward."""
+    code = ("import importlib, sys\n"
+            f"for blocked in {CARD_MISSING + ('PIL',)!r}:\n"
+            "    sys.modules[blocked] = None\n"
+            f"for m in {TRAIN_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import numpy as np\n"
+            "from ark_tpu_torch import graft_entry\n"
+            "from ark_tpu_torch.models import convert_deepcell, unet\n"
+            "from ark_tpu_torch.segmentation import synthetic, train\n"
+            "from chip_smoke import manifest_layers\n"
+            "imgs, cells, _ = synthetic.synthetic_cells(np.random.default_rng(0), 4, hw=32)\n"
+            "t = synthetic.targets_from_labels(cells, device='cpu')\n"
+            "targets = {'whole_cell_inner_distance': t['inner_distance'],\n"
+            "           'whole_cell_pixelwise': t['pixelwise']}\n"
+            "model = unet.init_mesmer_mini(device='cpu')\n"
+            "_, losses = train.fit(model, imgs, targets, steps=2, batch_size=2, device='cpu')\n"
+            "app, more = train.train_on_synthetic(steps=1, n_images=2, hw=32, device='cpu')\n"
+            "assert np.isfinite(losses).all() and np.isfinite(more).all()\n"
+            "tree = convert_deepcell.convert(manifest_layers(np.random.default_rng(0)),\n"
+            "                                convert_deepcell.template_variables())\n"
+            "assert tree['params']['FPN_0']['P7']['kernel'].shape == (3, 3, 256, 256)\n"
+            "forward, args = graft_entry.entry(device='cpu')\n"
+            "assert forward(*args)[1].shape == (1, 128, 128, 3)\n"
+            "assert 'jax' not in sys.modules\n"
+            "assert not [m for m in sys.modules if m.startswith('ark_tpu.')]\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    assert set(TRAIN_MODULES) <= set(_modules())
+
+
+def test_entry_points_of_the_training_slice_take_a_device():
+    """Training, targets and the entry take `device`, keyword-only,
+    defaulting to "cuda"; run_deepcell_direct takes it with no default, as
+    create_deepcell_output beside it does."""
+    import inspect
+
+    from ark_tpu_torch import graft_entry
+    from ark_tpu_torch.segmentation import synthetic, train
+    from ark_tpu_torch.utils import deepcell_service_utils
+
+    for fn in (synthetic.targets_from_labels, train.fit, train.train_on_synthetic,
+               graft_entry.entry):
+        param = inspect.signature(fn).parameters.get("device")
+        assert param is not None and param.kind is param.KEYWORD_ONLY, fn.__qualname__
+        assert param.default == "cuda", fn.__qualname__
+    for fn in (deepcell_service_utils.run_deepcell_direct,
+               deepcell_service_utils.create_deepcell_output):
+        param = inspect.signature(fn).parameters["device"]
+        assert param.kind is param.KEYWORD_ONLY and param.default is param.empty
