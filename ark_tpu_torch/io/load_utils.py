@@ -25,6 +25,7 @@ import numpy as np
 
 from ark_tpu_torch.io import io_utils
 from ark_tpu_torch.io.image_utils import read_image
+from ark_tpu_torch.io.ome_utils import _read_channel_names
 from ark_tpu_torch.utils.labeled_array import DataArray
 
 
@@ -157,30 +158,6 @@ def load_imgs_from_dir(data_dir: str, files: Optional[List[str]] = None,
     ch_names = xr_channel_names if xr_channel_names is not None else list(range(nch))
     return DataArray(out, coords={"fovs": names, "rows": np.arange(out.shape[1]),
                                   "cols": np.arange(out.shape[2]), xr_dim_name: ch_names})
-
-
-def _read_channel_names(ome_path: str, n_channels: int) -> List[str]:
-    """A multi-page TIFF's channel names: its `.channels.txt` sidecar, else
-    the Name attributes of its OME-XML description, else channel_<i>."""
-    sidecar = ome_path + ".channels.txt"
-    if os.path.exists(sidecar):
-        with open(sidecar) as f:
-            return f.read().splitlines()
-    try:
-        import imageio.v3 as iio
-
-        desc = iio.immeta(ome_path).get("description", "") or ""
-        names = re.findall(r'Name="([^"]+)"', desc)
-        if len(names) == n_channels:
-            return names
-        reason = (f"found {len(names)} Name attributes in the OME-XML "
-                  f"description for {n_channels} channels")
-    except Exception as e:  # metadata recovery must never block the load
-        reason = f"{type(e).__name__}: {e}"
-    warnings.warn(
-        f"could not recover channel names from {ome_path} ({reason}); "
-        f"falling back to generic channel_N names")
-    return [f"channel_{i}" for i in range(n_channels)]
 
 
 def load_imgs_from_mibitiff(data_dir: str, mibitiff_files: Optional[List[str]] = None,

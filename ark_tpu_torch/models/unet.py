@@ -37,6 +37,13 @@ BN_MOMENTUM = 0.9
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+# True resizes every pyramid and head upsample of a bf16 network in float32
+# and rounds the result back to the model dtype, as the JAX package's
+# switch of the same name does; False resizes in the model dtype. Read at
+# call time. F.interpolate computes a bf16 input in float32 and rounds once
+# either way, so the switch moves only the product form run under autograd.
+RESIZE_IN_F32 = False
+
 
 def location2d_grid(h: int, w: int, device=None) -> torch.Tensor:
     """deepcell-tf ``Location2D`` channels: row and column index grids, each
@@ -77,17 +84,21 @@ def _resize_products(x: torch.Tensor, th: int, tw: int) -> torch.Tensor:
 
 
 def _bilinear_resize(x: torch.Tensor, th: int, tw: int) -> torch.Tensor:
-    """Bilinear resize of NCHW `x` to (th, tw) in its own dtype: half-pixel
-    centres, edges clamped, no antialiasing. This is ``jax.image.resize``'s
+    """Bilinear resize of NCHW `x` to (th, tw), returned in its own dtype and
+    computed in it (in float32 when RESIZE_IN_F32): half-pixel centres,
+    edges clamped, no antialiasing. This is ``jax.image.resize``'s
     'bilinear' when upsampling, and the network only ever upsamples. Under
     autograd it takes the product form (a deterministic backward); without
     a gradient ``F.interpolate``, which reads each input once instead of
     multiplying through mostly-zero matrices."""
     if tuple(x.shape[2:]) == (th, tw):
         return x
+    dtype = x.dtype
+    if RESIZE_IN_F32:
+        x = x.to(torch.float32)
     if torch.is_grad_enabled() and x.requires_grad:
-        return _resize_products(x, th, tw)
-    return F.interpolate(x, size=(th, tw), mode="bilinear", align_corners=False)
+        return _resize_products(x, th, tw).to(dtype)
+    return F.interpolate(x, size=(th, tw), mode="bilinear", align_corners=False).to(dtype)
 
 
 class Conv(nn.Module):

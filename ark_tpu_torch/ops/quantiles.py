@@ -1,12 +1,17 @@
 """Quantiles with numpy linear interpolation, in torch ops.
 
-Port of ``ark_tpu/ops/quantiles.py`` (its sort path; the TPU-only counting
-bisection is not needed). The order statistics come from ``torch.sort`` and
-are exact; the interpolation reproduces ``jnp.quantile``/``jnp.nanquantile``
-step for step in f32 (``jax/_src/numpy/reductions.py::_quantile``): the
-position ``q * (n - 1)``, its floor and ceil clamped to the valid rows, and
-``low * (1 - frac) + high * frac`` rounded as XLA's CPU backend rounds it.
-So the results equal the JAX package's on CPU bit for bit.
+Port of ``ark_tpu/ops/quantiles.py``. The sort path (``quantile``,
+``nanquantile`` and the per-column forms) takes its order statistics from
+``torch.sort``; the interpolation reproduces ``jnp.quantile``/
+``jnp.nanquantile`` step for step in f32 (``jax/_src/numpy/reductions.py::
+_quantile``): the position ``q * (n - 1)``, its floor and ceil clamped to the
+valid rows, and ``low * (1 - frac) + high * frac`` rounded as XLA's CPU
+backend rounds it. The bisection forms (``*_bisect``) take the same exact
+order statistics from ``masked_order_stats`` (sorted order-preserving keys of
+the float bits, the elements JAX's 32 counting passes pick) and keep the JAX
+bisection's own interpolation. Every result equals the jitted JAX function's
+on CPU bit for bit. The JAX package
+picks bisection on a TPU by itself; here a caller names the form it wants.
 ``torch.quantile`` is not used: it has its own formula and an input-size cap.
 """
 
@@ -33,17 +38,19 @@ def _interpolate(sorted_x: torch.Tensor, counts: torch.Tensor, q: float,
     high_value = torch.gather(sorted_x, 0, high[None])[0]
     # XLA's CPU backend contracts `low * lw + high * hw` into one fused
     # multiply-add: fma(high, hw, low * lw) in nanquantile, fma(low, lw,
-    # high * hw) in quantile (measured against the installed jax). The f64
-    # product of two f32 values is exact, so the f64 sum rounded to f32 is
-    # the fused result (up to double rounding, which the parity tests have
-    # not met at these magnitudes).
+    # high * hw) in quantile (measured against the installed jax)
     if fuse_high:
-        fused_a, fused_b, rounded = high_value, high_weight, low_value * low_weight
-    else:
-        fused_a, fused_b, rounded = low_value, low_weight, high_value * high_weight
-    fused = (fused_a.to(torch.float64) * fused_b.to(torch.float64)
-             + rounded.to(torch.float64))
-    return fused.to(torch.float32)
+        return _fma(high_value, high_weight, low_value * low_weight)
+    return _fma(low_value, low_weight, high_value * high_weight)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 a * b + c rounded once, as a fused multiply-add. The f64 product of
+    two f32 values is exact, so the f64 sum rounded to f32 is the fused
+    result (up to double rounding, which the parity tests have not met at
+    these magnitudes)."""
+    return (a.to(torch.float64) * b.to(torch.float64) + c.to(torch.float64)
+            ).to(torch.float32)
 
 
 def nanquantile(x: torch.Tensor, q: float) -> torch.Tensor:
@@ -127,3 +134,44 @@ def masked_order_stats(x: torch.Tensor, valid: torch.Tensor,
     picked = torch.gather(sorted_keys, 1,
                           torch.clamp(k, 0, max(x.shape[0] - 1, 0)))
     return _keys_to_float(torch.where(k < n_valid, picked, _U32))
+
+
+def _bisect_quantile(x: torch.Tensor, valid: torch.Tensor, q: float) -> torch.Tensor:
+    """Per-column linear-interpolated q-quantile of the valid entries of
+    (N, C) `x`, in the JAX package's bisection arithmetic: the
+    position q * max(n - 1, 0), the ranks floor(pos) and min(floor + 1,
+    n - 1), then stats0 * (1 - frac) + stats1 * frac, which XLA's CPU
+    backend fuses into fma(stats1, frac, stats0 * (1 - frac)). NaN where a
+    column has no valid entry."""
+    n_valid = torch.sum(valid, dim=0)
+    last = torch.clamp_min(n_valid - 1, 0)
+    pos = torch.tensor(q, dtype=torch.float32, device=x.device) * last.to(torch.float32)
+    i0 = torch.floor(pos).to(torch.int64)
+    i1 = torch.minimum(i0 + 1, last)
+    frac = pos - i0.to(torch.float32)
+    stats = masked_order_stats(x, valid, torch.stack([i0, i1], dim=1))
+    out = _fma(stats[:, 1], frac, stats[:, 0] * (1.0 - frac))
+    return torch.where(n_valid > 0, out, float("nan"))
+
+
+def _masked_quantile_flat(flat: torch.Tensor, valid: torch.Tensor,
+                          q: float) -> torch.Tensor:
+    """Linear-interpolated q-quantile of the valid entries of a 1-D array, in
+    the bisection arithmetic; NaN when nothing is valid."""
+    return _bisect_quantile(flat.to(torch.float32)[:, None], valid[:, None], q)[0]
+
+
+def nonzero_quantile_per_column_bisect(x: torch.Tensor, q: float) -> torch.Tensor:
+    """`nonzero_quantile_per_column` in the JAX bisection's arithmetic.
+    x: (N, C) -> (C,); zeros and NaNs ignored, NaN for a column with neither
+    left."""
+    x = x.to(torch.float32)
+    return _bisect_quantile(x, (x != 0) & ~torch.isnan(x), q)
+
+
+def masked_quantile_per_column_bisect(x: torch.Tensor, valid: torch.Tensor,
+                                      q: float) -> torch.Tensor:
+    """`masked_quantile_per_column` in the JAX bisection's arithmetic: rows
+    where `valid` is True, zeros and NaNs ignored."""
+    x = x.to(torch.float32)
+    return _bisect_quantile(x, valid[:, None] & (x != 0) & ~torch.isnan(x), q)

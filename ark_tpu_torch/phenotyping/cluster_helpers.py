@@ -17,7 +17,7 @@ import os
 import pathlib
 import warnings
 from abc import ABC, abstractmethod
-from typing import List, Literal, Optional
+from typing import List, Literal, Optional, Protocol
 
 import numpy as np
 import pandas as pd
@@ -209,6 +209,18 @@ class CellSOMCluster(PixieSOMCluster):
             self.cell_data[self.columns], num_parallel_obs=num_parallel_cells)
         self.cell_data["cell_som_cluster"] = labels
         return self.cell_data
+
+
+class ClusterClassTemplate(Protocol):
+    """Structural type for the base clusterer handed to consensus clustering
+    (reference `cluster_helpers.py:421-425`): anything exposing
+    `fit_predict()` and `n_clusters` (e.g. sklearn AgglomerativeClustering).
+    """
+
+    def fit_predict(self) -> None: ...
+
+    @property
+    def n_clusters(self) -> int: ...
 
 
 class ConsensusCluster:

@@ -1,6 +1,6 @@
-"""Domain constants of the cell table: the port's copy of the parts of
-``ark_tpu/settings.py`` it uses, value for value, so that the tables both
-packages write interoperate."""
+"""Domain constants: the port's copy of ``ark_tpu/settings.py``, value for
+value, so that the tables both packages write interoperate. The example
+dataset's revision is left out with the downloader it belongs to."""
 
 # --- cell-table schema -------------------------------------------------
 # the channel block of a cell table is delimited by PRE_CHANNEL_COL on the
@@ -51,6 +51,25 @@ FIBER_OBJECT_PROPS = (
     "euler_number",
 )
 
+# --- MIBI stage-coordinate calibration ---------------------------------
+REGION_PARAM_FIELDS = [
+    "region_start_x", "region_start_y", "fov_num_x", "fov_num_y",
+    "x_fov_size", "y_fov_size", "region_rand",
+]
+MICRON_TO_STAGE_X_MULTIPLIER = 0.001001
+MICRON_TO_STAGE_X_OFFSET = 0.3116
+MICRON_TO_STAGE_Y_MULTIPLIER = 0.001018
+MICRON_TO_STAGE_Y_OFFSET = 0.6294
+STAGE_TO_PIXEL_X_MULTIPLIER = 1 / 0.06887
+STAGE_TO_PIXEL_X_OFFSET = 27.79
+STAGE_TO_PIXEL_Y_MULTIPLIER = 1 / -0.06926
+STAGE_TO_PIXEL_Y_OFFSET = -77.40
+
 # --- spatial-LDA -------------------------------------------------------
 BASE_COLS = [FOV_ID, CELL_LABEL, CELL_SIZE, CENTROID_0, CENTROID_1, CELL_TYPE]
+EDA_KEYS = ["inertia", "silhouette", "gap_stat", "gap_sds", "cell_counts",
+            "featurization"]
 LDA_PLOT_TYPES = ["adjacency", "topic_assignment"]
+
+# --- external services -------------------------------------------------
+MIBITRACKER_BACKEND = "https://backend-dot-mibitracker-angelolab.appspot.com"

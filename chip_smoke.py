@@ -80,7 +80,17 @@ started together) and drives these paths on the card:
   its held-out sets through the device postprocess under the level engine
   (the claim kernel's launches counted); (l4) a seeded manifest-shaped
   Keras layer dict through the converter into the full network, against
-  the CPU port at 2 x 256^2, and graft_entry.entry on the card.
+  the CPU port at 2 x 256^2, and graft_entry.entry on the card;
+- the last single-card modules, which launch no kernel of their own (the
+  port's kernel counters read 0 after them): (m1) the single-image labeling
+  (label at both connectivities, area_filter, remove_small_objects,
+  remove_small_holes) on seeded 1024^2 and 2048^2 masks, bitwise the CPU
+  port's; (m2) both bisection quantiles against the sort path at the pixel
+  stage's 4 x 1024^2 x 16 columns, q = 0.999, bitwise, each timed; (m3)
+  PrefetchLoader(device="cuda") over 8 seeded FOV loads feeding the pixel
+  stage's preprocessing, equal to a sequential loop and timed against it;
+  (m4) the profiler's trace() around one such step, its Chrome trace
+  holding CUDA kernel events.
 
 It exits non-zero, without the final result line, when there is no CUDA
 device or any phase fails. Its last line is one JSON object naming the
@@ -3020,6 +3030,248 @@ def run_training_phase():
     run_conversion()
     return claim_launches
 
+# ---------------------------------------------------------------------------
+# Phase (m): the last single-card modules (no kernel of their own)
+# ---------------------------------------------------------------------------
+
+CC_SIZES = (1024, 2048)
+CC_DENSITY = 0.55              # near 4-connected percolation: many components, long rounds
+CC_MIN_SIZE = 64
+QUANT_SHAPE = (4 * 1024 ** 2, len(CHANNELS))   # the pixel stage's 4 FOVs x 16 columns
+QUANT_Q = 0.999
+QUANT_CPU_ROWS = 100_000       # the card held to the CPU port on this many rows
+PREFETCH_FOVS = 8
+PREFETCH_SIZE = 1024
+
+
+def check_single_image_cc(rng):
+    """Phase (m1): label, area_filter, remove_small_objects and
+    remove_small_holes on seeded masks at 1024^2 and 2048^2 (label at both
+    connectivities), each bitwise the CPU port's, timed with its launches.
+    Returns {(function, size): (ms, device ms, launches)}."""
+    import torch
+
+    from ark_tpu_torch.ops import cc
+
+    out = {}
+    for size in CC_SIZES:
+        mask = rng.random((size, size)) < CC_DENSITY
+        mask_dev = torch.as_tensor(mask, device=DEVICE)
+        for conn in (1, 2):
+            labels, count, _, done = cc._label_full(mask_dev, conn)
+            want, want_count = cc.label(mask, conn, device="cpu")
+            check(done and torch.equal(labels.cpu(), want) and int(count) == int(want_count),
+                  f"label {size}^2 connectivity {conn}: the card and the CPU port differ")
+            fns = {"label": (lambda: cc.label(mask_dev, conn, device=DEVICE), None)}
+            if conn == 1:
+                fns.update({
+                    "area_filter": (lambda: cc.area_filter(labels, min_area=CC_MIN_SIZE),
+                                    cc.area_filter(want, min_area=CC_MIN_SIZE)),
+                    "remove_small_objects": (
+                        lambda: cc.remove_small_objects(mask_dev, CC_MIN_SIZE, conn,
+                                                        device=DEVICE),
+                        cc.remove_small_objects(mask, CC_MIN_SIZE, conn, device="cpu")),
+                    "remove_small_holes": (
+                        lambda: cc.remove_small_holes(mask_dev, CC_MIN_SIZE, conn,
+                                                      device=DEVICE),
+                        cc.remove_small_holes(mask, CC_MIN_SIZE, conn, device="cpu"))})
+            for name, (fn, cpu) in fns.items():
+                if cpu is not None:
+                    check(torch.equal(fn().cpu(), cpu), f"{name} {size}^2: the card and "
+                          f"the CPU port differ")
+                ms = time_ms(fn, reps=5)
+                # the profiler's launches at the larger size only (each session
+                # costs seconds of set-up)
+                dev_ms, launches = kernels_per_call(fn) if size == CC_SIZES[-1] \
+                    else (None, None)
+                key = f"{name}" + (f" (connectivity {conn})" if name == "label" else "")
+                out[(key, size)] = (ms, dev_ms, launches)
+                print(f"cc.{key} {size}^2 (density {CC_DENSITY}, {int(want_count)} "
+                      f"components) on {DEVICE} [{CARD}]: bitwise the CPU port's; "
+                      f"{ms:.3f} ms per call (CUDA events, median of 5)"
+                      + ("" if launches is None else
+                         f", device {dev_ms:.3f} ms in {launches} kernels and copies"))
+        del mask_dev, labels
+    return out
+
+
+def quantile_columns(rng, shape):
+    """Pixel-stage-like columns: row-normalized nonnegative values with a
+    third zeros, and a valid-row mask (the kept pixels)."""
+    x = pixel_rows(rng, *shape)
+    x[rng.random(shape) < 1 / 3] = 0
+    return x, rng.random(shape[0]) < 0.85
+
+
+def check_bisection_quantiles(rng):
+    """Phase (m2): both bisection quantiles against the sort path on the card
+    at the pixel stage's 4 x 1024^2 x 16 columns, q = 0.999, bitwise, each
+    timed with its launches; the card held to the CPU port on the first
+    QUANT_CPU_ROWS rows. Returns {form: (ms, device ms, launches) of
+    bisection and of sort}."""
+    import torch
+
+    from ark_tpu_torch.ops import quantiles as Q
+
+    x_host, valid_host = quantile_columns(rng, QUANT_SHAPE)
+    x, valid = torch.as_tensor(x_host, device=DEVICE), torch.as_tensor(valid_host,
+                                                                       device=DEVICE)
+    forms = {
+        "nonzero_quantile_per_column": (
+            lambda a, v: Q.nonzero_quantile_per_column_bisect(a, QUANT_Q),
+            lambda a, v: Q.nonzero_quantile_per_column(a, QUANT_Q)),
+        "masked_quantile_per_column": (
+            lambda a, v: Q.masked_quantile_per_column_bisect(a, v, QUANT_Q),
+            lambda a, v: Q.masked_quantile_per_column(a, v, QUANT_Q))}
+    out = {}
+    for name, (bisect, by_sort) in forms.items():
+        got = bisect(x, valid)
+        check(torch.equal(got, by_sort(x, valid)), f"{name}: bisection and sort differ "
+              f"on the card")
+        rows = slice(0, QUANT_CPU_ROWS)
+        small = bisect(x[rows], valid[rows]).cpu()
+        check(torch.equal(small, bisect(torch.as_tensor(x_host[rows]),
+                                        torch.as_tensor(valid_host[rows]))),
+              f"{name}: the card's bisection differs from the CPU port's")
+        timing = {}
+        for form, fn in (("bisect", bisect), ("sort", by_sort)):
+            ms = time_ms(lambda: fn(x, valid), reps=5)
+            # the two forms launch alike: the profiler reads the first only
+            timing[form] = (ms,) + (kernels_per_call(lambda: fn(x, valid)) if not out
+                                    else (None, None))
+        out[name] = timing
+        print(f"{name} {QUANT_SHAPE[0]} x {QUANT_SHAPE[1]} q={QUANT_Q} on {DEVICE} "
+              f"[{CARD}]: bisection bitwise the sort path (and the CPU port on "
+              f"{QUANT_CPU_ROWS} rows); bisection {timing['bisect'][0]:.3f} ms, sort "
+              f"{timing['sort'][0]:.3f} ms (CUDA events, median of 5)"
+              + ("" if timing["sort"][2] is None else
+                 f"; device {timing['bisect'][1]:.3f} and {timing['sort'][1]:.3f} ms in "
+                 f"{timing['bisect'][2]} and {timing['sort'][2]} launches"))
+    return out
+
+
+def prefetch_pool():
+    """Phase (m3)'s in-memory source: one seeded 1024^2 x 16 FOV of phase
+    4's kind, made once (set-up), and a fixed channel normalization (the
+    channel percentiles' role in the pixel stage)."""
+    raw = make_cohort(np.random.default_rng(1000), 1, PREFETCH_SIZE)[0]
+    return raw, np.linspace(2.0, 6.0, len(CHANNELS)).reshape(1, 1, -1)
+
+
+def load_fov(pool, index):
+    """FOV `index` of the in-memory cohort: the pool's FOV shifted by a
+    seeded offset, channel-normalized on the host as the pixel stage does
+    before its upload; a copy and a divide of 64 MB, the host work a TIFF
+    read stands for."""
+    from ark_tpu_torch.phenotyping import pixie_preprocessing
+
+    raw, norm = pool
+    shift = tuple(np.random.default_rng(index).integers(0, PREFETCH_SIZE, 2))
+    return pixie_preprocessing.channel_norm_divide(np.roll(raw, shift, axis=(0, 1)), norm)
+
+
+def prefetch_step(img):
+    """Phase 4's per-FOV preprocessing: blur and row-normalize."""
+    from ark_tpu_torch.phenotyping import pixie_fused
+
+    return pixie_fused._prep_fov_parts(img, 2)
+
+
+def run_prefetch(pool):
+    """Phase (m3): PREFETCH_FOVS seeded in-memory FOV loads feeding phase
+    4's preprocessing, through PrefetchLoader(device=DEVICE) against a
+    sequential load-upload-compute loop: equal outputs, wall seconds of
+    each and the loads' own host seconds. Returns (sequential s, prefetched
+    s, the loads' s a pass)."""
+    import torch
+
+    from ark_tpu_torch.parallel.prefetch import PrefetchLoader
+
+    load_s = []
+
+    def timed_load(i):
+        t0 = time.perf_counter()
+        fov = load_fov(pool, i)
+        load_s.append(time.perf_counter() - t0)
+        return fov
+
+    prefetch_step(torch.as_tensor(load_fov(pool, 0), device=DEVICE))       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sequential = [prefetch_step(torch.as_tensor(timed_load(i), device=DEVICE))
+                  for i in range(PREFETCH_FOVS)]
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prefetched = [prefetch_step(img) for _, img in
+                  PrefetchLoader(range(PREFETCH_FOVS), timed_load, device=DEVICE)]
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    for i, (a, b) in enumerate(zip(sequential, prefetched)):
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"prefetched FOV {i}: preprocessing differs from the sequential loop's")
+    loads = sum(load_s) / 2
+    print(f"prefetch: {PREFETCH_FOVS} FOVs of {PREFETCH_SIZE}^2 x {len(CHANNELS)} "
+          f"(seeded in-memory loads, blur + row-normalize on {DEVICE}) [{CARD}]: "
+          f"outputs equal; "
+          f"sequential {seq_s:.3f} s, PrefetchLoader(device={DEVICE!r}) {pre_s:.3f} s "
+          f"({seq_s / pre_s:.2f}x); the loads alone {loads:.3f} s of host time a pass")
+    return seq_s, pre_s, loads
+
+
+def check_trace(pool):
+    """Phase (m4): trace() around one preprocessing step: its Chrome trace
+    exists and holds CUDA kernel events. Returns their count."""
+    import torch
+
+    from ark_tpu_torch.utils import profiling
+
+    img = torch.as_tensor(load_fov(pool, 1), device=DEVICE)
+    with tempfile.TemporaryDirectory() as log_dir:
+        with profiling.trace(log_dir, device=DEVICE):
+            prefetch_step(img)
+            torch.cuda.synchronize()
+        files = os.listdir(log_dir)
+        check(len(files) == 1, f"trace(): {len(files)} files in its log_dir")
+        with open(os.path.join(log_dir, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    check(kernels > 0, "trace(): the Chrome trace holds no CUDA kernel event")
+    print(f"trace(): one preprocessing step's Chrome trace holds {len(events)} events, "
+          f"{kernels} of them CUDA kernels [{CARD}]")
+    return kernels
+
+
+def run_single_card_modules():
+    """Phase (m), which launches none of the port's kernels (checked).
+    Returns the timings of (m1)-(m3), (m4)'s kernel events and the kernel
+    counts it read: [bmu, claim round, segment sum, segment plan]."""
+    from ark_tpu_torch.ops import segment_reduce, som, watershed
+
+    counters = (som.bmu, watershed.claim_round, segment_reduce.segment_sum,
+                segment_reduce.segment_plan)
+    for fn in counters:
+        fn.launches = 0
+    parts = {}
+    t0 = time.perf_counter()
+    cc_t = check_single_image_cc(np.random.default_rng(57))
+    parts["m1 cc"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    quant_t = check_bisection_quantiles(np.random.default_rng(58))
+    parts["m2 quantiles"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pool = prefetch_pool()
+    prefetch_t = run_prefetch(pool)
+    parts["m3 prefetch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trace_kernels = check_trace(pool)
+    parts["m4 trace"] = time.perf_counter() - t0
+    print("phase (m) seconds by part (host clock, CPU references included): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    launches = [fn.launches for fn in counters]
+    check(launches == [0, 0, 0, 0], f"phase (m) launched the port's kernels: {launches}")
+    return cc_t, quant_t, prefetch_t, trace_kernels, launches
+
 
 def main() -> int:
     # cuBLAS reads its workspace setting when its handle is made; phase (l)
@@ -3135,6 +3387,12 @@ def main() -> int:
     # Mesmer training and weight conversion
     claim_train_launches = run_training_phase()
     section_done("training and conversion")
+
+    # the last single-card modules: single-image labeling, the bisection
+    # quantiles, the prefetch loader and the profiler's trace
+    (bmu_m_launches, claim_m_launches, seg_m_launches,
+     plan_m_launches) = run_single_card_modules()[-1]
+    section_done("single-card modules")
     print("smoke run seconds by section (host clock, CPU replays included): "
           + ", ".join(f"{k} {v:.1f}" for k, v in sections.items()))
 
@@ -3143,6 +3401,8 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "bmu", "route": "cuda", "source": "ark_tpu_torch/csrc/bmu.cu",
         "replaces": "ark_tpu/ops/som.py:132", "launches": bmu_launches,
+        "launches_by_path": {"pixel": bmu_launches,
+                             "single_card_modules": bmu_m_launches},
         "max_abs_err": max_err, "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None}, {
@@ -3150,7 +3410,8 @@ def main() -> int:
         "source": "ark_tpu_torch/csrc/watershed_claim.cu",
         "replaces": "ark_tpu/ops/watershed.py:173", "launches": claim_launches,
         "launches_by_path": {"segmentation": claim_launches,
-                             "training_held_out": claim_train_launches},
+                             "training_held_out": claim_train_launches,
+                             "single_card_modules": claim_m_launches},
         "max_abs_err": claim_err, "ms": claim_ms["ms"],
         "plain_ms": claim_ms["plain_ms"], "bound_ms": claim_ms["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {
@@ -3158,7 +3419,7 @@ def main() -> int:
         "source": "ark_tpu_torch/csrc/segment_sum.cu",
         "replaces": "ark_tpu/ops/segment_reduce.py:44", "launches": seg_launches,
         "launches_by_path": {"cell_table": seg_launches, "fiber": fiber_launches,
-                             "umap": umap_launches},
+                             "umap": umap_launches, "single_card_modules": seg_m_launches},
         "max_abs_err": max(seg_err, edge_err), "ms": seg_ms["ms"],
         "plain_ms": seg_ms["plain_ms"], "bound_ms": seg_ms["bound_ms"],
         "bound_by": "bytes", "library_ms": seg_ms["library_ms"],
@@ -3171,7 +3432,8 @@ def main() -> int:
         "source": "ark_tpu_torch/csrc/segment_sum.cu",
         "replaces": "ark_tpu/ops/segment_reduce.py:44", "launches": plan_launches,
         "launches_by_path": {"cell_table": plan_launches, "fiber": fiber_plan_launches,
-                             "umap": umap_plan_launches},
+                             "umap": umap_plan_launches,
+                             "single_card_modules": plan_m_launches},
         "max_abs_err": plan_err, "ms": seg_ms["plan_ms"],
         "plain_ms": seg_ms["plain_plan_ms"], "bound_ms": seg_ms["plan_bound_ms"],
         "bound_by": "bytes", "library_ms": None}]}))

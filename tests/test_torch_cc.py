@@ -2,7 +2,9 @@
 
 Labeling is integer work with a fixed schedule of rounds, so labels, counts
 and convergence flags must be equal bit for bit (tolerance: none),
-including where a round budget is too small and the flag reports it.
+including where a round budget is too small and the flag reports it, for
+the batched stacks and for the single-image API (labels, area filters,
+small objects and holes, the latter two also against scipy).
 """
 
 import numpy as np
@@ -108,3 +110,129 @@ def test_offset_guard_refuses_the_same_shapes():
     for mod in (jcc, tcc):
         with pytest.raises(ValueError, match="split the batch"):
             mod._check_offset_ids(2 ** 12, 2 ** 20)
+
+
+# ---------------------------------------------------------------------------
+# The single-image API
+# ---------------------------------------------------------------------------
+
+def _structure(connectivity):
+    return np.ones((3, 3)) if connectivity == 2 else None
+
+
+def _scipy_small_objects(mask, min_size, connectivity):
+    lab, _ = ndi.label(mask, structure=_structure(connectivity))
+    areas = np.bincount(lab.ravel())
+    return (lab > 0) & (areas[lab] >= min_size)
+
+
+def _scipy_small_holes(mask, area_threshold, connectivity):
+    return mask | _scipy_small_objects(~mask, 1, connectivity) & \
+        ~_scipy_small_objects(~mask, area_threshold + 1, connectivity)
+
+
+@pytest.mark.parametrize("connectivity", [1, 2])
+@pytest.mark.parametrize("density", [0.2, 0.55, 0.8])
+def test_label_matches_jax_and_scipy(density, connectivity):
+    mask = np.random.default_rng(int(density * 10) + connectivity).random((57, 43)) < density
+    ref = jcc._label_full(jnp.asarray(mask), connectivity)
+    got = tcc._label_full(torch.from_numpy(mask), connectivity)
+    _assert_same(got, ref)                 # labels, count, representatives, flag
+    assert got[3] is True
+    labels, n = tcc.label(mask, connectivity, device="cpu")
+    want, n_want = ndi.label(mask, structure=_structure(connectivity))
+    np.testing.assert_array_equal(labels.numpy(), want)
+    assert labels.dtype == torch.int32 and int(n) == n_want
+    ref_labels, ref_n = jcc.label(jnp.asarray(mask), connectivity)
+    np.testing.assert_array_equal(labels.numpy(), np.asarray(ref_labels))
+    assert int(n) == int(ref_n)
+
+
+def test_label_resumes_after_a_shrunk_budget(monkeypatch):
+    """A one-round budget leaves the labels unconverged on both sides; each
+    resume runs the same rounds, and label_checked ends on scipy's labels.
+    (A shape no other test traces: jit caches the budget by shape.)"""
+    monkeypatch.setattr(jcc, "_budget", lambda n: 1)
+    monkeypatch.setattr(tcc, "_budget", lambda n: 1)
+    mask = np.random.default_rng(12).random((31, 39)) < 0.55
+    fg_j, fg_t = jnp.asarray(mask), torch.from_numpy(mask)
+    ref = jcc._label_full(fg_j, 1)
+    got = tcc._label_full(fg_t, 1)
+    _assert_same(got, ref)
+    assert got[3] is False
+    resumes = 0
+    while not got[3]:
+        ref = jcc._label_resume(fg_j, ref[2], 1)
+        got = tcc._label_resume(fg_t, got[2], 1)
+        _assert_same(got, ref)
+        resumes += 1
+    assert resumes >= 1
+    labels, n = tcc.label_checked(mask, 1, device="cpu")
+    want, n_want = ndi.label(mask)
+    np.testing.assert_array_equal(labels.numpy(), want)
+    assert int(n) == n_want
+
+
+@pytest.mark.parametrize("connectivity", [1, 2])
+def test_label_np_is_a_writable_copy_equal_to_jax(connectivity):
+    mask = np.random.default_rng(20 + connectivity).random((40, 33)) < 0.5
+    got, n = tcc.label_np(mask, connectivity, device="cpu")
+    want, n_want = jcc.label_np(mask, connectivity)
+    assert isinstance(n, int) and n == n_want
+    np.testing.assert_array_equal(got, want)
+    assert got.flags.writeable
+    got[got == 1] = 0                      # host pipelines edit labels in place
+    again, _ = tcc.label_np(mask, connectivity, device="cpu")
+    np.testing.assert_array_equal(again, want)
+
+
+@pytest.mark.parametrize("kwargs", [dict(min_area=3), dict(min_area=2, max_area=6),
+                                    dict(min_area=2, n_max=40), dict(n_max=5, min_area=1),
+                                    dict(min_area=2, n_max=10 ** 4)])
+def test_area_filter_matches_jax(kwargs):
+    """With and without the table bound; labels past it (which read the
+    table's last entry, as JAX's gather clamps) and negative labels (which
+    count from its end) included."""
+    mask = np.random.default_rng(31).random((45, 38)) < 0.45
+    labels = np.array(jcc.label(jnp.asarray(mask))[0])
+    labels[0, :5] = [-1, -3, -10 ** 6, 60, 10 ** 6]
+    ref = jcc.area_filter(jnp.asarray(labels), **kwargs)
+    got = tcc.area_filter(torch.from_numpy(labels), **kwargs)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("connectivity", [1, 2])
+@pytest.mark.parametrize("min_size", [1, 4, 12])
+def test_remove_small_objects_matches_jax_and_scipy(min_size, connectivity):
+    mask = np.random.default_rng(min_size).random((50, 47)) < 0.4
+    got = tcc.remove_small_objects(mask, min_size, connectivity, device="cpu").numpy()
+    ref = np.asarray(jcc.remove_small_objects(jnp.asarray(mask), min_size, connectivity))
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, _scipy_small_objects(mask, min_size, connectivity))
+
+
+@pytest.mark.parametrize("connectivity", [1, 2])
+@pytest.mark.parametrize("area_threshold", [0, 3, 64])
+def test_remove_small_holes_matches_jax_and_scipy(area_threshold, connectivity):
+    mask = np.random.default_rng(area_threshold + 7).random((48, 52)) < 0.62
+    want = _scipy_small_holes(mask, area_threshold, connectivity)
+    got = tcc.remove_small_holes(mask, area_threshold, connectivity, device="cpu").numpy()
+    ref = np.asarray(jcc.remove_small_holes(jnp.asarray(mask), area_threshold,
+                                            connectivity))
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, want)
+    got_np = tcc.remove_small_holes_np(mask, area_threshold, connectivity, device="cpu")
+    assert isinstance(got_np, np.ndarray)
+    np.testing.assert_array_equal(got_np, jcc.remove_small_holes_np(mask, area_threshold,
+                                                                    connectivity))
+    np.testing.assert_array_equal(got_np, want)
+
+
+def test_single_image_api_takes_tensors_and_follows_device():
+    mask = np.eye(8, dtype=np.uint8) * 3             # nonzero is foreground
+    for m in (mask, torch.from_numpy(mask)):
+        lab4, n4 = tcc.label(m, 1, device="cpu")
+        lab8, n8 = tcc.label(m, 2, device="cpu")
+        assert (int(n4), int(n8)) == (8, 1) and lab4.device.type == "cpu"
+        assert tcc.area_filter(lab8, min_area=9).sum() == 0

@@ -36,6 +36,11 @@ Spatial LDA has no kernel either: its featurized counts are bitwise the CPU
 port's, its digamma (XLA's Lanczos formula) within 1e-6 of the CPU's, one
 outer EM step within the CPU tests' bounds for one step against the JAX
 package.
+
+The single-image labeling, area filter and hole filling are integer work
+and the bisection quantiles exact order statistics: bitwise the CPU port's.
+The profiler's trace holds CUDA kernel events, and the prefetch loader's
+copies on its own stream reach the consumer equal to the host arrays.
 """
 
 import os
@@ -582,3 +587,88 @@ def test_graphed_fit_matches_eager_steps_on_cuda(card, monkeypatch):
     monkeypatch.setattr(chip_smoke, "DEVICE", card)
     x, targets = chip_smoke.training_batch(6, 4, 64, card)
     chip_smoke.check_graphed_fit(x, targets)
+
+
+@pytest.mark.cuda
+def test_single_image_cc_matches_cpu_on_cuda(card):
+    """label, label_checked, area_filter, remove_small_objects and
+    remove_small_holes on the card, bitwise the CPU port's."""
+    from ark_tpu_torch.ops import cc
+
+    rng = np.random.default_rng(13)
+    for shape, density in [((257, 300), 0.55), ((64, 64), 0.3), ((1, 1), 1.0)]:
+        mask = rng.random(shape) < density
+        for conn in (1, 2):
+            got, want = (cc._label_full(torch.from_numpy(mask).to(d), conn)
+                         for d in (card, "cpu"))
+            assert torch.equal(got[0].cpu(), want[0]) and int(got[1]) == int(want[1])
+            assert got[3] is want[3] is True
+            labels = got[0]
+            assert torch.equal(cc.area_filter(labels, min_area=4).cpu(),
+                               cc.area_filter(want[0], min_area=4))
+            for fn, arg in ((cc.remove_small_objects, 6), (cc.remove_small_holes, 6)):
+                assert torch.equal(fn(mask, arg, conn, device=card).cpu(),
+                                   fn(mask, arg, conn, device="cpu"))
+
+
+@pytest.mark.cuda
+def test_bisect_quantiles_match_cpu_on_cuda(card):
+    """Both bisection quantiles on the card, bitwise the CPU port's and the
+    card's sort path (NaN where a column has nothing valid)."""
+    from ark_tpu_torch.ops import quantiles as Q
+
+    def same(a, b):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+    rng = np.random.default_rng(14)
+    x = (rng.standard_normal((50_000, 16)) * 100).astype(np.float32)
+    x[rng.random(x.shape) < 0.4] = 0
+    x[:, 0] = 0
+    valid = torch.from_numpy(rng.random(50_000) < 0.7)
+    xt = torch.from_numpy(x)
+    for q in (0.0, 0.5, 0.999, 1.0):
+        got = Q.nonzero_quantile_per_column_bisect(xt.to(card), q).cpu()
+        same(got, Q.nonzero_quantile_per_column_bisect(xt, q))
+        same(got, Q.nonzero_quantile_per_column(xt.to(card), q).cpu())
+        got = Q.masked_quantile_per_column_bisect(xt.to(card), valid.to(card), q).cpu()
+        same(got, Q.masked_quantile_per_column_bisect(xt, valid, q))
+        assert torch.isnan(got[0]) and not torch.isnan(got[1:]).any()
+
+
+@pytest.mark.cuda
+def test_trace_holds_cuda_kernel_events_on_cuda(card, tmp_path):
+    import json
+
+    from ark_tpu_torch.utils import profiling
+
+    with profiling.trace(str(tmp_path), device=card) as prof:
+        torch.ones(512, 512, device=card).matmul(torch.ones(512, 512, device=card))
+        torch.cuda.synchronize()
+    assert any(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    (path,) = list(tmp_path.iterdir())
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+
+
+@pytest.mark.cuda
+def test_prefetch_copies_on_its_own_stream_on_cuda(card):
+    """Each result copied from pinned memory on the loader's stream reaches
+    the consumer's stream, which works on it at once, equal to the host
+    arrays; the consumer's current stream stays its own."""
+    from ark_tpu_torch.parallel.prefetch import PrefetchLoader
+
+    rng = np.random.default_rng(15)
+    fovs = [rng.random((2, 512, 512)).astype(np.float32) for _ in range(6)]
+    consumer = torch.cuda.current_stream()
+    seen = []
+    for i, batch in PrefetchLoader(range(6), lambda i: {"img": fovs[i]}, device=card):
+        assert batch["img"].is_cuda and torch.cuda.current_stream() == consumer
+        doubled = batch["img"] * 2                 # queued at once on the consumer's stream
+        assert torch.equal(doubled.cpu(), torch.from_numpy(fovs[i]) * 2)
+        seen.append(i)
+    assert seen == list(range(6))
+    # a result already on the card passes through, not through pinning
+    on_card = [torch.from_numpy(f).to(card) for f in fovs[:2]]
+    got = [b for _, b in PrefetchLoader(range(2), lambda i: on_card[i], device=card)]
+    assert all(torch.equal(g, w) for g, w in zip(got, on_card))

@@ -11,6 +11,7 @@ instances agree by the mesmer slice's rule (recall and precision at IoU 0.5
 at least 0.98).
 """
 
+import datetime
 import io
 import os
 import warnings
@@ -31,6 +32,18 @@ torch.set_num_threads(2)
 CKPT = os.path.join(os.path.dirname(JD.__file__), "..", "models", "checkpoints",
                     "mesmer_mini_synthetic.npz")
 AGREEMENT = 0.98
+
+
+@pytest.fixture(autouse=True)
+def _frozen_tiff_clock(monkeypatch):
+    """The TIFF writer stamps each file's DateTime tag with the wall clock's
+    second, so two packages writing the same image across a second's boundary
+    wrote different bytes (most often in a process's first case, where the
+    JAX package's first call compiles). Both write under one fixed clock."""
+    from imageio.plugins import tifffile as tiff_plugin
+
+    stamp = datetime.datetime(2020, 1, 2, 3, 4, 5)
+    monkeypatch.setattr(tiff_plugin._tifffile.TiffWriter, "_now", lambda self: stamp)
 
 
 def _read_bytes(path):
@@ -55,8 +68,8 @@ def _run_both(fn_j, fn_t, tmp_path, *args, **kwargs):
 def _same_files(a, b):
     names = sorted(os.listdir(a))
     assert names == sorted(os.listdir(b)) and names
-    for n in names:
-        assert _read_bytes(a / n) == _read_bytes(b / n), n
+    differ = [n for n in names if _read_bytes(a / n) != _read_bytes(b / n)]
+    assert not differ, f"first differing file: {differ[0]} (of {differ})"
 
 
 @pytest.mark.parametrize("case", ["nuc_and_mem", "mem_only", "float", "overflow"])
@@ -82,7 +95,7 @@ def test_generate_deepcell_input_writes_the_jax_files(tmp_path, case):
     out = _run_both(JD.generate_deepcell_input, TD.generate_deepcell_input, tmp_path,
                     str(tiff_dir), *args, img_sub_folder=None)
     _same_files(out["jax"][0], out["port"][0])
-    assert out["jax"][1] == out["port"][1]
+    assert out["jax"][1] == out["port"][1], (out["jax"][1], out["port"][1])
     assert any("exceed" in m for m in out["port"][1]) == (case == "overflow")
 
 
@@ -153,7 +166,8 @@ def test_run_and_extract_deepcell_response_match_jax(tmp_path):
         os.remove(d / response.name)
         out[name] = (d, [str(w.message) for w in caught])
     _same_files(out["jax"][0], out["port"][0])
-    assert out["jax"][1] == out["port"][1] and len(out["port"][1]) == 2
+    assert out["jax"][1] == out["port"][1], (out["jax"][1], out["port"][1])
+    assert len(out["port"][1]) == 2
     assert sorted(os.listdir(out["port"][0])) == [
         f"{f}{s}.tiff" for f in fovs for s in ("_nuclear", "_whole_cell")]
 

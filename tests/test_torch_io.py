@@ -140,6 +140,31 @@ def test_settings_match():
     assert names and all(getattr(TS, n) == getattr(JS, n) for n in names)
 
 
+def test_io_misc_utils_names_match_jax():
+    """The JAX package's io.misc_utils names exist under the same path; the
+    argument checks are the port's one copy in utils.misc_utils."""
+    from ark_tpu.io import misc_utils as JM
+    from ark_tpu_torch.io import misc_utils as TM
+    from ark_tpu_torch.utils import misc_utils as TU
+
+    assert TM.verify_in_list is TU.verify_in_list
+    assert TM.verify_same_elements is TU.verify_same_elements
+    assert TM.make_iterable is TU.make_iterable
+    for data in (range(3), [f"fov{i}" for i in range(25)], []):
+        assert TM.create_invalid_data_str(data) == JM.create_invalid_data_str(data)
+
+
+def test_settings_hold_every_jax_constant():
+    """Every constant of the JAX package's settings but the example
+    dataset's revision (its downloader is not ported), equal in value."""
+    from ark_tpu import settings as JS
+
+    want = {n for n in dir(JS) if n.isupper()} - {"EXAMPLE_DATASET_REVISION"}
+    assert {n for n in dir(TS) if n.isupper()} == want
+    assert TS.REGION_PARAM_FIELDS == JS.REGION_PARAM_FIELDS and TS.EDA_KEYS == JS.EDA_KEYS
+    assert TS.STAGE_TO_PIXEL_Y_MULTIPLIER == JS.STAGE_TO_PIXEL_Y_MULTIPLIER == 1 / -0.06926
+
+
 ARRAYS = {"jax": JDataArray, "port": DataArray}
 
 

@@ -93,15 +93,38 @@ def test_no_ark_tpu_import_in_sources():
     assert not offenders, offenders
 
 
+# the one package of the port that needs matplotlib where it is imported:
+# the metacluster remap GUI's normalizer subclasses matplotlib's Normalize.
+# It is host code, run in the CPU tests only, never on the card's machine.
+NEEDS_MATPLOTLIB = "ark_tpu_torch.utils.metacluster_remap_gui"
+
+
+def _needs_matplotlib(module):
+    return module == NEEDS_MATPLOTLIB or module.startswith(NEEDS_MATPLOTLIB + ".")
+
+
 def test_port_and_smoke_load_nothing_of_ark_tpu():
     """Importing every port module and chip_smoke, with the host packages the
     card's machine may lack blocked, loads no ``ark_tpu`` module and leaves
     jax's compilation-cache variable unset (``ark_tpu/__init__.py`` sets
-    it)."""
+    it). The metacluster GUI, which needs matplotlib, fails to import while
+    it is blocked and imports once it is not."""
+    card_modules = [m for m in sorted(_modules()) if not _needs_matplotlib(m)]
+    gui_modules = [m for m in sorted(_modules()) if _needs_matplotlib(m)]
+    assert len(gui_modules) == 7
     code = ("import importlib, os, sys\n"
             f"for blocked in {CARD_MISSING!r}:\n"
             "    sys.modules[blocked] = None\n"
-            f"for m in {sorted(_modules()) + ['chip_smoke']!r}:\n"
+            f"for m in {card_modules + ['chip_smoke']!r}:\n"
+            "    importlib.import_module(m)\n"
+            "try:\n"
+            f"    importlib.import_module({NEEDS_MATPLOTLIB!r})\n"
+            "    raise AssertionError('the GUI imported without matplotlib')\n"
+            "except ImportError:\n"
+            "    pass\n"
+            "for m in [n for n in sys.modules if n.split('.')[0] == 'matplotlib']:\n"
+            "    del sys.modules[m]\n"
+            f"for m in {gui_modules!r}:\n"
             "    importlib.import_module(m)\n"
             "loaded = [m for m in sys.modules\n"
             "          if m == 'ark_tpu' or m.startswith('ark_tpu.')]\n"
@@ -633,3 +656,63 @@ def test_entry_points_of_the_training_slice_take_a_device():
                deepcell_service_utils.create_deepcell_output):
         param = inspect.signature(fn).parameters["device"]
         assert param.kind is param.KEYWORD_ONLY and param.default is param.empty
+
+
+SLICE_10_MODULES = [
+    "ark_tpu_torch.ops.cc", "ark_tpu_torch.ops.quantiles", "ark_tpu_torch.io.ome_utils",
+    "ark_tpu_torch.io.load_utils", "ark_tpu_torch.utils.profiling",
+    "ark_tpu_torch.parallel", "ark_tpu_torch.parallel.prefetch",
+    "ark_tpu_torch.phenotyping.cluster_helpers", "ark_tpu_torch.models.unet",
+    "ark_tpu_torch.settings",
+]
+
+
+def test_last_single_card_modules_run_without_the_cards_missing_packages():
+    """The single-image labeling, the bisection quantiles, profiling and the
+    prefetch loader import and run with the card's missing packages
+    blocked; the OME module imports there (imageio only inside)."""
+    code = ("import importlib, os, sys, tempfile\n"
+            f"for blocked in {CARD_MISSING!r}:\n"
+            "    sys.modules[blocked] = None\n"
+            f"for m in {SLICE_10_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import numpy as np, torch\n"
+            "from ark_tpu_torch.ops import cc, quantiles\n"
+            "from ark_tpu_torch.parallel.prefetch import PrefetchLoader\n"
+            "from ark_tpu_torch.utils import profiling\n"
+            "mask = np.eye(6, dtype=bool)\n"
+            "assert cc.label_np(mask, 2, device='cpu')[1] == 1\n"
+            "assert cc.remove_small_holes_np(~mask, 8, device='cpu').all()\n"
+            "x = torch.arange(12.0).reshape(6, 2)\n"
+            "assert quantiles.nonzero_quantile_per_column_bisect(x, 1.0).tolist() == [10, 11]\n"
+            "got = [v.tolist() for _, v in PrefetchLoader(range(3), np.ones, device='cpu')]\n"
+            "assert got == [[], [1.0], [1.0, 1.0]]\n"
+            "with tempfile.TemporaryDirectory() as d:\n"
+            "    with profiling.trace(d, device='cpu'):\n"
+            "        x.sum()\n"
+            "    assert len(os.listdir(d)) == 1\n"
+            "assert 'jax' not in sys.modules\n"
+            "assert not [m for m in sys.modules if m.startswith('ark_tpu.')]\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert set(SLICE_10_MODULES) <= set(_modules())
+
+
+def test_entry_points_of_the_last_single_card_slice_take_a_device():
+    """The functions that take a host mask take `device`, keyword-only,
+    defaulting to "cuda", as does trace; so does the loader's `device`
+    (None keeps the host results)."""
+    import inspect
+
+    from ark_tpu_torch.ops import cc
+    from ark_tpu_torch.parallel.prefetch import PrefetchLoader
+    from ark_tpu_torch.utils import profiling
+
+    for fn in (cc.label, cc.label_checked, cc.label_np, cc.remove_small_objects,
+               cc.remove_small_holes, cc.remove_small_holes_np, profiling.trace):
+        param = inspect.signature(fn).parameters.get("device")
+        assert param is not None and param.kind is param.KEYWORD_ONLY, fn.__qualname__
+        assert param.default == "cuda", fn.__qualname__
+    assert inspect.signature(PrefetchLoader).parameters["device"].default == "cuda"

@@ -163,3 +163,71 @@ def test_full_config_maps_every_flax_leaf():
     for k, v in want.items():
         assert state[k].shape == v.shape, k
     assert "FPN_0.P7.weight" in state
+
+
+def _bf16_ulp(magnitude):
+    """One bf16 step at `magnitude` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(magnitude)) - 7)
+
+
+def _resize_bf16(x, grad):
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).to(torch.bfloat16).requires_grad_(grad)
+    with torch.set_grad_enabled(grad):
+        out = TU._bilinear_resize(xt, 48, 80)
+    assert out.dtype == torch.bfloat16
+    return out.detach().float().permute(0, 2, 3, 1).numpy()
+
+
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("flag", [False, True])
+def test_resize_in_f32_flag_matches_jax_in_bf16(monkeypatch, flag, grad):
+    """A bf16 resize under RESIZE_IN_F32: with the flag both packages resize
+    in f32 and round once to bf16, bitwise equal (inference's
+    F.interpolate and training's product form); without it each rounds in
+    its own way, within one bf16 step of the largest input (measured: that
+    step, in 28-37% of entries)."""
+    monkeypatch.setattr(JU, "RESIZE_IN_F32", flag)
+    monkeypatch.setattr(TU, "RESIZE_IN_F32", flag)
+    x = np.random.default_rng(8).normal(size=(2, 12, 20, 3)).astype(np.float32)
+    ref = jax.jit(lambda a: JU._bilinear_resize(a, 48, 80))(jnp.asarray(x, jnp.bfloat16))
+    ref = np.asarray(ref.astype(jnp.float32))
+    got = _resize_bf16(x, grad)
+    if flag:
+        np.testing.assert_array_equal(got, ref)
+    else:
+        assert np.abs(got - ref).max() <= _bf16_ulp(np.abs(x).max())
+
+
+def test_resize_flag_moves_only_the_product_form(monkeypatch):
+    """F.interpolate computes a bf16 input in f32 and rounds once, so for
+    inference the flag changes no bit; the product form rounds after each
+    bf16 product unless the flag lifts it to f32."""
+    x = np.random.default_rng(9).normal(size=(2, 12, 20, 3)).astype(np.float32)
+    out = {}
+    for flag in (False, True):
+        monkeypatch.setattr(TU, "RESIZE_IN_F32", flag)
+        out[flag] = (_resize_bf16(x, False), _resize_bf16(x, True))
+    np.testing.assert_array_equal(out[False][0], out[True][0])
+    assert not np.array_equal(out[False][1], out[True][1])
+    np.testing.assert_array_equal(out[True][1], out[True][0])
+
+
+@pytest.mark.parametrize("flag", [False, True])
+def test_bf16_heads_follow_the_resize_flag(monkeypatch, flag):
+    """The mini network in bf16 against flax's in bf16 with the flag on and
+    off: heads within 3e-2 of each head's largest magnitude (bf16
+    convolutions round differently in torch and XLA; measured 1.2e-2)."""
+    monkeypatch.setattr(JU, "RESIZE_IN_F32", flag)
+    monkeypatch.setattr(TU, "RESIZE_IN_F32", flag)
+    model, variables = JU.init_mesmer(seed=1, input_shape=(1, 64, 64, 2),
+                                      dtype=jnp.bfloat16, **TU.MINI_CONFIG)
+    x = np.random.default_rng(1).random((2, 64, 64, 2)).astype(np.float32)
+    net = TU.PanopticNet(dtype=torch.bfloat16, **TU.MINI_CONFIG)
+    net.load_state_dict(TU.params_from_flax(variables))
+    with torch.inference_mode():
+        got = net.eval()(torch.from_numpy(x))
+    ref = jax.jit(lambda v, x: model.apply(v, x, train=False))(variables, jnp.asarray(x))
+    for k, r in ref.items():
+        r = np.asarray(r, np.float32)
+        np.testing.assert_allclose(got[k].float().numpy(), r, rtol=0,
+                                   atol=3e-2 * np.abs(r).max(), err_msg=k)
