@@ -148,13 +148,23 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
         self.eps, self.dtype, self.channel_dim = eps, dtype, channel_dim
+        # None: train mode takes the statistics of this process's batch.
+        # Else a callable (sums, count) -> (sums, count) that turns this
+        # process's (2, C) f32 [sum x; sum x^2] and pixel count into the
+        # global batch's (see ``global_batch_stats``)
+        self.batch_reduce = None
 
     def _batch_stats(self, xf: torch.Tensor):
         dims = [d for d in range(xf.ndim) if d != self.channel_dim % xf.ndim]
-        mean = xf.mean(dims)
+        if self.batch_reduce is None:
+            mean = xf.mean(dims)
+            mean_sq = xf.square().mean(dims)
+        else:
+            sums = torch.stack([xf.sum(dims), xf.square().sum(dims)])
+            sums, count = self.batch_reduce(sums, xf.numel() // xf.shape[self.channel_dim])
+            mean, mean_sq = sums / torch.tensor(float(count), device=xf.device)
         # torch.maximum splits the gradient at a tie as jnp.maximum does
-        var = torch.maximum(xf.square().mean(dims) - mean.square(),
-                            torch.zeros((), device=xf.device))
+        var = torch.maximum(mean_sq - mean.square(), torch.zeros((), device=xf.device))
         with torch.no_grad():
             self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
             self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
@@ -168,6 +178,23 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.scale
         y = (xf - mean.reshape(shape)) * mul.reshape(shape)
         return (y + self.bias.reshape(shape)).to(self.dtype)
+
+
+@contextlib.contextmanager
+def global_batch_stats(model: nn.Module, reduce):
+    """Within the block, every train-mode ``BatchNorm`` of `model` takes its
+    mean and E[x^2] over the global batch: `reduce(sums, count)` returns
+    the global (2, C) sums and pixel count from this process's (it must be
+    differentiable in `sums`), as one ``jax.jit`` over a batch-sharded
+    array computes them. Outside it the model is unchanged."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.batch_reduce = reduce
+    try:
+        yield model
+    finally:
+        for m in norms:
+            m.batch_reduce = None
 
 
 class BottleneckBlock(nn.Module):

@@ -11,17 +11,21 @@ weights follow the JAX package's to f32 rounding (until a minibatch BMU falls
 on a near-tie, where the order of the x.w sum picks the node). Every matrix
 product is full f32: TF32 would flip BMUs well away from near-ties, so the
 training loop refuses to run with TF32 matmuls enabled. ``device`` is a
-required argument: nothing picks a device on its own.
+required argument: nothing picks a device on its own. ``som_train_sharded``
+and ``make_sharded_train_step`` run the same step over the ranks of a
+torch.distributed process group (``ark_tpu_torch.parallel.mesh``), the
+(H^T X, H^T 1) statistics summed in rank order.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ark_tpu_torch.ops import _kernels
+from ark_tpu_torch.parallel import mesh
 
 
 def grid_coordinates(xdim: int, ydim: int) -> np.ndarray:
@@ -179,12 +183,37 @@ def _schedule() -> np.ndarray:
     return t / np.float32(MAX_TRAIN_STEPS - 1)
 
 
+def _train_step(w: torch.Tensor, x: torch.Tensor, alpha: torch.Tensor,
+                radius: torch.Tensor, gdist: torch.Tensor,
+                reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                ) -> torch.Tensor:
+    """One batch-Kohonen update of `w` by the minibatch `x` (B, C). With
+    `reduce`, the (H^T X, H^T 1) statistics of this rank's rows go through
+    it (the sharded steps' rank-order sum) before the update, side by side
+    as one (K, C + 1) tensor, so that a step makes one collective."""
+    w2 = torch.sum(w * w, dim=1)
+    d = w2[None, :] - 2.0 * (x @ w.T)
+    bmu_t = torch.argmin(d, dim=1)
+    # bubble neighbourhood membership (B, K)
+    h = (gdist[bmu_t] <= radius).to(torch.float32)
+    num = h.T @ x                                                    # (K, C)
+    den = torch.sum(h, dim=0)                                        # (K,)
+    if reduce is not None:
+        both = reduce(torch.cat([num, den[:, None]], dim=1))
+        num, den = both[:, :-1], both[:, -1]
+    target = num / torch.clamp_min(den, 1.0)[:, None]
+    return torch.where((den > 0)[:, None], w + alpha * (target - w), w)
+
+
 def _train_steps(data: torch.Tensor, w0: torch.Tensor, order: torch.Tensor,
                  gdist: torch.Tensor, batch_size: int, lr_start: float,
-                 lr_end: float, r_start: float) -> torch.Tensor:
+                 lr_end: float, r_start: float,
+                 reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                 ) -> torch.Tensor:
     """Batch-Kohonen training: MAX_TRAIN_STEPS updates over `order`
     (MAX_TRAIN_STEPS * batch_size pre-shuffled row indices). The port of
-    ``ark_tpu.ops.som._train_scan`` with every step active."""
+    ``ark_tpu.ops.som._train_scan`` with every step active; `reduce` is its
+    ``axis_name`` psum (see ``_train_step``)."""
     _check_full_f32_matmul()
     frac = _schedule()
     # python-float operands enter the JAX scan as f32 weak types
@@ -195,15 +224,7 @@ def _train_steps(data: torch.Tensor, w0: torch.Tensor, order: torch.Tensor,
     w = w0
     for t in range(MAX_TRAIN_STEPS):
         x = data[order[t * batch_size:(t + 1) * batch_size]]        # (B, C)
-        w2 = torch.sum(w * w, dim=1)
-        d = w2[None, :] - 2.0 * (x @ w.T)
-        bmu_t = torch.argmin(d, dim=1)
-        # bubble neighbourhood membership (B, K)
-        h = (gdist[bmu_t] <= radius[t]).to(torch.float32)
-        num = h.T @ x                                                # (K, C)
-        den = torch.sum(h, dim=0)                                    # (K,)
-        target = num / torch.clamp_min(den, 1.0)[:, None]
-        w = torch.where((den > 0)[:, None], w + alpha[t] * (target - w), w)
+        w = _train_step(w, x, alpha[t], radius[t], gdist, reduce)
     return w
 
 
@@ -297,3 +318,79 @@ def som_train_and_map(data, xdim: int = 10, ydim: int = 10,
     idx, dist = bmu(w.contiguous(), data_padded, return_dist=True)
     return (w.cpu().numpy(), idx[:n].cpu().numpy() + 1,
             dist[:n].cpu().numpy())
+
+
+def _sharded_schedule(n: int, k: int, n_dev: int, num_passes: int, seed: int,
+                      batch_size: Optional[int], draw_init: bool):
+    """The JAX package's ``som_train_sharded`` draws, in its order, from one
+    ``default_rng(seed)``: the initial rows (unless given weights), the
+    shuffle of the rows, then one visiting order a shard. Returns
+    (init_rows or None, shard_rows (n_local * n_dev,): shard d owns
+    rows[d * n_local:(d + 1) * n_local], orders (n_dev, MAX_TRAIN_STEPS *
+    bs_local) into a shard's rows, bs_local)."""
+    host_rng = np.random.default_rng(seed)
+    init_rows = host_rng.choice(n, size=k, replace=n < k) if draw_init else None
+    bs = _schedule_batch(int(num_passes) * n, batch_size)
+    bs = max((bs // n_dev) * n_dev, n_dev)            # divisible shards
+    bs_local = bs // n_dev
+    # shuffle once, then split contiguously (wrapped duplicates pad the tail)
+    n_local = _next_pow2((n + n_dev - 1) // n_dev)
+    shard_rows = np.resize(host_rng.permutation(n), n_local * n_dev)
+    order_len = MAX_TRAIN_STEPS * bs_local
+    n_real_local = min(n, n_local)
+    orders = np.stack([np.resize(host_rng.permutation(n_real_local), order_len)
+                       for _ in range(n_dev)]).astype(np.int64)
+    return init_rows, shard_rows, orders, bs_local
+
+
+def som_train_sharded(data, xdim: int = 10, ydim: int = 10, num_passes: int = 1,
+                      lr_start: float = 0.05, lr_end: float = 0.01, seed: int = 42,
+                      batch_size: Optional[int] = None,
+                      radius_start: Optional[float] = None,
+                      weights_init: Optional[np.ndarray] = None, *, device,
+                      group=None) -> np.ndarray:
+    """Multi-process SOM training, the port of ``som_train_sharded``: the
+    rows are shuffled once (seeded) and split in contiguous shards, one a
+    rank; every step each rank takes its local minibatch from its own
+    visiting order, and the (H^T X, H^T 1) statistics are summed over the
+    ranks in rank order before the update. Every rank passes the whole
+    `data` and gets the same (xdim*ydim, C) float32 weights. The draws are
+    the JAX package's, so its weights and these agree to f32 rounding at
+    the same world size (distributionally, not bitwise, with
+    ``som_train``: the minibatches differ)."""
+    g = mesh.resolve_group(group)
+    n_dev, r = mesh.world(g), mesh.rank(g)
+    host = data.detach().cpu().numpy() if isinstance(data, torch.Tensor) else data
+    host = np.asarray(host, np.float32)
+    if host.ndim != 2 or host.shape[0] == 0:
+        raise ValueError(f"SOM training data must be 2-D and non-empty; got shape "
+                         f"{host.shape}")
+    init_rows, shard_rows, orders, bs_local = _sharded_schedule(
+        host.shape[0], xdim * ydim, n_dev, num_passes, seed, batch_size,
+        weights_init is None)
+    w0 = _as_f32_tensor(host[init_rows] if weights_init is None else weights_init, device)
+    n_local = shard_rows.shape[0] // n_dev
+    local = _as_f32_tensor(host[shard_rows[r * n_local:(r + 1) * n_local]], device)
+    r0 = radius_start if radius_start is not None else default_radius_start(xdim, ydim)
+    gdist = torch.from_numpy(grid_distances(xdim, ydim)).to(device)
+    w = _train_steps(local, w0, torch.from_numpy(orders[r]).to(device), gdist, bs_local,
+                     float(lr_start), float(lr_end), float(r0),
+                     reduce=lambda t: mesh.rank_order_sum(t, g))
+    return w.cpu().numpy()
+
+
+def make_sharded_train_step(*, group=None):
+    """A multi-process SOM train step, the port of ``make_sharded_train_step``:
+    ``step(w, x_local, alpha, radius, gdist) -> w``, where each rank passes
+    its own rows of the batch and the replicated rest (tensors on one
+    device; alpha and radius floats), and the partial (H^T X, H^T 1) sums
+    are added over the ranks in rank order. Every rank gets the same w."""
+    g = mesh.resolve_group(group)
+
+    def step(w, x_local, alpha, radius, gdist):
+        _check_full_f32_matmul()
+        as_f32 = lambda v: torch.tensor(np.float32(v), device=w.device)  # noqa: E731
+        return _train_step(w, x_local, as_f32(alpha), as_f32(radius), gdist,
+                           reduce=lambda t: mesh.rank_order_sum(t, g))
+
+    return step

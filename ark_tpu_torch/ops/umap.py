@@ -14,8 +14,9 @@ recipe, each stage on the data's device:
      `negative_sample_rate` random points per edge, both at the epoch-start
      embedding, accumulated by two sorted segment sums an epoch.
 
-``_optimize_scatter`` (a test oracle of the JAX package) and
-``umap_epoch_sharded`` (one epoch over a device mesh) are not ported.
+``_optimize_scatter`` (a test oracle of the JAX package) is not ported.
+``umap_epoch_sharded`` is one epoch with the edges split over the ranks of
+a torch.distributed process group (``ark_tpu_torch.parallel.mesh``).
 
 Three choices make one seed give one embedding on every device:
 
@@ -49,6 +50,7 @@ import torch
 
 from ark_tpu_torch.ops import segment_reduce
 from ark_tpu_torch.ops.som import _as_f32_tensor, _check_full_f32_matmul
+from ark_tpu_torch.parallel import mesh
 
 # precomputed curve parameters for (spread=1.0, min_dist=0.1), the
 # umap-learn defaults
@@ -246,6 +248,76 @@ def _optimize(emb0: torch.Tensor, heads: torch.Tensor, tails: torch.Tensor,
         emb = emb + segment_reduce.segment_sum(up_heads, sorted_heads, n, plan_h)
         emb = emb + segment_reduce.segment_sum(up_tails, sorted_tails, n, plan_t)
     return emb
+
+
+def umap_epoch_sharded(emb, heads, tails, weights, lr: float,
+                       negative_sample_rate: int = 5, a: float = _A, b: float = _B, *,
+                       seed: int = 0, negatives=None, device, group=None) -> torch.Tensor:
+    """One UMAP epoch with the edge list split over the ranks (the port of
+    ``umap_epoch_sharded``): each rank computes the attraction and the
+    negative-sample repulsion of its edges at the epoch-start embedding
+    into an (N, d) delta, the deltas are summed over the ranks in rank
+    order, and the embedding moves once. The edges are padded to a multiple
+    of the world size with (0, 0, weight 0) edges, which add nothing.
+
+    Each rank's delta adds, per point, the JAX package's updates in its
+    order: the attraction at the heads, minus it at the tails, then each
+    negative round at the heads, into zeros. That is one
+    ``segment_sum`` over the concatenated list [heads; tails; heads x rate]
+    sorted stably: XLA's sequential scatter on the CPU, the hand-written
+    kernel on CUDA (never a float ``index_add_`` there).
+
+    `negatives` are (rate, E) or (rate, E padded) point ids by global edge
+    position (the JAX package's per-shard ``fold_in(key, axis_index)``
+    draws, concatenated in rank order); each rank takes its own columns.
+    Without them each rank takes its columns of ``draw_negatives(seed, 0,
+    rate, E, n)``, the same ids for an edge at every world size.
+    `emb` (N, d), `heads`, `tails` and `weights` (E,) are numpy arrays or
+    tensors, all of them on every rank. Returns the new (N, d) f32
+    embedding on `device`, the same on every rank."""
+    g = mesh.resolve_group(group)
+    ws, r = mesh.world(g), mesh.rank(g)
+    emb = _as_f32_tensor(emb, device)
+    n = emb.shape[0]
+    ids = [torch.as_tensor(np.asarray(e), device=device).to(torch.int64)
+           for e in (heads, tails)]
+    w = _as_f32_tensor(weights, device)
+    n_edges = w.shape[0]
+    e_pad = mesh.pad_to_multiple(n_edges, ws)
+    lo, hi = mesh.shard_bounds(e_pad, ws, r)
+    he, ta = (torch.nn.functional.pad(e, (0, e_pad - n_edges))[lo:hi] for e in ids)
+    w = torch.nn.functional.pad(w, (0, e_pad - n_edges))[lo:hi]
+    rate = negative_sample_rate
+    if negatives is None:
+        negatives = draw_negatives(seed, 0, rate, n_edges, n, device)
+    negs = torch.as_tensor(np.asarray(negatives) if not isinstance(negatives, torch.Tensor)
+                           else negatives).to(device=device, dtype=torch.int64)
+    negs = torch.nn.functional.pad(negs, (0, e_pad - negs.shape[-1]))[:, lo:hi]
+
+    # python floats enter the JAX shard as f32 weak types; a 0-d tensor
+    # numerator keeps 2b / x a true division (torch's scalar / tensor
+    # multiplies by the reciprocal)
+    lr32 = torch.tensor(np.float32(lr), device=device)
+    two_b = torch.tensor(np.float32(2.0 * b), device=device)
+    hpos = emb[he]
+    diff = hpos - emb[ta]
+    d2 = torch.sum(diff * diff, dim=1)
+    d2s = torch.clamp_min(d2, 1e-8)
+    grad_coef = torch.where(
+        d2 > 0.0, (-2.0 * a * b) * d2s ** (b - 1.0) / (1.0 + a * d2s ** b), 0.0)
+    attract = torch.clamp(grad_coef[:, None] * diff, -4.0, 4.0) * w[:, None]
+    values, labels = [lr32 * attract, -lr32 * attract], [he, ta]
+    for j in range(rate):
+        ndiff = hpos - emb[negs[j]]
+        nd2 = torch.sum(ndiff * ndiff, dim=1)
+        coef = two_b / ((0.001 + nd2) * (1.0 + a * nd2 ** b))
+        values.append(lr32 * (torch.clamp(coef[:, None] * ndiff, -4.0, 4.0) * w[:, None]))
+        labels.append(he)
+    labels = torch.cat(labels)
+    perm = torch.argsort(labels, stable=True)
+    delta = segment_reduce.segment_sum(torch.cat(values)[perm],
+                                       labels[perm].to(torch.int32), n)
+    return emb + mesh.rank_order_sum(delta, g)
 
 
 def _pca(data: torch.Tensor, n_components: int = 2) -> torch.Tensor:

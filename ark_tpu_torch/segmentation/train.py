@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ark_tpu_torch.models import unet
+from ark_tpu_torch.parallel import mesh
 from ark_tpu_torch.segmentation import mesmer, synthetic
 
 # eager steps before a CUDA fit captures its step (PyTorch warms a captured
@@ -142,6 +143,66 @@ def train_step(model, opt: Adam, x: torch.Tensor, targets: Dict[str, torch.Tenso
     grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
     opt.step(grads)
     return loss.detach()
+
+
+# the JAX package's dry run steps with optax.sgd(1e-3)
+DRYRUN_LEARNING_RATE = 1e-3
+
+
+def _dryrun_loss_sums(out: Dict[str, torch.Tensor], y_dist: torch.Tensor,
+                      y_pix: torch.Tensor) -> torch.Tensor:
+    """This process's [sum of squared inner-distance errors, sum of
+    y . log(p + 1e-7)] of the whole-cell heads: the two sums whose global
+    means make the JAX package's ``dryrun_multichip`` loss."""
+    sq = torch.sum((out["whole_cell_inner_distance"][..., 0] - y_dist) ** 2)
+    ce = torch.sum(y_pix * torch.log(out["whole_cell_pixelwise"] + 1e-7))
+    return torch.stack([sq, ce])
+
+
+def sharded_train_step(model, x: torch.Tensor, y_dist: torch.Tensor, y_pix: torch.Tensor, *,
+                       group=None):
+    """One step of the JAX package's batch-sharded Mesmer step (its
+    ``dryrun_multichip``: ``optax.sgd(1e-3)``, parameters replicated, the
+    batch split over the ranks), with the semantics of one ``jax.jit`` over
+    the global batch: every train-mode batch norm takes mean and E[x^2]
+    over the global batch (rank-order sums, through autograd), and the loss
+    is the global mean MSE of the whole-cell inner distance plus the global
+    mean cross-entropy -sum(y log(p + 1e-7)) of its pixelwise head.
+
+    Each rank passes its own rows of the batch (x (b, H, W, 2), y_dist
+    (b, H, W), y_pix (b, H, W, 3), the same b on every rank, on the model's
+    device). The gradients are summed with the backend's all-reduce: they
+    are float sums whose order is the backend's, so they are held to the
+    reference by a tolerance (the JAX package's own f32 gradients sit
+    2.6e-4 from float64), and every rank gets the same sum. Then plain SGD:
+    p + (-DRYRUN_LEARNING_RATE) g, as optax adds its update. Returns
+    (global loss, 0-d tensor; {parameter name: global gradient, or None
+    where the loss does not reach it}), the same on every rank; the
+    parameters and running averages are updated in place."""
+    g = mesh.resolve_group(group)
+    ws = mesh.world(g)
+    count = torch.tensor(float(x.shape[0] * ws * x.shape[1] * x.shape[2]), device=x.device)
+
+    def reduce(sums, n):
+        return mesh.rank_order_sum(sums, g), n * ws
+
+    model.train()
+    names, params = zip(*model.named_parameters())
+    with training_precision(model), unet.global_batch_stats(model, reduce):
+        sums = _dryrun_loss_sums(model(x), y_dist, y_pix)
+        grads = torch.autograd.grad(sums[0] / count - sums[1] / count, params,
+                                    allow_unused=True)
+    live = [i for i, gr in enumerate(grads) if gr is not None]
+    if ws > 1 and live:
+        flat = mesh.all_reduce_sum(torch.cat([grads[i].reshape(-1) for i in live]), g)
+        grads = list(grads)
+        for i, part in zip(live, flat.split([grads[i].numel() for i in live])):
+            grads[i] = part.view_as(grads[i])
+    with torch.no_grad():
+        torch._foreach_add_([params[i] for i in live], torch._foreach_mul(
+            [grads[i] for i in live], -DRYRUN_LEARNING_RATE))
+    total = mesh.rank_order_sum(sums.detach(), g)
+    return total[0] / count - total[1] / count, dict(zip(names, grads))
 
 
 def _on(a, device) -> torch.Tensor:

@@ -26,7 +26,8 @@ Numerics, as the JAX package computes them:
   the same on every device; the tests inject the JAX package's draw into
   ``_lda_em``.
 
-``em_step_sharded`` (one EM step over a device mesh) is not ported.
+``em_step_sharded`` is one outer iteration with the cells split over the
+ranks of a torch.distributed process group (``ark_tpu_torch.parallel.mesh``).
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ import numpy as np
 import pandas as pd
 import torch
 
-from ark_tpu_torch.ops.som import _check_full_f32_matmul
+from ark_tpu_torch.ops.som import _as_f32_tensor, _check_full_f32_matmul
+from ark_tpu_torch.parallel import mesh
 
 # XLA's Lanczos approximation (g = 7, 8 coefficients); its base coefficient,
 # 0.99999999999980993, is 1 in f32
@@ -139,7 +141,11 @@ def _smooth(gamma: torch.Tensor, blocks: Blocks, penalty: float) -> torch.Tensor
     return theta * total
 
 
-def _e_step(X, lam, gamma, alpha: float, e_steps: int):
+def _e_step_parts(X, lam, gamma, alpha: float, e_steps: int):
+    """The E-step's fixed point on X's rows. Returns (gamma, exp(E[log
+    beta]) (K, V), the rows' statistics exp(E[log theta])^T (X / phinorm)
+    (K, V)): the sufficient statistics are the last two multiplied, after
+    a sharded step has summed the statistics over its ranks."""
     exp_elog_beta = _exp_elog(lam)                                   # (K, V)
     for _ in range(e_steps):
         exp_elog_theta = _exp_elog(gamma)                            # (N, K)
@@ -147,8 +153,12 @@ def _e_step(X, lam, gamma, alpha: float, e_steps: int):
         gamma = alpha + exp_elog_theta * ((X / phinorm) @ exp_elog_beta.T)
     exp_elog_theta = _exp_elog(gamma)
     phinorm = exp_elog_theta @ exp_elog_beta + 1e-100
-    sstats = exp_elog_beta * (exp_elog_theta.T @ (X / phinorm))
-    return gamma, sstats
+    return gamma, exp_elog_beta, exp_elog_theta.T @ (X / phinorm)
+
+
+def _e_step(X, lam, gamma, alpha: float, e_steps: int):
+    gamma, exp_elog_beta, stats = _e_step_parts(X, lam, gamma, alpha, e_steps)
+    return gamma, exp_elog_beta * stats
 
 
 def _lda_em(X: torch.Tensor, L: Blocks, lam0: torch.Tensor, n_topics: int,
@@ -171,6 +181,65 @@ def _lda_em(X: torch.Tensor, L: Blocks, lam0: torch.Tensor, n_topics: int,
         gamma = _smooth(gamma, L, penalty)
     gamma, _ = _e_step(X, lam, gamma, alpha, e_steps)
     return lam, gamma
+
+
+def _laplacian_rows(L, lo: int, hi: int, theta_full: torch.Tensor) -> torch.Tensor:
+    """Rows [lo, hi) of L @ theta_full (N_pad, K). `L` is a dense (N, N)
+    matrix (rows and columns past N are zero) or the blocks
+    [(first row, block)] of ``laplacian_blocks``; a block may straddle
+    ranks, so each rank takes its rows of it against the block's columns."""
+    n_pad, k = theta_full.shape
+    if isinstance(L, list):
+        out = torch.zeros((hi - lo, k), dtype=torch.float32, device=theta_full.device)
+        for first, block in L:
+            a, b = max(first, lo), min(first + block.shape[0], hi)
+            if a < b:
+                out[a - lo:b - lo] = (block[a - first:b - first]
+                                      @ theta_full[first:first + block.shape[1]])
+        return out
+    L = _as_f32_tensor(L, theta_full.device)
+    n = L.shape[0]
+    rows = torch.zeros((hi - lo, n_pad), dtype=torch.float32, device=theta_full.device)
+    if lo < n:
+        rows[:min(hi, n) - lo, :n] = L[lo:min(hi, n)]
+    return rows @ theta_full
+
+
+def em_step_sharded(X, lam, gamma, L, alpha: float, eta: float, penalty: float,
+                    e_steps: int = 20, *, device, group=None):
+    """One EM outer iteration with the cells split over the ranks (the port
+    of ``em_step_sharded``): each rank runs the E-step's fixed point on its
+    block of cells (N padded with zero-count cells to a multiple of the
+    world size), the M-step's statistics are summed over the ranks in rank
+    order before the multiply by exp(E[log beta]), and the smoothing
+    all-gathers the (N, K) topic matrix so that each rank's rows of the
+    Laplacian couple cells of other ranks.
+
+    Args: X (N, V) counts, lam (K, V), gamma (N, K) (numpy arrays or
+    tensors; every rank passes all of them), L a dense (N, N) Laplacian or
+    ``laplacian_blocks``' blocks on `device`. Returns (new lam (K, V), new
+    gamma (N, K)), f32 tensors on `device`, the same on every rank."""
+    _check_full_f32_matmul()
+    g = mesh.resolve_group(group)
+    ws, r = mesh.world(g), mesh.rank(g)
+    X = _as_f32_tensor(X, device)
+    gamma = _as_f32_tensor(gamma, device)
+    n = X.shape[0]
+    n_pad = mesh.pad_to_multiple(n, ws)
+    lo, hi = mesh.shard_bounds(n_pad, ws, r)
+    pad = (0, 0, 0, n_pad - n)
+    X_l = torch.nn.functional.pad(X, pad)[lo:hi]
+    gamma_l = torch.nn.functional.pad(gamma, pad, value=1.0)[lo:hi]
+    gamma_l, exp_elog_beta, stats = _e_step_parts(
+        X_l, _as_f32_tensor(lam, device), gamma_l, alpha, e_steps)
+    lam_new = eta + exp_elog_beta * mesh.rank_order_sum(stats, g)
+    total = gamma_l.sum(dim=1, keepdim=True)
+    theta_l = gamma_l / total
+    theta_full = mesh.all_gather_rows(theta_l, g)
+    theta_l = torch.clamp_min(theta_l - penalty * _laplacian_rows(L, lo, hi, theta_full),
+                              1e-8)
+    theta_l = theta_l / theta_l.sum(dim=1, keepdim=True)
+    return lam_new, mesh.all_gather_rows(theta_l * total, g)[:n]
 
 
 def _fov_blocks(sample_features: pd.DataFrame, difference_matrices: Optional[Dict]):

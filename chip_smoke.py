@@ -90,7 +90,17 @@ started together) and drives these paths on the card:
   PrefetchLoader(device="cuda") over 8 seeded FOV loads feeding the pixel
   stage's preprocessing, equal to a sequential loop and timed against it;
   (m4) the profiler's trace() around one such step, its Chrome trace
-  holding CUDA kernel events.
+  holding CUDA kernel events;
+- the multi-process layer on torch.distributed: (n) graft_entry.
+  dryrun_multigpu on full-width inputs of the phases above (the published
+  network's SGD step on phase (l1)'s batch, the sharded SOM schedule and
+  step on phase 4's rows, the pixel cohort of 5 x 1024^2 x 16, the dense
+  masks' quantification, the enrichment of 10 x 3000 cells, both floods on
+  the 8 x 512^2 planted relief, the fiber cohort, one LDA EM step at
+  22,500 x 20 and one UMAP epoch on 1,528,980 edges), at NCCL world size 1
+  and again at gloo world size 2 with both ranks on the one card (seconds
+  by stage and in collectives); every rank must agree, 2 ranks agree with 1
+  and 1 with the single-process port, and each kernel must launch.
 
 It exits non-zero, without the final result line, when there is no CUDA
 device or any phase fails. Its last line is one JSON object naming the
@@ -503,7 +513,8 @@ def drive_slice(raws, device, seed=42, blur_factor=2, subset_proportion=0.1,
     mark("bmu_assign_s", t0)
     return {"weights": weights, "labels": labels, "mapped": mapped,
             "kept_pixels": kept_pixels, "seconds": seconds, "thresh": thresh,
-            "n_train": train.shape[0]}
+            "n_train": train.shape[0], "train": train, "norm_pre": norm_pre,
+            "norm_post": norm_post}
 
 
 def check_slice_outputs(out, n_nodes):
@@ -565,9 +576,10 @@ def run_full_driver(raws, device):
 
 def run_pixel_stage(missing):
     """Phase 4: the pixel stage at real size through the port's entry
-    points; returns the BMU kernel's launches in that run and FOV 0's
+    points; returns the BMU kernel's launches in that run, FOV 0's
     assignments (the flat indices of its clustered pixels, their 1-indexed
-    SOM clusters)."""
+    SOM clusters) and, where the device phases ran in memory, their outputs
+    (``drive_slice``'s; else None)."""
     import torch
 
     from ark_tpu_torch.ops import som
@@ -589,6 +601,7 @@ def run_pixel_stage(missing):
               f"{out['n_train']} training rows, "
               f"{sum(lab.size for lab in out['labels'])} pixels assigned")
     else:
+        out = None
         seconds, assigned = run_full_driver(raws, "cuda")
         torch.cuda.synchronize()
         launches = som.bmu.launches
@@ -597,7 +610,7 @@ def run_pixel_stage(missing):
     print(f"pixel stage 4 x 1024^2 x 16ch on cuda: {total:.3f} s; per phase "
           + ", ".join(f"{k} {v:.4f}" for k, v in seconds.items()))
     print(f"pixel stage bmu kernel launches: {launches}")
-    return launches, assigned
+    return launches, assigned, out
 
 
 def compare_pixel_cpu_cuda():
@@ -2543,7 +2556,8 @@ def run_spatial_lda(table):
     device's busy share, the kernels and copies each step launches, the EM's
     per fit), then on the first LDA_REPLAY_FOVS FOVs on the card and in the
     CPU port with the gap at LDA_REPLAY_GAP, held to each other; the topics
-    must recover the cohort's niches. Returns the card's seconds per step."""
+    must recover the cohort's niches. Returns the card's seconds per step
+    and its outputs (``lda_steps``')."""
     import torch
 
     from ark_tpu_torch.spLDA import model as lda_model
@@ -2611,7 +2625,7 @@ def run_spatial_lda(table):
           f"split, difference matrices, cell counts equal; gap at (topics, bootstraps) "
           f"{LDA_REPLAY_GAP} within {gap_err:.2e}, topics {topics_err:.2e}, "
           f"weights {weights_err:.2e}; CPU run {cpu_s:.3f} s)")
-    return seconds
+    return seconds, got
 
 
 # --- Mesmer training and weight conversion (phase (l))
@@ -3273,6 +3287,390 @@ def run_single_card_modules():
     return cc_t, quant_t, prefetch_t, trace_kernels, launches
 
 
+# phase (n): graft_entry.dryrun_multigpu at full width. The machine has one
+# card: NCCL takes one rank on it, gloo ranks share it (NCCL refuses two)
+MULTI_GPU_RUNS = ((1, "nccl"), (2, "gloo"))
+MULTI_GPU_DEVICE = "cuda:0"
+MULTI_GPU_MINI = False              # the published network, as phase (l1)
+MULTI_GPU_TIMEOUT_S = 300.0
+MULTI_GPU_PIXEL_FOVS = 5            # one padding FOV at 2 ranks
+# 2 ranks against 1 (the same updates summed in other splits): one SOM step
+# and the LDA step's statistics to a few f32 roundings; UMAP's coordinates
+# to 64 ulps of the largest: a point's epoch delta sums up to ~100 updates
+# clipped at +-4, whose partial sums reach ~8x the coordinates, and the split
+# reorders those additions (8 ulps of the coordinate measured at the
+# 1,528,980-edge graph on an H100); the SOM schedule's minibatches
+# depend on the world size, so its quantization error is held to 5%
+SOM_STEP_ATOL, LDA_SPLIT_RTOL, UMAP_SPLIT_ULPS, SOM_QE_RTOL = 1e-5, 1e-5, 64, 0.05
+# the UMAP epoch at 1 and 2 ranks against the same updates in float64 (the
+# plain path: index_add_ from the f32 start): f32 rounds each update's
+# powers and quotients and the sums of up to ~100 of them, so UMAP_F64_ULPS
+# ulps of the largest coordinate
+UMAP_F64_ULPS = 64
+# Mesmer's step at 8 x 256^2, at 1 and 2 ranks against the plain train-mode
+# step (one process, each batch norm's own mean, the dry run's loss,
+# autograd) and 2 ranks against 1: phase (l2)'s loss and averages
+# tolerances, but the gradients within MESMER_GRAD_RTOL of each tensor's
+# largest entry. The batch-norm biases' gradients are near-cancelling sums
+# over 524,288 pixels, which any other f32 order of the same sums moves
+# above STEP_GRAD_RTOL: on an H100 one process against itself on the batch
+# reversed read 4.74e-4, 2 ranks against 1 read 4.82e-4. The CPU tests
+# hold the split exactly (equal halves on 2 ranks, bitwise 1 rank on one)
+MESMER_GRAD_RTOL = 1e-3
+BITWISE_STAGES = ("pixel", "quant", "enrichment", "flood", "fiber")
+COUNTED_KERNELS = ("bmu", "claim_round", "segment_sum", "segment_plan")
+
+
+def multi_gpu_inputs(pixel, app, flood_fovs, dense, quant, spatial, lda_out, fiber_fov,
+                     cell_counts):
+    """Phase (n)'s inputs at full width, under ``graft_entry.dryrun_inputs``'
+    keys: phase (l1)'s 8 x 256^2 training batch; phase 4's SOM training
+    rows, channel norms, threshold and weights with 5 of its 1024^2 x 16
+    FOVs; the dense 3 x 1024^2 masks with 40 channels; phase (c)'s 10 x 3000
+    cells (20 phenotypes, B = 100); the whole-cell relief, maxima and
+    foreground of the 8 x 512^2 planted cohort; phase (f)'s fiber FOV and
+    its two mirror images; phase (k)'s training features with their
+    Laplacian blocks (5 topics); the k = 15 graph and PCA start of the
+    cell-clustering cohort's cells."""
+    import torch
+
+    from ark_tpu_torch.ops import cc, umap
+    from ark_tpu_torch.spLDA import model as lda_model
+
+    inp = {}
+    x, targets = training_batch(61, TRAIN_BATCH, TRAIN_HW, DEVICE)
+    inp["x"] = x.cpu().numpy()
+    inp["y_dist"] = targets["whole_cell_inner_distance"].cpu().numpy()
+    inp["y_pix"] = targets["whole_cell_pixelwise"].cpu().numpy()
+    inp["som_data"] = pixel["train"]
+    inp["som_w0"] = np.random.default_rng(60).random((100, len(CHANNELS))).astype(np.float32)
+    inp["pixel_imgs"] = np.stack(make_cohort(np.random.default_rng(7), MULTI_GPU_PIXEL_FOVS,
+                                             1024))
+    inp["channel_norms"] = pixel["norm_pre"].astype(np.float32)
+    inp["post_norms"] = pixel["norm_post"].astype(np.float32)
+    inp["pixel_thresh"] = np.float32(pixel["thresh"])
+    inp["pixel_weights"] = pixel["weights"]
+    inp["quant_imgs"] = np.stack([img.values[0] for _, img, _ in quant])
+    inp["quant_labels"] = np.stack(dense["whole_cell"]).astype(np.int32)
+    inp["quant_segments"] = np.int64(inp["quant_labels"].max() + 1)
+    by_fov = [spatial[spatial["fov"] == f] for f in spatial["fov"].unique()]
+    inp["enrich_coords"] = np.stack([f[["centroid-0", "centroid-1"]].to_numpy(np.float32)
+                                     for f in by_fov])
+    inp["enrich_pos"] = np.stack([(f["cell_meta_cluster"].to_numpy()[None, :]
+                                   == np.array(SPATIAL_TYPES)[:, None]).astype(np.float32)
+                                  for f in by_fov])
+    inp["enrich_dist_lim"] = np.float32(SPATIAL_TEMPLATE["dist_lim"])
+    inp["enrich_boots"] = np.int64(SPATIAL_TEMPLATE["bootstrap_num"])
+    res = app._segment_device(app._upload(flood_fovs), 0.1)["whole_cell"]
+    inp["flood_elev"] = (-res["inner"]).cpu().numpy()
+    inp["flood_markers"] = cc.label_batched_small(res["maxima"])[0].cpu().numpy()
+    inp["flood_mask"] = (res["foreground"] > 0.3).cpu().numpy()
+    inp["flood_levels"], inp["flood_rounds"] = np.int64(256), np.int64(32)
+    inp["fiber_imgs"] = np.stack([fiber_fov, fiber_fov[::-1], fiber_fov[:, ::-1]])
+    inp["fiber_widths"] = np.array(FIBER_DEFAULTS["fiber_widths"])
+    train = lda_out["feats"]["train_features"]
+    inp["lda_X"] = train.to_numpy(np.float32)
+    inp["lda_lam"] = lda_model.initial_topics(42, LDA_N_TOPICS, train.shape[1])
+    inp["lda_gamma"] = np.ones((len(train), LDA_N_TOPICS), np.float32)
+    for first, block in lda_model.laplacian_blocks(
+            train, lda_out["diffs"]["train_diff_mat"], device=DEVICE):
+        inp[f"lda_block/{first}"] = block.cpu().numpy()
+    data = torch.as_tensor(cell_counts, device=DEVICE)
+    heads, tails, w = umap.fuzzy_graph(*umap._knn(data, 15))
+    emb0 = umap._pca(data, 2)
+    inp["umap_emb"] = (emb0 / (emb0.abs().max() + 1e-12) * 10.0).cpu().numpy()
+    inp["umap_heads"], inp["umap_tails"] = heads.cpu().numpy(), tails.cpu().numpy()
+    inp["umap_weights"] = w.cpu().numpy()
+    return inp
+
+
+def multi_gpu_references(inp, one):
+    """World size 1 (NCCL) against the single-process port on the card:
+    the pieces of each stage called directly, with no process group.
+    Returns the LDA step's worst relative difference (the rest are
+    bitwise)."""
+    import torch
+
+    from ark_tpu_torch.analysis import spatial_enrichment as se
+    from ark_tpu_torch.ops import distances, segment_reduce, som, watershed
+    from ark_tpu_torch.phenotyping import pixie_preprocessing
+    from ark_tpu_torch.segmentation.fiber_segmentation import _fiber_device_program
+    from ark_tpu_torch.ops import classical
+    from ark_tpu_torch.spLDA import model as lda_model
+
+    dev = MULTI_GPU_DEVICE
+
+    def same(got, want, what):
+        check(np.array_equal(np.asarray(got), np.asarray(want)),
+              f"multi-GPU {what}: world size 1 differs from the single-process port")
+
+    weights = torch.as_tensor(inp["pixel_weights"], device=dev)
+    for i, img in enumerate(inp["pixel_imgs"]):
+        x = torch.as_tensor(img, device=dev) / torch.as_tensor(inp["channel_norms"], device=dev)
+        norm, valid = pixie_preprocessing._prep_fov_device(x, float(inp["pixel_thresh"]))
+        norm = (norm / torch.as_tensor(inp["post_norms"], device=dev)).contiguous()
+        idx, _ = som.bmu(weights, norm, return_dist=False)
+        same(one["pixel"]["pixel_mat"][i], norm.cpu().numpy(), f"pixel_mat FOV {i}")
+        same(one["pixel"]["som_clusters"][i],
+             torch.where(valid, idx + 1, 0).cpu().numpy(), f"som_clusters FOV {i}")
+    data = inp["som_data"]
+    init_rows, rows, orders, bs_local = som._sharded_schedule(
+        data.shape[0], 100, 1, 1, 0, None, True)
+    gdist = torch.from_numpy(som.grid_distances(10, 10)).to(dev)
+    w = som._train_steps(torch.as_tensor(data[rows], device=dev),
+                         torch.as_tensor(data[init_rows], device=dev),
+                         torch.from_numpy(orders[0]).to(dev), gdist, bs_local, 0.05, 0.01,
+                         som.default_radius_start(10, 10))
+    same(one["som"]["w_trained"], w.cpu().numpy(), "SOM schedule")
+    f32 = lambda v: torch.tensor(np.float32(v), device=dev)  # noqa: E731
+    w1 = som._train_step(torch.as_tensor(inp["som_w0"], device=dev),
+                         torch.as_tensor(data, device=dev), f32(0.05), f32(2.0), gdist)
+    same(one["som"]["w1"], w1.cpu().numpy(), "SOM step")
+    img = torch.as_tensor(inp["quant_imgs"][0], device=dev)
+    feats, sums = segment_reduce.moment_and_channel_features(
+        img, torch.as_tensor(inp["quant_labels"][0], device=dev), int(inp["quant_segments"]))
+    same(one["quant"]["area"][0], feats["area"].cpu().numpy(), "quantification areas")
+    same(one["quant"]["channel_sums"][0], sums.cpu().numpy(), "quantification sums")
+    co = torch.as_tensor(inp["enrich_coords"][0], device=dev)
+    po = torch.as_tensor(inp["enrich_pos"][0], device=dev)
+    dist_bin = distances.close_pairs(distances.pairwise_distances(co, co),
+                                     float(inp["enrich_dist_lim"]))
+    perms = se.draw_permutations(po.shape[1], int(inp["enrich_boots"]), 42).to(dev)
+    same(one["enrichment"]["null_mean"][0],
+         se._permutation_null(dist_bin, po, perms).mean(0).cpu().numpy(), "enrichment null")
+    engine = watershed._ENGINE
+    try:
+        for name in ("levels", "minimax"):
+            watershed._ENGINE = name
+            lab, done = watershed._quantize_and_flood(
+                *(torch.as_tensor(inp[k], device=dev)
+                  for k in ("flood_elev", "flood_markers", "flood_mask")),
+                int(inp["flood_levels"]), int(inp["flood_rounds"]))
+            check(bool(done), f"multi-GPU {name} flood: not converged")
+            same(one["flood"][f"{name}/labels"], lab.cpu().numpy(), f"{name} flood")
+    finally:
+        watershed._ENGINE = engine
+    h, w_ = inp["fiber_imgs"].shape[1:]
+    th, tw, n_tr, n_tc = classical._clahe_geometry(h, w_, h / 128)
+    fib = _fiber_device_program(torch.as_tensor(inp["fiber_imgs"][0], device=dev), 0.1,
+                                blur=2, th=th, tw=tw, n_tr=n_tr, n_tc=n_tc,
+                                fiber_widths=tuple(int(v) for v in inp["fiber_widths"]),
+                                sobel_blur=1)
+    same(one["fiber"]["elevation_map"][0], fib["elevation_map"].cpu().numpy(), "fiber")
+    blocks = sorted(((int(k.split("/")[1]), torch.as_tensor(v, device=dev))
+                     for k, v in inp.items() if k.startswith("lda_block/")),
+                    key=lambda b: b[0])
+    k = LDA_N_TOPICS
+    x = torch.as_tensor(np.array(inp["lda_X"]), device=dev)
+    gamma, sstats = lda_model._e_step(x, torch.as_tensor(inp["lda_lam"], device=dev),
+                                      torch.as_tensor(inp["lda_gamma"], device=dev),
+                                      1.0 / k, 20)
+    lda_err = max(float(np.max(np.abs(one["lda"]["lam"] - (1.0 / k + sstats).cpu().numpy())
+                               / np.abs(one["lda"]["lam"]))),
+                  float(np.max(np.abs(one["lda"]["gamma"] - lda_model._smooth(
+                      gamma, blocks, 0.1).cpu().numpy()) / np.abs(one["lda"]["gamma"]))))
+    check(lda_err <= LDA_SPLIT_RTOL, f"multi-GPU LDA: world size 1 differs from the "
+                                     f"single-process E-step and smoothing by {lda_err}")
+    return lda_err
+
+
+def plain_umap_epoch(inp):
+    """The dry run's UMAP epoch (lr 1, seed 0, 5 negatives an edge) by the
+    plain path in float64 on the card: the same updates from the f32 start
+    embedding, each negative round at ``draw_negatives``' points, summed by
+    index_add_. Returns the (N, 2) float64 embedding."""
+    import torch
+
+    from ark_tpu_torch.ops import umap
+
+    dev, rate = MULTI_GPU_DEVICE, 5
+    emb = torch.as_tensor(inp["umap_emb"], device=dev).double()
+    he, ta = (torch.as_tensor(inp[k], device=dev).long() for k in ("umap_heads", "umap_tails"))
+    w = torch.as_tensor(inp["umap_weights"], device=dev).double()[:, None]
+    negs = umap.draw_negatives(0, 0, rate, len(w), len(emb), dev)
+    a, b = umap._A, umap._B
+    diff = emb[he] - emb[ta]
+    d2 = (diff * diff).sum(1)
+    d2s = d2.clamp_min(1e-8)
+    coef = torch.where(d2 > 0, -2.0 * a * b * d2s ** (b - 1.0) / (1.0 + a * d2s ** b), 0.0)
+    attract = (coef[:, None] * diff).clamp(-4.0, 4.0) * w
+    delta = torch.zeros_like(emb).index_add_(0, he, attract).index_add_(0, ta, -attract)
+    for j in range(rate):
+        ndiff = emb[he] - emb[negs[j]]
+        nd2 = (ndiff * ndiff).sum(1)
+        coef = 2.0 * b / ((0.001 + nd2) * (1.0 + a * nd2 ** b))
+        delta.index_add_(0, he, (coef[:, None] * ndiff).clamp(-4.0, 4.0) * w)
+    return (emb + delta).cpu().numpy()
+
+
+def plain_mesmer(inp):
+    """The plain single-process Mesmer step on phase (n)'s batch, from the
+    dry run's seeded weights, on the card: ``model.train()``, one forward
+    (each batch norm takes this batch's statistics through its own mean),
+    the JAX dry run's loss as it writes it, ``torch.autograd.grad``. Run on
+    the batch in its order and reversed; ``graft_entry.mesmer_result``'s
+    form."""
+    import copy
+
+    import torch
+
+    from ark_tpu_torch import graft_entry
+    from ark_tpu_torch.segmentation import train
+
+    def step(model, x, y_dist, y_pix):
+        model.train()
+        names, params = zip(*model.named_parameters())
+        with train.training_precision(model):
+            out = model(x)
+            loss = torch.mean((out["whole_cell_inner_distance"][..., 0] - y_dist) ** 2) \
+                - torch.mean(torch.sum(y_pix * torch.log(out["whole_cell_pixelwise"] + 1e-7),
+                                       -1))
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return graft_entry.mesmer_result(model, loss, dict(zip(names, grads)))
+
+    model = graft_entry.mesmer_model(MULTI_GPU_MINI, MULTI_GPU_DEVICE)
+    batch = [torch.as_tensor(inp[k], device=MULTI_GPU_DEVICE) for k in ("x", "y_dist", "y_pix")]
+    return [step(copy.deepcopy(model), *batch),
+            step(copy.deepcopy(model), *(torch.flip(v, [0]) for v in batch))]
+
+
+def mesmer_differences(got, want):
+    """(loss, gradients, batch-norm averages) of two ``mesmer_result``
+    results, as phase (l2) measures them."""
+    import torch
+
+    check(np.array_equal(got["unreached"], want["unreached"]),
+          "multi-GPU Mesmer: the unreached parameters differ")
+
+    def grads(m):
+        out = {k[len("grad/"):]: torch.as_tensor(v) for k, v in m.items()
+               if k.startswith("grad/")}
+        out.update({k: None for k in m["unreached"]})
+        return out
+
+    loss = abs(float(got["loss"]) - float(want["loss"])) / abs(float(want["loss"]))
+    stats = max(float(np.max(np.abs(got[k] - v) / np.maximum(np.abs(v), 1.0)))
+                for k, v in want.items() if k.startswith("stat/"))
+    return loss, gradient_errors(grads(got), grads(want)), stats
+
+
+def check_mesmer(got, want, what):
+    loss, grad, stats = mesmer_differences(got, want)
+    check(loss <= STEP_LOSS_RTOL, f"multi-GPU Mesmer {what}: loss {loss}")
+    check(grad <= MESMER_GRAD_RTOL, f"multi-GPU Mesmer {what}: gradients {grad}")
+    check(stats <= STEP_BN_TOL, f"multi-GPU Mesmer {what}: batch-norm averages {stats}")
+    return loss, grad, stats
+
+
+def compare_world_sizes(one, two, som_rows):
+    """Two gloo ranks sharing the card against one NCCL rank: the per-FOV
+    stages bitwise, the rest by the tolerances above (Mesmer's step in
+    ``run_multi_gpu``). Returns the measured differences."""
+    import torch
+
+    for stage in BITWISE_STAGES:
+        for k, v in one[stage].items():
+            check(np.array_equal(two[stage][k], v),
+                  f"multi-GPU {stage} {k}: 2 ranks differ from 1")
+    errs = {}
+    errs["som step"] = float(np.abs(two["som"]["w1"] - one["som"]["w1"]).max())
+    check(errs["som step"] <= SOM_STEP_ATOL, f"multi-GPU SOM step: {errs['som step']}")
+
+    def quantization_error(w):
+        x = torch.as_tensor(som_rows)
+        d2 = plain_d(torch.as_tensor(w), x).min(dim=1).values + (x * x).sum(1)
+        return float(torch.sqrt(torch.clamp_min(d2, 0)).mean())
+
+    qe1, qe2 = quantization_error(one["som"]["w_trained"]), quantization_error(
+        two["som"]["w_trained"])
+    errs["som qe"] = abs(qe2 - qe1) / qe1
+    check(errs["som qe"] <= SOM_QE_RTOL, f"multi-GPU SOM schedule: quantization error "
+                                         f"{qe2} at 2 ranks against {qe1} at 1")
+    errs["lda"] = max(float(np.max(np.abs(two["lda"][k] - v) / np.abs(v)))
+                      for k, v in one["lda"].items())
+    check(errs["lda"] <= LDA_SPLIT_RTOL, f"multi-GPU LDA step: {errs['lda']}")
+    emb1, emb2 = one["umap"]["emb"], two["umap"]["emb"]
+    limit = UMAP_SPLIT_ULPS * float(np.spacing(np.abs(emb1).max()))
+    errs["umap"] = float(np.abs(emb2 - emb1).max())
+    check(errs["umap"] <= limit, f"multi-GPU UMAP epoch: {errs['umap']} > {limit}")
+    return errs
+
+
+def run_multi_gpu(inp):
+    """Phase (n): graft_entry.dryrun_multigpu on `inp` at NCCL world size 1,
+    then at gloo world size 2 with both ranks on the card; every rank must
+    agree, 2 ranks must agree with 1 and 1 with the single-process port,
+    and both UMAP epochs and Mesmer steps with their plain versions.
+    Prints each run's seconds by stage and in collectives. Returns the
+    kernels' launches in both runs, summed over the ranks."""
+    import torch
+
+    from ark_tpu_torch import graft_entry
+
+    torch.cuda.empty_cache()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "inputs.npz")
+        t0 = time.perf_counter()
+        np.savez(path, **inp)
+        write_s = time.perf_counter() - t0
+        for ws, backend in MULTI_GPU_RUNS:
+            runs[ws] = graft_entry.dryrun_multigpu(
+                ws, backend=backend, device=MULTI_GPU_DEVICE, mini=MULTI_GPU_MINI,
+                inputs=path, timeout_s=MULTI_GPU_TIMEOUT_S)
+    one, two = runs[1], runs[2]
+    lda_ref_err = multi_gpu_references(inp, one)
+    n_rows = len(inp["som_data"])
+    sample = np.random.default_rng(62).choice(n_rows, min(n_rows, 20_000), replace=False)
+    errs = compare_world_sizes(one, two, inp["som_data"][sample])
+    emb64 = plain_umap_epoch(inp)
+    umap_limit = UMAP_F64_ULPS * float(np.spacing(np.float32(np.abs(emb64).max())))
+    umap_errs = {ws: float(np.abs(runs[ws]["umap"]["emb"] - emb64).max()) for ws in runs}
+    for ws, err in umap_errs.items():
+        check(err <= umap_limit, f"multi-GPU UMAP epoch: {ws} rank(s) differ from the "
+                                 f"float64 plain epoch by {err} > {umap_limit}")
+    plain, reversed_ = plain_mesmer(inp)
+    noise = mesmer_differences(reversed_, plain)
+    mesmer_errs = {"1 rank vs plain": check_mesmer(one["mesmer"], plain, "1 rank vs plain"),
+                   "2 ranks vs plain": check_mesmer(two["mesmer"], plain, "2 ranks vs plain"),
+                   "2 ranks vs 1": check_mesmer(two["mesmer"], one["mesmer"], "2 ranks vs 1")}
+    n_pix = len(inp["pixel_imgs"])
+    for ws, backend in MULTI_GPU_RUNS:
+        res = runs[ws]
+        stage_s = res["rank_seconds"][0]
+        coll_s = res["rank_collective_seconds"][0]
+        print(f"multi-GPU {backend} world size {ws} on {MULTI_GPU_DEVICE} [{CARD}]: "
+              f"{res['wall_s']:.2f} s spawn to join; rank 0 seconds by stage "
+              + ", ".join(f"{k} {v:.4f} (collectives {coll_s[k]:.4f})"
+                          for k, v in stage_s.items())
+              + f"; pixel cohort {n_pix / stage_s['pixel']:.2f} FOVs/s; Mesmer step "
+              f"{stage_s['mesmer'] * 1e3:.1f} ms; collectives per rank "
+              f"{[c['calls'] for c in res['collectives']]} calls, "
+              f"{[round(c['bytes'] / 2 ** 20, 1) for c in res['collectives']]} MiB, "
+              f"{[round(c['seconds'], 4) for c in res['collectives']]} s; launches per rank "
+              f"{res['launches']}")
+    print(f"multi-GPU checks [{CARD}]: every rank agrees; {', '.join(BITWISE_STAGES)} "
+          f"bitwise at 2 ranks and 1; at 1 rank against the single-process port: the "
+          f"pixel cohort (every FOV), the SOM schedule and step, FOV 0's quantification, "
+          f"enrichment null and fiber and both floods bitwise, LDA within "
+          f"{lda_ref_err:.3g}; 2 ranks against 1: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + "; UMAP epoch against the float64 plain epoch "
+          + ", ".join(f"{ws} rank(s) {v:.3g}" for ws, v in umap_errs.items())
+          + f" (limit {umap_limit:.3g}); Mesmer step (loss, gradients, averages) "
+          + ", ".join(f"{k} ({', '.join(f'{v:.3g}' for v in e)})"
+                      for k, e in mesmer_errs.items())
+          + f", gradient limit {MESMER_GRAD_RTOL}; diagnostic: the plain step against "
+          f"itself on the batch reversed (" + ", ".join(f"{v:.3g}" for v in noise) + ")"
+          + f"; inputs written in {write_s:.2f} s "
+          f"({sum(v.nbytes for v in inp.values()) / 2 ** 30:.2f} GiB)")
+    totals = {k: sum(r[k] for res in runs.values() for r in res["launches"])
+              for k in COUNTED_KERNELS}
+    check(all(v > 0 for v in totals.values()),
+          f"multi-GPU: a kernel of the sharded paths never launched: {totals}")
+    return totals
+
+
 def main() -> int:
     # cuBLAS reads its workspace setting when its handle is made; phase (l)
     # runs a step under torch.use_deterministic_algorithms, which needs it
@@ -3309,7 +3707,7 @@ def main() -> int:
     # the pixel stage (template 2)
     rng = np.random.default_rng(42)
     max_err, timing = check_kernel(rng)
-    bmu_launches, pixel_assigned = run_pixel_stage(missing)
+    bmu_launches, pixel_assigned, pixel_out = run_pixel_stage(missing)
     compare_pixel_cpu_cuda()
 
     section_done("pixel stage")
@@ -3381,7 +3779,7 @@ def main() -> int:
     section_done("cluster masks and embeddings")
 
     # spatial LDA on phase (c)'s cohort
-    run_spatial_lda(spatial)
+    lda_got = run_spatial_lda(spatial)[1]
     section_done("spatial LDA")
 
     # Mesmer training and weight conversion
@@ -3393,6 +3791,15 @@ def main() -> int:
     (bmu_m_launches, claim_m_launches, seg_m_launches,
      plan_m_launches) = run_single_card_modules()[-1]
     section_done("single-card modules")
+
+    # the multi-process layer: dryrun_multigpu at full width, 1 NCCL rank and
+    # 2 gloo ranks sharing the card
+    if pixel_out is None:
+        pixel_out = drive_slice(make_cohort(np.random.default_rng(7), 4, 1024), "cuda")
+    multi = run_multi_gpu(multi_gpu_inputs(
+        pixel_out, app, cohorts["8x512"][0], dense, cohort, spatial, lda_got, fiber_fov,
+        cell_counts))
+    section_done("multi-GPU")
     print("smoke run seconds by section (host clock, CPU replays included): "
           + ", ".join(f"{k} {v:.1f}" for k, v in sections.items()))
 
@@ -3402,7 +3809,8 @@ def main() -> int:
         "name": "bmu", "route": "cuda", "source": "ark_tpu_torch/csrc/bmu.cu",
         "replaces": "ark_tpu/ops/som.py:132", "launches": bmu_launches,
         "launches_by_path": {"pixel": bmu_launches,
-                             "single_card_modules": bmu_m_launches},
+                             "single_card_modules": bmu_m_launches,
+                             "multi_gpu": multi["bmu"]},
         "max_abs_err": max_err, "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None}, {
@@ -3411,7 +3819,8 @@ def main() -> int:
         "replaces": "ark_tpu/ops/watershed.py:173", "launches": claim_launches,
         "launches_by_path": {"segmentation": claim_launches,
                              "training_held_out": claim_train_launches,
-                             "single_card_modules": claim_m_launches},
+                             "single_card_modules": claim_m_launches,
+                             "multi_gpu": multi["claim_round"]},
         "max_abs_err": claim_err, "ms": claim_ms["ms"],
         "plain_ms": claim_ms["plain_ms"], "bound_ms": claim_ms["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {
@@ -3419,7 +3828,8 @@ def main() -> int:
         "source": "ark_tpu_torch/csrc/segment_sum.cu",
         "replaces": "ark_tpu/ops/segment_reduce.py:44", "launches": seg_launches,
         "launches_by_path": {"cell_table": seg_launches, "fiber": fiber_launches,
-                             "umap": umap_launches, "single_card_modules": seg_m_launches},
+                             "umap": umap_launches, "single_card_modules": seg_m_launches,
+                             "multi_gpu": multi["segment_sum"]},
         "max_abs_err": max(seg_err, edge_err), "ms": seg_ms["ms"],
         "plain_ms": seg_ms["plain_ms"], "bound_ms": seg_ms["bound_ms"],
         "bound_by": "bytes", "library_ms": seg_ms["library_ms"],
@@ -3433,7 +3843,8 @@ def main() -> int:
         "replaces": "ark_tpu/ops/segment_reduce.py:44", "launches": plan_launches,
         "launches_by_path": {"cell_table": plan_launches, "fiber": fiber_plan_launches,
                              "umap": umap_plan_launches,
-                             "single_card_modules": plan_m_launches},
+                             "single_card_modules": plan_m_launches,
+                             "multi_gpu": multi["segment_plan"]},
         "max_abs_err": plan_err, "ms": seg_ms["plan_ms"],
         "plain_ms": seg_ms["plain_plan_ms"], "bound_ms": seg_ms["plan_bound_ms"],
         "bound_by": "bytes", "library_ms": None}]}))
