@@ -1,6 +1,8 @@
-"""Image save/load built on imageio: the port's copy of
-``ark_tpu/io/image_utils.py``. imageio is imported inside each function, so
-that the modules which import this one load on a machine without it."""
+"""Image save/load: the port's copy of ``ark_tpu/io/image_utils.py`` over
+its own TIFF codec (``ark_tpu_torch.io.tiff``), which writes the bytes the
+JAX package's imageio writer writes and reads the TIFF layouts its module
+docstring lists as imageio reads them. TIFF is the only format: where the
+JAX package's imageio also reads and writes PNG and JPEG, these raise."""
 
 from __future__ import annotations
 
@@ -8,14 +10,26 @@ import os
 
 import numpy as np
 
+from ark_tpu_torch.io import tiff
+
+TIFF_EXTENSIONS = (".tif", ".tiff")
+
+
+def check_tiff_name(fname: str) -> None:
+    """Raise a ValueError unless `fname` ends in .tif or .tiff (any case)."""
+    ext = os.path.splitext(fname)[1]
+    if ext.lower() not in TIFF_EXTENSIONS:
+        raise ValueError(f"{fname}: the port reads and writes TIFF only (.tif, .tiff), "
+                         f"not {ext or 'a name without an extension'}")
+
 
 def save_image(fname: str, data: np.ndarray, compression_level=None):
-    """Save a 2-D (or HxWxC) image array to `fname` (TIFF/PNG by extension).
+    """Save a 2-D image or a channels-first stack to `fname`, a .tif or
+    .tiff name, as TIFF.
 
     float64 is saved as float32, int64 as int32, bool as uint8.
     """
-    import imageio.v3 as iio
-
+    check_tiff_name(fname)
     data = np.asarray(data)
     if data.dtype == np.float64:
         data = data.astype(np.float32)
@@ -24,11 +38,9 @@ def save_image(fname: str, data: np.ndarray, compression_level=None):
     if data.dtype == bool:
         data = data.astype(np.uint8)
     os.makedirs(os.path.dirname(os.path.abspath(fname)), exist_ok=True)
-    iio.imwrite(fname, data)
+    tiff.write(fname, data)
 
 
 def read_image(fname: str) -> np.ndarray:
-    """Read an image file into a numpy array (dtype preserved for TIFF)."""
-    import imageio.v3 as iio
-
-    return np.asarray(iio.imread(fname))
+    """Read a TIFF into a numpy array (dtype preserved)."""
+    return tiff.read(fname)

@@ -5,8 +5,8 @@ pipelines call (``load_imgs_from_tree``, ``load_imgs_from_dir``,
 ``load_imgs_from_mibitiff``) and the tiled-grid loader of the stitcher
 (``get_tiled_fov_names``, ``load_tiled_img_data``), returning the port's
 ``DataArray``. TIFFs are
-read through ``image_utils.read_image``, which imports imageio inside, and
-the header scan imports PIL inside ``load_imgs_from_tree``.
+read through the port's codec (``image_utils.read_image``; the size scan of
+``load_imgs_from_tree`` reads headers only, ``tiff.shape_dtype``).
 
 Expected tree layout:
     data_dir/
@@ -23,7 +23,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from ark_tpu_torch.io import io_utils
+from ark_tpu_torch.io import io_utils, tiff
 from ark_tpu_torch.io.image_utils import read_image
 from ark_tpu_torch.io.ome_utils import _read_channel_names
 from ark_tpu_torch.utils.labeled_array import DataArray
@@ -71,15 +71,12 @@ def load_imgs_from_tree(data_dir: str, img_sub_folder: Optional[str] = None,
     if len(channel_files) == 0:
         raise ValueError(f"No channel images found in {first_dir}")
 
-    # header-only size scan (PIL opens lazily), so the output is allocated
-    # once and filled FOV by FOV
-    from PIL import Image
-
+    # header-only size scan, so the output is allocated once and filled FOV
+    # by FOV
     max_h = max_w = 0
     for fov in fovs:
         path = os.path.join(data_dir, fov, img_sub_folder, channel_files[0])
-        with Image.open(path) as im:
-            w, h = im.size
+        h, w = tiff.shape_dtype(path)[0][:2]
         max_h, max_w = max(max_h, h), max(max_w, w)
     if max_image_size is not None:
         max_h = max_w = max_image_size

@@ -2,12 +2,19 @@
 `alpineer.load_utils.{fov_to_ome, ome_to_fov}` surface of
 `templates/OME-TIFF_Conversion.ipynb`).
 
-The port's copy of ``ark_tpu/io/ome_utils.py``, host code: it writes
-multi-page TIFFs with a minimal OME-XML header carrying the channel names
-and a ``.channels.txt`` sidecar, and reads them (or any channels-first
-multi-page TIFF) back into a channel tree. Files written by either package
-read the same in the other. imageio is imported inside the functions that
-read or write TIFFs.
+The port's copy of ``ark_tpu/io/ome_utils.py``, host code over the port's
+TIFF codec: ``fov_to_ome`` writes a channels-first multi-page TIFF and a
+``.channels.txt`` sidecar with the channel names; ``ome_to_fov`` reads it,
+or any OME-TIFF or channels-first multi-page TIFF the codec reads, back
+into a channel tree. Files written by either package read the same in the
+other.
+
+The JAX package hands its minimal OME-XML header (``_ome_xml``) to
+imageio's TIFF writer and writes the stack without it where that writer
+takes no description, as imageio 2.37's does. ``OME_XML`` picks the same
+branch here: False (the default) writes the JAX package's bytes on such an
+imageio; True writes the header as tifffile's ``save(description=...)``
+does, the file imageio writes when the writer takes it.
 """
 
 from __future__ import annotations
@@ -20,8 +27,11 @@ from typing import List, Optional
 
 import numpy as np
 
-from ark_tpu_torch.io import io_utils
+from ark_tpu_torch.io import io_utils, tiff
 from ark_tpu_torch.io.image_utils import read_image, save_image
+
+# write _ome_xml's header into fov_to_ome's files (see the module docstring)
+OME_XML = False
 
 
 def _ome_xml(channel_names: List[str], shape, dtype) -> str:
@@ -43,8 +53,6 @@ def fov_to_ome(fov_dir: str, ome_save_dir: str,
                img_sub_folder: Optional[str] = None,
                fov_name: Optional[str] = None) -> str:
     """Bundle one FOV's channel TIFF tree into a single `<fov>.ome.tiff`."""
-    import imageio.v3 as iio
-
     io_utils.validate_paths([fov_dir])
     chan_dir = os.path.join(fov_dir, img_sub_folder or "")
     files = io_utils.list_files(chan_dir, substrs=[".tiff", ".tif"])
@@ -53,12 +61,8 @@ def fov_to_ome(fov_dir: str, ome_save_dir: str,
     fov_name = fov_name or os.path.basename(os.path.normpath(fov_dir))
     os.makedirs(ome_save_dir, exist_ok=True)
     out_path = os.path.join(ome_save_dir, f"{fov_name}.ome.tiff")
-    try:
-        iio.imwrite(out_path, stack, description=_ome_xml(
-            channels, stack.shape[1:], stack.dtype))
-    except TypeError:
-        # this imageio TIFF writer has no description kwarg
-        iio.imwrite(out_path, stack)
+    tiff.write(out_path, stack, description=_ome_xml(
+        channels, stack.shape[1:], stack.dtype) if OME_XML else None)
     # sidecar with channel names (robust to TIFF-tag roundtrip limitations)
     with open(out_path + ".channels.txt", "w") as f:
         f.write("\n".join(channels))
@@ -73,9 +77,7 @@ def _read_channel_names(ome_path: str, n_channels: int) -> List[str]:
         with open(sidecar) as f:
             return f.read().splitlines()
     try:
-        import imageio.v3 as iio
-
-        desc = iio.immeta(ome_path).get("description", "") or ""
+        desc = tiff.description(ome_path)
         names = re.findall(r'Name="([^"]+)"', desc)
         if len(names) == n_channels:
             return names

@@ -1,7 +1,7 @@
 """Cell consensus (meta) clustering and the metacluster-GUI remap.
 
 Port of ``ark_tpu/phenotyping/cell_meta_clustering.py``: host pandas and the
-port's ``PixieConsensusCluster`` (sklearn), fully in memory (cell tables are
+port's ``PixieConsensusCluster`` (Ward over scipy), fully in memory (cell tables are
 small).
 """
 

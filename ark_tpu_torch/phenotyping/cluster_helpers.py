@@ -3,9 +3,11 @@
 Port of ``ark_tpu/phenotyping/cluster_helpers.py``: ``PixieSOMCluster``
 (train/map), ``PixelSOMCluster`` (channel-norm-file division),
 ``CellSOMCluster`` (99.9% nonzero-quantile column normalization),
-``ConsensusCluster`` (Monti et al. consensus clustering, numpy and sklearn as
-in the JAX package) and ``PixieConsensusCluster`` (z-score/cap and the
-SOM->meta mapping, 1-indexed). The SOM trains and maps on the object's
+``ConsensusCluster`` (Monti et al. consensus clustering, numpy as in the JAX
+package), ``WardClustering`` (sklearn's ``AgglomerativeClustering`` with Ward
+linkage and no connectivity: scipy's ``ward`` tree cut as sklearn cuts it)
+and ``PixieConsensusCluster`` (z-score/cap and the SOM->meta mapping,
+1-indexed). The SOM trains and maps on the object's
 ``device`` through ``ark_tpu_torch.ops.som``; on a CUDA device the mapping
 runs the hand-written BMU kernel. Files go through the port's own
 ``ark_tpu_torch.io``.
@@ -13,6 +15,7 @@ runs the hand-written BMU kernel. Files go through the port's own
 
 from __future__ import annotations
 
+import heapq
 import os
 import pathlib
 import warnings
@@ -214,13 +217,72 @@ class CellSOMCluster(PixieSOMCluster):
 class ClusterClassTemplate(Protocol):
     """Structural type for the base clusterer handed to consensus clustering
     (reference `cluster_helpers.py:421-425`): anything exposing
-    `fit_predict()` and `n_clusters` (e.g. sklearn AgglomerativeClustering).
+    `fit_predict()` and `n_clusters` (e.g. ``WardClustering``, or sklearn's
+    AgglomerativeClustering).
     """
 
     def fit_predict(self) -> None: ...
 
     @property
     def n_clusters(self) -> int: ...
+
+
+class WardClustering:
+    """Ward agglomerative clustering of the rows of X into `n_clusters`: the
+    labels ``sklearn.cluster.AgglomerativeClustering(n_clusters)`` gives
+    (Ward linkage, no connectivity matrix). sklearn builds the whole tree
+    with ``scipy.cluster.hierarchy.ward`` and cuts it with ``_hc_cut``; so
+    does this class, with its own copy of the cut."""
+
+    def __init__(self, n_clusters: int = 2):
+        self.n_clusters = n_clusters
+
+    def fit(self, X, y=None) -> "WardClustering":
+        from scipy.cluster import hierarchy
+
+        if not isinstance(self.n_clusters, (int, np.integer)) or self.n_clusters < 1:
+            raise ValueError(f"n_clusters must be an int >= 1, got {self.n_clusters!r}")
+        X = np.asarray(X)
+        if X.dtype not in (np.float32, np.float64):
+            X = X.astype(np.float64)
+        if X.ndim != 2 or X.shape[0] < 2 or X.shape[1] < 1:
+            raise ValueError(f"Found array with shape {X.shape}: Ward clustering needs "
+                             f"a 2-D array of at least 2 samples and 1 feature")
+        if not np.isfinite(X).all():
+            raise ValueError("Input X contains NaN or infinity.")
+        tree = hierarchy.ward(np.require(X, requirements="W"))
+        self.children_ = tree[:, :2].astype(np.intp)
+        self.n_leaves_ = X.shape[0]
+        self.labels_ = _hc_cut(self.n_clusters, self.children_, self.n_leaves_)
+        return self
+
+    def fit_predict(self, X, y=None) -> np.ndarray:
+        return self.fit(X).labels_
+
+
+def _hc_cut(n_clusters: int, children: np.ndarray, n_leaves: int) -> np.ndarray:
+    """sklearn's cut of a merge tree: pop the largest node from a heap of
+    negated ids `n_clusters` - 1 times, pushing its two children, then
+    label each remaining node's leaves by its place in the heap."""
+    if n_clusters > n_leaves:
+        raise ValueError(f"Cannot extract more clusters than samples: {n_clusters} "
+                         f"clusters were given for a tree with {n_leaves} leaves.")
+    nodes = [-(max(children[-1]) + 1)]
+    for _ in range(n_clusters - 1):
+        pair = children[-nodes[0] - n_leaves]
+        heapq.heappush(nodes, -pair[0])
+        heapq.heappushpop(nodes, -pair[1])
+    label = np.zeros(n_leaves, dtype=np.intp)
+    for i, node in enumerate(nodes):
+        stack, leaves = [-node], []
+        while stack:
+            top = stack.pop()
+            if top < n_leaves:
+                leaves.append(top)
+            else:
+                stack.extend(children[top - n_leaves])
+        label[leaves] = i
+    return label
 
 
 class ConsensusCluster:
@@ -304,8 +366,6 @@ class PixieConsensusCluster:
 
     def __init__(self, cluster_type: str, input_file: pathlib.Path,
                  columns: List[str], max_k: int = 20, cap: float = 3):
-        from sklearn.cluster import AgglomerativeClustering
-
         verify_in_list(provided_cluster_type=cluster_type,
                        supported_cluster_types=["pixel", "cell"])
         validate_paths([input_file])
@@ -318,7 +378,7 @@ class PixieConsensusCluster:
         self.max_k = max_k
         self.cap = cap
         # H=10 / 0.8 mirror ConsensusClusterPlus defaults (reference :615-623)
-        self.cc = ConsensusCluster(cluster=AgglomerativeClustering,
+        self.cc = ConsensusCluster(cluster=WardClustering,
                                    L=max_k, K=max_k, H=10,
                                    resample_proportion=0.8)
         self.mapping = None
@@ -336,7 +396,7 @@ class PixieConsensusCluster:
             self.input_data[self.columns])
         self.mapping = self.input_data[[self.som_col, self.meta_col]].copy()
         self.mapping = self.mapping.astype(int)
-        # clusters are 1-indexed; correct for sklearn's 0-indexing
+        # clusters are 1-indexed; correct for the 0-indexed labels
         self.mapping.loc[:, self.meta_col] += 1
 
     def save_som_to_meta_map(self, save_path: pathlib.Path):

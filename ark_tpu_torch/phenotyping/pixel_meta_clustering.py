@@ -1,7 +1,7 @@
 """Pixel consensus (meta) clustering + GUI remap application.
 
 Port of ``ark_tpu/phenotyping/pixel_meta_clustering.py``: host code (numpy,
-sklearn, pandas, feathers) over the port's ``cluster_helpers``. Per-FOV
+scipy's Ward tree, pandas, feathers) over the port's ``cluster_helpers``. Per-FOV
 label assignment writes to `<data_dir>_temp` then atomically swaps,
 preserving the reference's resume semantics."""
 

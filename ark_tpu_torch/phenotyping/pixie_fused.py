@@ -29,10 +29,9 @@ past the host budget take the write-now-append-meta-later path; outputs are
 identical either way. A device-to-host copy is a pinned ``non_blocking`` copy
 with a CUDA event (``_HostCopy``).
 
-Host IO is the port's ``ark_tpu_torch.io``, which imports imageio only
-inside the functions that read or write TIFFs, and sklearn is imported only
-by consensus clustering, so the device phases import, and run, on a GPU host
-without the TIFF and sklearn stack.
+Host IO is the port's ``ark_tpu_torch.io`` (its own TIFF codec, pyarrow
+feathers) and consensus clustering is the port's Ward over scipy, so the
+whole entry point runs on a GPU host without imageio, PIL or sklearn.
 """
 
 from __future__ import annotations

@@ -7,9 +7,7 @@ on the host when the feather DataFrame is built. The channel-norm divide
 stays on the host (``channel_norm_divide``): the artifact contract is
 f32(f64 divide).
 
-Host IO is the port's ``ark_tpu_torch.io``, which imports imageio only
-inside the functions that read or write TIFFs, so the device functions here
-import, and run, on a GPU host without the TIFF stack.
+Host IO is the port's ``ark_tpu_torch.io``, with its own TIFF codec.
 
 File/resume contract preserved: per-FOV `.feather` files in `data_dir` and
 `subset_dir`, `channel_norm_pre_rownorm.feather`, `pixel_thresh.feather`, the

@@ -7,10 +7,8 @@ segment-sum kernel), so the cell table is the JAX package's bit for bit in
 its sums; the convex-hull rasters run on `device` too, and the concavity
 counts and the table assembly on the host. The output has the schema and
 column order of ``ark_tpu_torch.settings`` (the JAX package's) in the port's
-``DataArray``. Files go through ``ark_tpu_torch.io``, which imports imageio
-only inside its TIFF functions, so the in-memory entry points
-(``compute_marker_counts``, ``create_marker_count_matrices``) also run
-where imageio is absent.
+``DataArray``. Files go through ``ark_tpu_torch.io`` and its own TIFF
+codec.
 
 ``timings``, where a function takes it, is a dict that collects seconds per
 phase: ``device_reductions_s`` (uploads, segment reductions and their

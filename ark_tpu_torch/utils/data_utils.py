@@ -30,7 +30,7 @@ import torch
 from ark_tpu_torch import settings
 from ark_tpu_torch.io import feather_utils as feather
 from ark_tpu_torch.io import io_utils, load_utils
-from ark_tpu_torch.io.image_utils import read_image, save_image
+from ark_tpu_torch.io.image_utils import check_tiff_name, read_image, save_image
 from ark_tpu_torch.io.io_utils import natsorted
 from ark_tpu_torch.ops import morphology, relabel
 from ark_tpu_torch.utils.labeled_array import DataArray
@@ -387,6 +387,11 @@ def stitch_images_by_shape(data_dir, stitched_dir, img_sub_folder=None,
                        valid_channels=io_utils.remove_file_extensions(
                            channel_imgs))
     file_ext = os.path.splitext(channel_imgs[0])[1]
+    # the tiles read and the first, whose extension the stitched files take,
+    # are TIFFs: checked before any directory is made
+    for name in channel_imgs:
+        if name == channel_imgs[0] or io_utils.remove_file_extensions([name])[0] in channels:
+            check_tiff_name(name)
 
     _, dims = load_utils.get_tiled_fov_names(fovs, return_dims=True)
     for chan, (prefix, num_rows, num_cols) in itertools.product(channels, dims):

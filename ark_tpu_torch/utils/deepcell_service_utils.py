@@ -7,13 +7,13 @@ writes the 2-channel inputs, ``create_deepcell_output`` segments every
 and writes ``<fov>_whole_cell.tiff`` / ``<fov>_nuclear.tiff`` int32 masks,
 and ``zip_input_files``, ``run_deepcell_direct`` and
 ``extract_deepcell_response`` keep the service's zip round trip. Files go
-through the port's ``ark_tpu_torch.io``; PIL and imageio are imported
-inside the functions that use them.
+through the port's ``ark_tpu_torch.io`` and its TIFF codec, the zips'
+members too (the JAX package writes its response masks with PIL; the
+codec's layout of the same int32 masks decodes to the same arrays).
 """
 
 from __future__ import annotations
 
-import io
 import os
 import warnings
 from typing import Optional
@@ -21,7 +21,7 @@ from zipfile import ZIP_DEFLATED, ZipFile
 
 import numpy as np
 
-from ark_tpu_torch.io import io_utils, load_utils
+from ark_tpu_torch.io import io_utils, load_utils, tiff
 from ark_tpu_torch.io.image_utils import read_image, save_image
 from ark_tpu_torch.utils.misc_utils import verify_in_list
 
@@ -90,8 +90,6 @@ def run_deepcell_direct(input_dir, output_dir, host=None, job_type="mesmer",
     write `deepcell_response_fovs_batch_<n>.zip` of `<fov>_feature_0.tif` /
     `<fov>_feature_1.tif` masks to `output_dir`. `host` and `timeout` are
     accepted and ignored."""
-    from PIL import Image
-
     from ark_tpu_torch.segmentation.mesmer import Mesmer
 
     batch_name = os.path.splitext(os.path.basename(input_dir))[0]
@@ -110,9 +108,8 @@ def run_deepcell_direct(input_dir, output_dir, host=None, job_type="mesmer",
     with ZipFile(out_zip, "w", compression=ZIP_DEFLATED) as zout:
         for i, fov in enumerate(fov_names):
             for feature, key in ((0, "whole_cell"), (1, "nuclear")):
-                buf = io.BytesIO()
-                Image.fromarray(preds[key][i].astype(np.int32)).save(buf, format="TIFF")
-                zout.writestr(f"{fov}_feature_{feature}.tif", buf.getvalue())
+                zout.writestr(f"{fov}_feature_{feature}.tif",
+                              tiff.encode(preds[key][i].astype(np.int32)))
     return 0
 
 
@@ -143,12 +140,9 @@ def extract_deepcell_response(deepcell_output_dir, fov_group, batch_num,
 
 
 def read_image_bytes(data: bytes) -> np.ndarray:
-    """Decode an in-memory TIFF (all pages) to an ndarray."""
-    from PIL import Image, ImageSequence
-
-    img = Image.open(io.BytesIO(data))
-    frames = [np.asarray(f) for f in ImageSequence.Iterator(img)]
-    return frames[0] if len(frames) == 1 else np.stack(frames)
+    """Decode an in-memory TIFF (its first series: every page of a stack)
+    to an ndarray."""
+    return tiff.decode(data)
 
 
 def create_deepcell_output(deepcell_input_dir, deepcell_output_dir, fovs=None,

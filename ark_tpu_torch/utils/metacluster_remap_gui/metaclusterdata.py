@@ -9,6 +9,21 @@ from __future__ import annotations
 
 from pathlib import Path
 
+import numpy as np
+
+
+def cosine_similarity(X) -> np.ndarray:
+    """``sklearn.metrics.pairwise.cosine_similarity(X)`` in its order of
+    operations: rows over their norms (norms under 10 eps taken as 1), then
+    the product of the normalized rows with their transpose."""
+    X = np.asarray(X)
+    if X.dtype not in (np.float32, np.float64):
+        X = X.astype(np.float64)
+    norms = np.sqrt(np.einsum("ij,ij->i", X, X))
+    norms[norms < 10 * np.finfo(norms.dtype).eps] = 1.0
+    normalized = X / norms[:, None]
+    return normalized @ normalized.T
+
 
 class MetaClusterData:
     """Remapping session state: expression + mapping + names + persistence."""
@@ -73,7 +88,6 @@ class MetaClusterData:
     @property
     def linkage_matrix(self):
         from scipy.cluster.hierarchy import ward
-        from sklearn.metrics.pairwise import cosine_similarity
         return ward(cosine_similarity(self.clusters.T.values))
 
     # ---- names -----------------------------------------------------------

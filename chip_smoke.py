@@ -8,8 +8,10 @@ It builds the port's CUDA kernels (ark_tpu_torch/csrc/*.cu, one nvcc each,
 started together) and drives these paths on the card:
 
 - the Pixie pixel clustering stage (template 2): the BMU kernel against its
-  plain torch version at the stage's shapes, the stage at 4 x 1024^2 x 16,
-  and a small cohort's CPU and CUDA runs;
+  plain torch version at the stage's shapes, run_pixel_clustering (consensus
+  included) from 4 x 1024^2 x 16 channel TIFFs written by the port's codec,
+  then the pixel masks, held bitwise to the same device phases run in memory
+  (``drive_slice``), and a small cohort's CPU and CUDA runs;
 - Mesmer segmentation (template 1): the watershed claim kernel against its
   plain round, the published full-width network with seeded weights
   (forward in bf16 and in f32, then the host postprocess), the trained mini
@@ -91,6 +93,14 @@ started together) and drives these paths on the card:
   stage's preprocessing, equal to a sequential loop and timed against it;
   (m4) the profiler's trace() around one such step, its Chrome trace
   holding CUDA kernel events;
+- the templates' file entry points, from TIFFs: (o) phase 8's planted
+  3 x 1024^2 cohort with phase 12's 40 marker channels written as a channel
+  tree, through generate_deepcell_input, create_deepcell_output,
+  generate_cell_table, the generic cell clustering template's SOM and
+  consensus, the cell-cluster masks, calc_dist_matrix with the neighborhood
+  matrix, run_fiber_segmentation on phase (f)'s FOV and an OME round trip
+  (seconds per step and in the TIFF codec), every output held to the same
+  calls on the same arrays in memory;
 - the multi-process layer on torch.distributed: (n) graft_entry.
   dryrun_multigpu on full-width inputs of the phases above (the published
   network's SGD step on phase (l1)'s batch, the sharded SOM schedule and
@@ -433,6 +443,7 @@ def drive_slice(raws, device, seed=42, blur_factor=2, subset_proportion=0.1,
     BMU assignment. Returns the weights, the 1-indexed labels, the flat
     indices of the pixels they belong to and the BMU input rows per FOV,
     and the per-phase seconds."""
+    import pandas as pd
     import torch
 
     from ark_tpu_torch.ops import som
@@ -451,7 +462,7 @@ def drive_slice(raws, device, seed=42, blur_factor=2, subset_proportion=0.1,
     vals = np.stack([v.cpu().numpy() for v, _ in stats]).astype(np.float64)
     haspos = np.stack([h.cpu().numpy() for _, h in stats])
     norm_pre = np.array([np.mean(vals[haspos[:, c], c])
-                         for c in range(len(CHANNELS))])
+                         for c in range(raws[0].shape[-1])])
     mark("chan_percentiles_s", t0)
 
     t0 = time.perf_counter()
@@ -490,13 +501,14 @@ def drive_slice(raws, device, seed=42, blur_factor=2, subset_proportion=0.1,
         fov_q.append(pixie_fused._fov_quantiles(
             sorted_cols, counts.cpu().numpy(), len(keep), q_post))
         kept.append(norm_keep)
-    norm_post = np.mean(np.stack(fov_q).astype(np.float64), axis=0)
+    # pandas' mean of the per-FOV quantiles, as the driver takes it: its
+    # dtype (f32 where a FOV's column holds zeros) sets the divide's
+    norm_post = pd.DataFrame(dict(enumerate(fov_q))).mean(axis=1).to_numpy()
     del parts
     mark("subset_quantiles_s", t0)
 
     t0 = time.perf_counter()
-    train = (np.concatenate(subsets).astype(np.float64) / norm_post
-             ).astype(np.float32)
+    train = (np.concatenate(subsets) / norm_post).astype(np.float32)
     weights = som.som_train(train, xdim=xdim, ydim=ydim, seed=seed,
                             device=device)
     mark("som_train_s", t0)
@@ -526,91 +538,199 @@ def check_slice_outputs(out, n_nodes):
               f"labels outside 1..{n_nodes}")
 
 
-def run_full_driver(raws, device):
-    """All host packages present: run_pixel_clustering on a TIFF cohort in a
-    temp dir and check its artifacts."""
-    from ark_tpu_torch.io import feather_utils as feather
+class TiffClock:
+    """Seconds spent in the port's TIFF codec (``ark_tpu_torch.io.tiff``'s
+    public functions, the outermost call only) while the clock is entered."""
+
+    NAMES = ("read", "write", "decode", "encode", "shape_dtype", "description")
+
+    def __init__(self):
+        self.seconds = 0.0
+        self._depth = 0
+        self._saved = {}
+
+    def _wrap(self, fn):
+        def timed(*args, **kwargs):
+            self._depth += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self._depth -= 1
+                if not self._depth:
+                    self.seconds += time.perf_counter() - t0
+        return timed
+
+    def __enter__(self):
+        from ark_tpu_torch.io import tiff
+
+        for name in self.NAMES:
+            self._saved[name] = getattr(tiff, name)
+            setattr(tiff, name, self._wrap(self._saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        from ark_tpu_torch.io import tiff
+
+        for name, fn in self._saved.items():
+            setattr(tiff, name, fn)
+
+
+def timed_steps(device):
+    """(run, seconds): run(name, fn) calls fn, synchronises `device`, and
+    records the step's wall seconds and its seconds inside the TIFF codec in
+    seconds[name] = (wall_s, tiff_s)."""
+    import torch
+
+    seconds = {}
+
+    def run(name, fn):
+        with TiffClock() as clock:
+            t0 = time.perf_counter()
+            result = fn()
+            if device != "cpu":
+                torch.cuda.synchronize()
+            seconds[name] = (time.perf_counter() - t0, clock.seconds)
+        return result
+    return run, seconds
+
+
+def fmt_steps(seconds):
+    return ", ".join(f"{k} {wall:.3f} (TIFF {io_s:.3f})" for k, (wall, io_s)
+                     in seconds.items())
+
+
+def write_channel_tree(tiff_dir, images):
+    """images: {fov: {channel: 2-D array}} -> tiff_dir/<fov>/<channel>.tiff,
+    through the port's save_image."""
     from ark_tpu_torch.io.image_utils import save_image
+
+    for fov, chans in images.items():
+        for chan, img in chans.items():
+            save_image(os.path.join(tiff_dir, fov, f"{chan}.tiff"), img)
+
+
+def pixel_stage_from_files(raws, base, device, channels=CHANNELS, xdim=10, ydim=10,
+                           max_k=20):
+    """Template 2 from files: the cohort's channel TIFFs written with the
+    port's codec, run_pixel_clustering (consensus included), then
+    generate_and_save_pixel_cluster_masks. Returns its per-phase timings,
+    seconds per step (wall, TIFF) and outputs: the SOM weights, and per FOV
+    the clustered pixels' flat indices with their SOM and meta clusters and
+    the mask read back."""
+    import pandas as pd
+
+    from ark_tpu_torch.io import feather_utils as feather
+    from ark_tpu_torch.io.image_utils import read_image
     from ark_tpu_torch.phenotyping import pixie_fused
+    from ark_tpu_torch.utils import data_utils
 
     fovs = [f"fov{i}" for i in range(len(raws))]
-    with tempfile.TemporaryDirectory() as base:
-        tiff_dir = os.path.join(base, "image_data")
-        for fov, raw in zip(fovs, raws):
-            for ci, chan in enumerate(CHANNELS):
-                save_image(os.path.join(tiff_dir, fov, f"{chan}.tiff"),
-                           raw[..., ci])
-        timings = {}
-        pixie_fused.run_pixel_clustering(
-            fovs, CHANNELS, base, tiff_dir, img_sub_folder=None, max_k=20,
-            blur_factor=2, subset_proportion=0.1, seed=42, timings=timings,
-            device=device)
-        artifacts = ["pixel_output_dir/channel_norm_pre_rownorm.feather",
-                     "pixel_output_dir/pixel_thresh.feather",
-                     "channel_norm_post_rownorm.feather",
-                     "pixel_som_weights.feather",
-                     "pixel_mat_data/channel_norm_post_rownorm_perfov.csv",
-                     "pixel_channel_avg_som_cluster.csv",
-                     "pixel_channel_avg_meta_cluster.csv"]
-        artifacts += [f"pixel_mat_subsetted/{f}.feather" for f in fovs]
-        artifacts += [f"pixel_mat_data/{f}.feather" for f in fovs]
-        for rel in artifacts:
-            check(os.path.exists(os.path.join(base, rel)), f"missing {rel}")
-        for fov in fovs:
-            t = feather.read_dataframe(
-                os.path.join(base, "pixel_mat_data", fov + ".feather"))
-            check(t["pixel_som_cluster"].between(1, 100).all(),
-                  f"{fov}: SOM labels outside 1..100")
-            check(t["pixel_meta_cluster"].between(1, 20).all(),
-                  f"{fov}: meta labels outside 1..20")
-        w = feather.read_dataframe(
-            os.path.join(base, "pixel_som_weights.feather"))
-        check(np.isfinite(w.values).all(), "SOM weights not finite")
-        first = feather.read_dataframe(os.path.join(base, "pixel_mat_data",
-                                                    fovs[0] + ".feather"))
-        width = raws[0].shape[1]
-        assigned = (first["row_index"].to_numpy() * width + first["column_index"].to_numpy(),
-                    first["pixel_som_cluster"].to_numpy())
-    return timings, assigned
+    tiff_dir = os.path.join(base, "image_data")
+    run, seconds = timed_steps(device)
+    run("write_tiffs", lambda: write_channel_tree(tiff_dir, {
+        fov: {chan: raw[..., ci] for ci, chan in enumerate(channels)}
+        for fov, raw in zip(fovs, raws)}))
+    timings = {}
+    run("run_pixel_clustering", lambda: pixie_fused.run_pixel_clustering(
+        fovs, channels, base, tiff_dir, img_sub_folder=None, max_k=max_k, blur_factor=2,
+        subset_proportion=0.1, seed=42, xdim=xdim, ydim=ydim, timings=timings,
+        device=device))
+    artifacts = ["pixel_output_dir/channel_norm_pre_rownorm.feather",
+                 "pixel_output_dir/pixel_thresh.feather",
+                 "channel_norm_post_rownorm.feather", "pixel_som_weights.feather",
+                 "pixel_mat_data/channel_norm_post_rownorm_perfov.csv",
+                 "pixel_channel_avg_som_cluster.csv", "pixel_channel_avg_meta_cluster.csv"]
+    artifacts += [f"pixel_mat_subsetted/{f}.feather" for f in fovs]
+    artifacts += [f"pixel_mat_data/{f}.feather" for f in fovs]
+    for rel in artifacts:
+        check(os.path.exists(os.path.join(base, rel)), f"missing {rel}")
+    avg = pd.read_csv(os.path.join(base, "pixel_channel_avg_som_cluster.csv"))
+    mapping = avg[["pixel_som_cluster", "pixel_meta_cluster"]].copy()
+    mapping["pixel_meta_cluster_rename"] = [f"meta_{m}" for m in mapping["pixel_meta_cluster"]]
+    id_csv = os.path.join(base, "pixel_meta_cluster_mapping.csv")
+    mapping.to_csv(id_csv, index=False)
+    mask_dir = os.path.join(base, "pixel_masks")
+    os.makedirs(mask_dir)
+    run("pixel_masks", lambda: data_utils.generate_and_save_pixel_cluster_masks(
+        fovs, base, mask_dir, tiff_dir, f"{channels[0]}.tiff", "pixel_mat_data", id_csv,
+        device=device))
+    ids = pd.read_csv(id_csv)
+    meta_to_id = dict(zip(ids["pixel_meta_cluster"], ids["cluster_id"]))
+    width = raws[0].shape[1]
+    out = {"weights": feather.read_dataframe(
+        os.path.join(base, "pixel_som_weights.feather")).to_numpy(), "fovs": {},
+           "n_meta": int(avg["pixel_meta_cluster"].nunique())}
+    for fov in fovs:
+        t = feather.read_dataframe(os.path.join(base, "pixel_mat_data", fov + ".feather"))
+        flat = t["row_index"].to_numpy() * width + t["column_index"].to_numpy()
+        order = np.argsort(flat, kind="stable")
+        meta = t["pixel_meta_cluster"].to_numpy()[order]
+        out["fovs"][fov] = {
+            "flat": flat[order], "som": t["pixel_som_cluster"].to_numpy()[order],
+            "meta": meta, "cluster_id": np.array([meta_to_id[m] for m in meta]),
+            "mask": read_image(os.path.join(mask_dir, f"{fov}.tiff"))}
+    return timings, seconds, out
 
 
-def run_pixel_stage(missing):
-    """Phase 4: the pixel stage at real size through the port's entry
-    points; returns the BMU kernel's launches in that run, FOV 0's
-    assignments (the flat indices of its clustered pixels, their 1-indexed
-    SOM clusters) and, where the device phases ran in memory, their outputs
-    (``drive_slice``'s; else None)."""
+def check_pixel_stage_from_files(got, want, shape, n_nodes, max_k):
+    """Phase 4's outputs from files against ``drive_slice`` on the same
+    cohort and device: weights and SOM labels bitwise; meta labels in
+    1..max_k, every meta cluster used; each pixel mask carries its pixels'
+    cluster ids and zero elsewhere."""
+    check(got["weights"].shape == want["weights"].shape
+          and np.array_equal(got["weights"], want["weights"]),
+          "pixel stage: the entry point's SOM weights differ from drive_slice's")
+    check(got["n_meta"] == max_k, f"pixel stage: {got['n_meta']} meta clusters, "
+          f"expected {max_k}")
+    for i, (fov, g) in enumerate(got["fovs"].items()):
+        order = np.argsort(want["kept_pixels"][i], kind="stable")
+        check(np.array_equal(g["flat"], want["kept_pixels"][i][order])
+              and np.array_equal(g["som"], want["labels"][i][order]),
+              f"pixel stage {fov}: the feather's pixels or SOM labels differ from "
+              f"drive_slice's")
+        check(g["som"].min() >= 1 and g["som"].max() <= n_nodes
+              and g["meta"].min() >= 1 and g["meta"].max() <= max_k,
+              f"pixel stage {fov}: labels outside their ranges")
+        mask = np.zeros(shape, np.int64).ravel()
+        mask[g["flat"]] = g["cluster_id"]
+        check(g["mask"].shape == shape and np.array_equal(g["mask"].ravel(), mask),
+              f"pixel stage {fov}: the pixel mask TIFF differs from its pixels' clusters")
+
+
+def run_pixel_stage():
+    """Phase 4: template 2 at real size from TIFFs through the port's entry
+    point (run_pixel_clustering with consensus, then the pixel masks), held
+    bitwise to ``drive_slice``'s device phases on the same cohort. Returns
+    the BMU kernel's launches in the entry point's run, FOV 0's assignments
+    (the flat indices of its clustered pixels, their 1-indexed SOM clusters)
+    and ``drive_slice``'s outputs."""
     import torch
 
     from ark_tpu_torch.ops import som
 
     raws = make_cohort(np.random.default_rng(7), n_fovs=4, size=1024)
-    som.bmu.launches = 0
-    t0 = time.perf_counter()
-    if missing:
-        print(f"pixel stage: {missing} missing, so run_pixel_clustering's "
-              f"device phases run on the in-memory cohort (consensus and file "
-              f"writes are host code, covered by the CPU tests)")
-        out = drive_slice(raws, "cuda")
-        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as base:
+        som.bmu.launches = 0
+        t0 = time.perf_counter()
+        timings, seconds, got = pixel_stage_from_files(raws, base, "cuda")
+        total = time.perf_counter() - t0
         launches = som.bmu.launches
-        check_slice_outputs(out, 100)
-        seconds = out["seconds"]
-        assigned = (out["kept_pixels"][0], out["labels"][0])
-        print(f"pixel stage: threshold {out['thresh']:.6g}, "
-              f"{out['n_train']} training rows, "
-              f"{sum(lab.size for lab in out['labels'])} pixels assigned")
-    else:
-        out = None
-        seconds, assigned = run_full_driver(raws, "cuda")
-        torch.cuda.synchronize()
-        launches = som.bmu.launches
-    total = time.perf_counter() - t0
     check(launches > 0, "the pixel stage never launched the BMU kernel")
-    print(f"pixel stage 4 x 1024^2 x 16ch on cuda: {total:.3f} s; per phase "
-          + ", ".join(f"{k} {v:.4f}" for k, v in seconds.items()))
-    print(f"pixel stage bmu kernel launches: {launches}")
-    return launches, assigned, out
+    out = drive_slice(raws, "cuda")
+    torch.cuda.synchronize()
+    check_slice_outputs(out, 100)
+    check_pixel_stage_from_files(got, out, raws[0].shape[:2], 100, 20)
+    print(f"pixel stage 4 x 1024^2 x 16ch from TIFFs on cuda [{CARD}]: {total:.3f} s; "
+          f"steps (wall s, TIFF s): {fmt_steps(seconds)}; run_pixel_clustering's phases "
+          + ", ".join(f"{k} {v:.4f}" for k, v in timings.items()))
+    print(f"pixel stage: weights and SOM labels bitwise drive_slice's on the same "
+          f"cohort ({sum(len(g['som']) for g in got['fovs'].values())} pixels), "
+          f"{got['n_meta']} meta clusters, pixel masks equal to their pixels' clusters; "
+          f"bmu kernel launches {launches}; drive_slice per phase "
+          + ", ".join(f"{k} {v:.4f}" for k, v in out["seconds"].items()))
+    first = got["fovs"]["fov0"]
+    return launches, (first["flat"], first["som"]), out
 
 
 def compare_pixel_cpu_cuda():
@@ -3287,6 +3407,268 @@ def run_single_card_modules():
     return cc_t, quant_t, prefetch_t, trace_kernels, launches
 
 
+# phase (o): the templates' file entry points on the card, templates 1 -> 3
+# -> spatial, fiber and OME, on phase 8's planted 3 x 1024^2 cohort written
+# as per-channel TIFFs with phase 12's 40 marker channels
+MESMER_CHANNELS = ("nuclear", "membrane")
+NEIGHBOR_DISTLIM = 50
+FILE_DIRS = ("image_data", "deepcell_input", "deepcell_output", "cell_masks", "dist_mats",
+             "fiber_data", "fiber_out", "ome", "ome_back")
+
+
+def templates_from_files(base, images, fiber_img, device, ckpt=CKPT, xdim=10, ydim=10,
+                         max_k=20):
+    """The templates' steps from files, each through the port's entry point
+    on `device`: generate_deepcell_input, create_deepcell_output (the device
+    postprocess), generate_cell_table (nuclear counts), the generic cell
+    clustering template's SOM and consensus over the marker columns, the
+    cell-cluster masks, calc_dist_matrix with create_neighborhood_matrix,
+    run_fiber_segmentation on `fiber_img` and an OME round trip of the first
+    FOV. images: {fov: {channel: 2-D array}}, with the MESMER_CHANNELS.
+    Returns the outputs and seconds[step] = (wall s, TIFF codec s)."""
+    from ark_tpu_torch.analysis import neighborhood_analysis, spatial_analysis_utils
+    from ark_tpu_torch.io import ome_utils
+    from ark_tpu_torch.phenotyping import cell_meta_clustering, cell_som_clustering
+    from ark_tpu_torch.segmentation import fiber_segmentation, marker_quantification
+    from ark_tpu_torch.utils import data_utils
+    from ark_tpu_torch.utils import deepcell_service_utils as dcs
+
+    fovs = list(images)
+    d = {name: os.path.join(base, name) for name in FILE_DIRS}
+    for name in ("deepcell_input", "cell_masks", "dist_mats", "fiber_out"):
+        os.makedirs(d[name])
+    markers = [c for c in images[fovs[0]] if c not in MESMER_CHANNELS]
+    run, seconds = timed_steps(device)
+    out = {"dirs": d, "fovs": fovs, "markers": markers}
+
+    run("write_tiffs", lambda: (write_channel_tree(d["image_data"], images),
+                                write_channel_tree(d["fiber_data"],
+                                                   {"fov0": {"fiber": fiber_img}})))
+    run("generate_deepcell_input", lambda: dcs.generate_deepcell_input(
+        d["deepcell_input"], d["image_data"], ["nuclear"], ["membrane"], fovs,
+        img_sub_folder=None))
+    run("create_deepcell_output", lambda: dcs.create_deepcell_output(
+        d["deepcell_input"], d["deepcell_output"], fovs, weights_path=ckpt, device=device,
+        postprocess="device"))
+    out["table"], _ = run("generate_cell_table", lambda: marker_quantification.
+                          generate_cell_table(d["deepcell_output"], d["image_data"],
+                                              img_sub_folder=None, fovs=fovs,
+                                              nuclear_counts=True, device=device))
+    table_path = os.path.join(base, "cell_table_size_normalized.csv")
+    out["table"].to_csv(table_path, index=False)
+
+    def cell_clustering():
+        pysom = cell_som_clustering.train_cell_som(
+            fovs, base, table_path, markers, out["table"].copy(), xdim=xdim, ydim=ydim,
+            device=device)
+        labeled = cell_som_clustering.cluster_cells(base, pysom, markers)
+        cell_som_clustering.generate_som_avg_files(base, labeled, markers, "cell_som_avg.csv")
+        return cell_meta_clustering.cell_consensus_cluster(base, markers, labeled,
+                                                           "cell_som_avg.csv", max_k=max_k)
+    out["cell_cc"], out["labeled"] = run("cell_som_and_consensus", cell_clustering)
+    mapping = out["cell_cc"].mapping.copy()
+    mapping["cell_meta_cluster_rename"] = [f"type_{m}" for m in mapping["cell_meta_cluster"]]
+    id_csv = os.path.join(base, "cell_meta_cluster_mapping.csv")
+    mapping.to_csv(id_csv, index=False)
+    run("cell_cluster_masks", lambda: data_utils.generate_and_save_cell_cluster_masks(
+        fovs, d["cell_masks"], d["deepcell_output"], out["labeled"], id_csv,
+        cell_cluster_col="cell_meta_cluster", device=device))
+    run("calc_dist_matrix", lambda: spatial_analysis_utils.calc_dist_matrix(
+        out["labeled"], d["dist_mats"], device=device))
+    out["neighborhood"] = run("create_neighborhood_matrix", lambda: neighborhood_analysis.
+                              create_neighborhood_matrix(
+                                  out["labeled"], d["dist_mats"], distlim=NEIGHBOR_DISTLIM,
+                                  cell_type_col="cell_meta_cluster", device=device))
+    out["fibers"] = run("run_fiber_segmentation", lambda: fiber_segmentation.
+                        run_fiber_segmentation(d["fiber_data"], "fiber", d["fiber_out"],
+                                               device=device))
+    out["ome"] = run("fov_to_ome", lambda: ome_utils.fov_to_ome(
+        os.path.join(d["image_data"], fovs[0]), d["ome"]))
+    out["ome_back"] = run("ome_to_fov", lambda: ome_utils.ome_to_fov(out["ome"],
+                                                                     d["ome_back"]))
+    return out, seconds
+
+
+def check_templates_from_files(out, images, fiber_img, device, ckpt=CKPT, xdim=10,
+                               ydim=10, max_k=20):
+    """Phase (o)'s outputs held to the same functions on the same arrays in
+    memory on the same device: every TIFF read back by the codec equals the
+    array written; the masks equal Mesmer.predict's, the cell table
+    create_marker_count_matrices', the SOM labels CellSOMCluster's, the Ward
+    mapping maps every SOM cluster into 1..max_k and labels the table, the
+    cluster masks cluster_mask_from_labels', the distance files
+    pairwise_distances', the neighborhood matrix the counts over those
+    distances, the fiber labels and table those of _fiber_steps with its table and
+    alignment; the OME round trip gives the channels back. Returns the
+    number of cells and meta clusters."""
+    import pandas as pd
+
+    from ark_tpu_torch import settings
+    from ark_tpu_torch.analysis import spatial_analysis_utils as sau
+    from ark_tpu_torch.io import io_utils, tiff
+    from ark_tpu_torch.ops import distances
+    from ark_tpu_torch.phenotyping import cluster_helpers
+    from ark_tpu_torch.segmentation import fiber_segmentation as fs
+    from ark_tpu_torch.segmentation import marker_quantification, mesmer
+    from ark_tpu_torch.utils import data_utils
+    from ark_tpu_torch.utils.labeled_array import DataArray
+
+    d, fovs, markers = out["dirs"], out["fovs"], out["markers"]
+
+    def same(path, want, what):
+        got = tiff.read(path)
+        want = np.asarray(want)
+        check(got.shape == want.shape and np.array_equal(got, want),
+              f"{what}: {os.path.basename(path)} read back {got.dtype} {got.shape} differs "
+              f"from the array {want.dtype} {want.shape}")
+
+    chans = io_utils.remove_file_extensions(io_utils.list_files(
+        os.path.join(d["image_data"], fovs[0]), substrs=[".tiff", ".tif"]))
+    for fov in fovs:
+        for chan in chans:
+            same(os.path.join(d["image_data"], fov, f"{chan}.tiff"),
+                 images[fov][chan].astype(np.float32), "input channel")
+    stack = np.stack([np.stack([images[f][c].astype(np.float32) for c in MESMER_CHANNELS],
+                               -1) for f in fovs])
+    for i, fov in enumerate(fovs):
+        same(os.path.join(d["deepcell_input"], f"{fov}.tiff"),
+             np.moveaxis(stack[i], -1, 0), "deepcell input")
+    masks = mesmer.Mesmer(weights_path=ckpt, device=device).predict(stack,
+                                                                    postprocess="device")
+    for i, fov in enumerate(fovs):
+        for comp in ("whole_cell", "nuclear"):
+            same(os.path.join(d["deepcell_output"], f"{fov}_{comp}.tiff"),
+                 masks[comp][i].astype(np.int32), f"{comp} mask")
+
+    table = out["table"]
+    for i, fov in enumerate(fovs):
+        coords = {"fovs": [fov], "rows": np.arange(stack.shape[1]),
+                  "cols": np.arange(stack.shape[2])}
+        seg = DataArray(np.stack([masks["whole_cell"][i], masks["nuclear"][i]], -1)[None]
+                        .astype(np.int32),
+                        coords={**coords, "compartments": ["whole_cell", "nuclear"]})
+        img = DataArray(np.stack([images[fov][c].astype(np.float32) for c in chans], -1)[None],
+                        coords={**coords, "channels": chans})
+        want, _ = marker_quantification.create_marker_count_matrices(
+            seg, img, nuclear_counts=True, device=device)
+        want["mask_type"] = "whole_cell"
+        got = table[table[settings.FOV_ID] == fov].reset_index(drop=True)
+        pd.testing.assert_frame_equal(got, want.reset_index(drop=True), check_exact=True)
+
+    labeled = out["labeled"]
+    with tempfile.TemporaryDirectory() as tmp:
+        pysom = cluster_helpers.CellSOMCluster(
+            table.copy(), os.path.join(tmp, "w.feather"), fovs, markers, xdim=xdim,
+            ydim=ydim, device=device)
+        pysom.train_som()
+        want = pysom.assign_som_clusters()["cell_som_cluster"].to_numpy()
+    check(np.array_equal(labeled["cell_som_cluster"].to_numpy(), want),
+          "cell SOM labels from files differ from CellSOMCluster's in memory")
+    # the Ward mapping's properties (its parity with sklearn's is held by the
+    # CPU tests): every SOM cluster with cells mapped once, max_k meta
+    # clusters 1..max_k, and the labeled table labeled through it
+    mapping = out["cell_cc"].mapping
+    som_ids = mapping["cell_som_cluster"]
+    check(som_ids.is_unique and set(labeled["cell_som_cluster"]) <= set(som_ids),
+          "the Ward mapping does not map every SOM cluster once")
+    check(set(mapping["cell_meta_cluster"]) == set(range(1, max_k + 1)),
+          f"the Ward mapping's meta clusters are not 1..{max_k}")
+    mapped = labeled["cell_som_cluster"].map(mapping.set_index("cell_som_cluster")
+                                             ["cell_meta_cluster"])
+    check(np.array_equal(mapped.to_numpy(), labeled["cell_meta_cluster"].to_numpy()),
+          "the labeled table's meta clusters are not its SOM clusters mapped")
+    n_meta = int(labeled["cell_meta_cluster"].nunique())
+    check(n_meta == max_k, f"{n_meta} cell meta clusters, expected {max_k}")
+
+    cmd = data_utils.ClusterMaskData(labeled, settings.FOV_ID, settings.CELL_LABEL,
+                                     "cell_meta_cluster")
+    # neighbor counts from the in-memory distances: other cells nearer than
+    # distlim (a distance of 0 is no neighbor), by meta cluster
+    types = labeled["cell_meta_cluster"].to_numpy()
+    type_names = labeled["cell_meta_cluster"].drop_duplicates().tolist()
+    near_counts = np.zeros((len(labeled), len(type_names)), np.int64)
+    for i, fov in enumerate(fovs):
+        same(os.path.join(d["cell_masks"], f"{fov}.tiff"),
+             data_utils.cluster_mask_from_labels(fov, masks["whole_cell"][i], cmd,
+                                                 device=device), "cell cluster mask")
+        rows = labeled[labeled[settings.FOV_ID] == fov]
+        xy = sau._to_device(rows[[settings.CENTROID_0, settings.CENTROID_1]].values, device)
+        want = distances.pairwise_distances(xy, xy, zero_diagonal=True).cpu().numpy()
+        got = sau.load_dist_matrix(d["dist_mats"], fov)
+        check(np.array_equal(got.values, want)
+              and list(got.coords["dim_0"]) == list(rows[settings.CELL_LABEL]),
+              f"{fov}: the distance file differs from pairwise_distances in memory")
+        at = np.flatnonzero((labeled[settings.FOV_ID] == fov).to_numpy())
+        near = ((want < NEIGHBOR_DISTLIM) & (want != 0)).astype(np.int64)
+        near_counts[at] = near.T @ (types[at, None] == np.array(type_names)[None])
+    keep = near_counts.sum(1) != 0
+    counts = out["neighborhood"][0]
+    check(len(counts) > 0 and np.array_equal(counts[type_names].to_numpy(), near_counts[keep])
+          and counts[settings.FOV_ID].tolist() == labeled[settings.FOV_ID][keep].tolist(),
+          "neighborhood matrix differs from the counts over the in-memory distances")
+
+    x = fiber_img.astype(np.float32).astype(float)
+    steps = fs._fiber_steps(x, x.shape[0], *FIBER_DEFAULTS.values(), keep_intermediates=False,
+                            device=device)
+    same(os.path.join(d["fiber_out"], "fov0_fiber_labels.tiff"), steps["labeled_filtered"],
+         "fiber labels")
+    want = fs._fiber_regionprops_table(steps["labeled_filtered"], settings.FIBER_OBJECT_PROPS,
+                                       device=device)
+    want.insert(0, settings.FOV_ID, "fov0")
+    want = fs.calculate_fiber_alignment(want, device=device)
+    pd.testing.assert_frame_equal(out["fibers"].reset_index(drop=True),
+                                  want.reset_index(drop=True), check_exact=True)
+
+    ome_chans = io_utils.remove_file_extensions(io_utils.list_files(
+        os.path.join(d["image_data"], fovs[0]), substrs=[".tiff", ".tif"]))
+    same(out["ome"], np.stack([images[fovs[0]][c].astype(np.float32) for c in ome_chans]),
+         "OME stack")
+    for chan in ome_chans:
+        same(os.path.join(out["ome_back"], f"{chan}.tiff"),
+             images[fovs[0]][chan].astype(np.float32), "OME round trip")
+    return len(table), n_meta
+
+
+def run_templates_from_files(planted, quant, fiber_fov):
+    """Phase (o) on the card: `planted` (3, H, W, 2) Mesmer channels and
+    phase 12's 40 marker channels (`quant`) as one channel tree, phase (f)'s
+    fiber FOV beside it. Prints seconds per step with the TIFF codec's
+    share; returns the launches of the BMU, segment-sum and plan kernels in
+    the entry points' run."""
+    from ark_tpu_torch.ops import segment_reduce, som
+
+    images = {}
+    for i, (_, img, _) in enumerate(quant):
+        fov = f"fov{i}"
+        images[fov] = {"nuclear": planted[i, ..., 0], "membrane": planted[i, ..., 1]}
+        images[fov].update({c: img.values[0, ..., j] for j, c in enumerate(QUANT_CHANNELS)})
+    counters = (som.bmu, segment_reduce.segment_sum, segment_reduce.segment_plan)
+    with tempfile.TemporaryDirectory() as base:
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out, seconds = templates_from_files(base, images, fiber_fov, DEVICE)
+        total = time.perf_counter() - t0
+        launches = [fn.launches for fn in counters]
+        t0 = time.perf_counter()
+        n_cells, n_meta = check_templates_from_files(out, images, fiber_fov, DEVICE)
+        check_s = time.perf_counter() - t0
+    n_chan = len(images["fov0"])
+    tiff_s = sum(io_s for _, io_s in seconds.values())
+    print(f"templates from files, {len(images)} x {planted.shape[1]}^2 x {n_chan} channel "
+          f"TIFFs and one {fiber_fov.shape[0]}^2 fiber FOV on {DEVICE} [{CARD}]: {total:.3f} s, "
+          f"{tiff_s:.3f} s in the TIFF codec; per step (wall s, TIFF s): {fmt_steps(seconds)}")
+    print(f"templates from files: {n_cells} cells, {n_meta} meta clusters; every TIFF read "
+          f"back equal to its array, masks, cell table, SOM labels, cluster masks, distance "
+          f"files, neighbor counts, fiber labels and table equal to the in-memory calls, the "
+          f"Ward mapping's labels consistent (its parity with sklearn is held in the CPU "
+          f"tests) ({check_s:.1f} s); launches bmu {launches[0]}, segment_sum {launches[1]}, "
+          f"segment_plan {launches[2]}")
+    check(all(n > 0 for n in launches), f"phase (o) launches {launches}: a kernel of the "
+          f"file path never ran")
+    return launches
+
+
 # phase (n): graft_entry.dryrun_multigpu at full width. The machine has one
 # card: NCCL takes one rank on it, gloo ranks share it (NCCL refuses two)
 MULTI_GPU_RUNS = ((1, "nccl"), (2, "gloo"))
@@ -3707,7 +4089,7 @@ def main() -> int:
     # the pixel stage (template 2)
     rng = np.random.default_rng(42)
     max_err, timing = check_kernel(rng)
-    bmu_launches, pixel_assigned, pixel_out = run_pixel_stage(missing)
+    bmu_launches, pixel_assigned, pixel_out = run_pixel_stage()
     compare_pixel_cpu_cuda()
 
     section_done("pixel stage")
@@ -3737,8 +4119,8 @@ def main() -> int:
     seg_err, plan_err, seg_timing = check_segment_sum(dense)
     errs = check_segment_sum(masks["3x1024"], "segmented")[:2]
     seg_err, plan_err = max(seg_err, errs[0]), max(plan_err, errs[1])
-    seg_launches, plan_launches, _ = run_cell_table(quant_cohort(masks["3x1024"]),
-                                                    "segmented")
+    segmented = quant_cohort(masks["3x1024"])
+    seg_launches, plan_launches, _ = run_cell_table(segmented, "segmented")
     cohort = quant_cohort(dense)
     _, _, tables = run_cell_table(cohort, "dense")
     with tempfile.TemporaryDirectory() as tmp_dir:
@@ -3792,10 +4174,13 @@ def main() -> int:
      plan_m_launches) = run_single_card_modules()[-1]
     section_done("single-card modules")
 
+    # the templates' file entry points: templates 1 -> 3 -> spatial, fiber and
+    # OME from TIFFs written by the port's codec
+    files_launches = run_templates_from_files(cohorts["3x1024"][0], segmented, fiber_fov)
+    section_done("templates from files")
+
     # the multi-process layer: dryrun_multigpu at full width, 1 NCCL rank and
     # 2 gloo ranks sharing the card
-    if pixel_out is None:
-        pixel_out = drive_slice(make_cohort(np.random.default_rng(7), 4, 1024), "cuda")
     multi = run_multi_gpu(multi_gpu_inputs(
         pixel_out, app, cohorts["8x512"][0], dense, cohort, spatial, lda_got, fiber_fov,
         cell_counts))
@@ -3810,6 +4195,7 @@ def main() -> int:
         "replaces": "ark_tpu/ops/som.py:132", "launches": bmu_launches,
         "launches_by_path": {"pixel": bmu_launches,
                              "single_card_modules": bmu_m_launches,
+                             "files": files_launches[0],
                              "multi_gpu": multi["bmu"]},
         "max_abs_err": max_err, "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
@@ -3829,6 +4215,7 @@ def main() -> int:
         "replaces": "ark_tpu/ops/segment_reduce.py:44", "launches": seg_launches,
         "launches_by_path": {"cell_table": seg_launches, "fiber": fiber_launches,
                              "umap": umap_launches, "single_card_modules": seg_m_launches,
+                             "files": files_launches[1],
                              "multi_gpu": multi["segment_sum"]},
         "max_abs_err": max(seg_err, edge_err), "ms": seg_ms["ms"],
         "plain_ms": seg_ms["plain_ms"], "bound_ms": seg_ms["bound_ms"],
@@ -3844,6 +4231,7 @@ def main() -> int:
         "launches_by_path": {"cell_table": plan_launches, "fiber": fiber_plan_launches,
                              "umap": umap_plan_launches,
                              "single_card_modules": plan_m_launches,
+                             "files": files_launches[2],
                              "multi_gpu": multi["segment_plan"]},
         "max_abs_err": plan_err, "ms": seg_ms["plan_ms"],
         "plain_ms": seg_ms["plain_plan_ms"], "bound_ms": seg_ms["plan_bound_ms"],

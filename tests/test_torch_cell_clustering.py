@@ -200,3 +200,73 @@ def test_weighted_channel_product_refuses_tf32():
                                                 device="cpu")
     finally:
         torch.set_float32_matmul_precision("highest")
+
+
+# --- the port's Ward clustering against sklearn's AgglomerativeClustering
+
+def _ward_table(case, rng):
+    x = rng.normal(size=(100, 12))
+    if case == "duplicates":              # ties: every row twice
+        x[50:] = x[:50]
+    if case == "integers":
+        return np.round(x * 3).astype(np.int64)
+    if case == "float32_frame":
+        return pd.DataFrame(x.astype(np.float32), columns=[f"c{i}" for i in range(12)])
+    if case == "float64_frame":
+        return pd.DataFrame(x, columns=[f"c{i}" for i in range(12)])
+    return x.astype(np.float32 if case == "float32" else np.float64)
+
+
+@pytest.mark.parametrize("case", ["float32", "float64", "float32_frame", "float64_frame",
+                                  "duplicates", "integers"])
+def test_ward_labels_equal_sklearn(case):
+    from sklearn.cluster import AgglomerativeClustering
+
+    table = _ward_table(case, np.random.default_rng(sum(map(ord, case))))
+    for k in range(2, 21):
+        want = AgglomerativeClustering(n_clusters=k).fit_predict(table)
+        got = TCH.WardClustering(n_clusters=k).fit_predict(table)
+        assert got.dtype == want.dtype, k
+        np.testing.assert_array_equal(got, want, err_msg=f"k={k}")
+
+
+def test_ward_refuses_what_sklearn_refuses():
+    from sklearn.cluster import AgglomerativeClustering
+
+    with_nan = np.ones((5, 2))
+    with_nan[1, 0] = np.nan
+    for table, k in ((np.ones((1, 3)), 1), (with_nan, 2), (np.eye(4), 5)):
+        with pytest.raises(ValueError):
+            AgglomerativeClustering(n_clusters=k).fit_predict(table)
+        with pytest.raises(ValueError):
+            TCH.WardClustering(n_clusters=k).fit_predict(table)
+
+
+def test_cell_consensus_without_sklearn_equals_jax(tmp_path):
+    """cell_consensus_cluster on one SOM-average CSV: the JAX package's
+    (sklearn) mapping and labels equal the port's, run in a subprocess with
+    sklearn and the other packages the card's machine lacks blocked."""
+    from tests.test_torch_package import run_blocked
+
+    rng = np.random.default_rng(77)
+    cols = [f"pixel_meta_cluster_rename_pmc_{i}" for i in range(1, 7)]
+    avg = pd.DataFrame(rng.gamma(1.0, 1.0, (100, len(cols))), columns=cols)
+    avg.insert(0, "cell_som_cluster", np.arange(1, 101))
+    avg["count"] = rng.integers(10, 100, 100)
+    avg.to_csv(tmp_path / "som_avg.csv", index=False)
+    cells = pd.DataFrame({"cell_som_cluster": rng.integers(1, 101, 500)})
+    cells.to_csv(tmp_path / "cells.csv", index=False)
+    cc, labeled = JMC.cell_consensus_cluster(str(tmp_path), cols, cells.copy(),
+                                             "som_avg.csv", max_k=20)
+    run_blocked(
+        "import pandas as pd\n"
+        "from ark_tpu_torch.phenotyping import cell_meta_clustering as mc\n"
+        f"cc, labeled = mc.cell_consensus_cluster({str(tmp_path)!r}, {cols!r},\n"
+        f"    pd.read_csv({str(tmp_path / 'cells.csv')!r}), 'som_avg.csv', max_k=20)\n"
+        f"cc.mapping.to_csv({str(tmp_path / 'mapping.csv')!r}, index=False)\n"
+        f"labeled.to_csv({str(tmp_path / 'labeled.csv')!r}, index=False)\n")
+    pd.testing.assert_frame_equal(pd.read_csv(tmp_path / "mapping.csv"),
+                                  cc.mapping.reset_index(drop=True), check_exact=True)
+    pd.testing.assert_frame_equal(pd.read_csv(tmp_path / "labeled.csv"),
+                                  labeled.reset_index(drop=True), check_exact=True)
+    assert cc.mapping["cell_meta_cluster"].nunique() == 20

@@ -23,6 +23,7 @@ import torch
 
 from ark_tpu.io.image_utils import save_image
 from ark_tpu.utils import deepcell_service_utils as JD
+from ark_tpu_torch.io import tiff
 from ark_tpu_torch.segmentation import synthetic as TS
 from ark_tpu_torch.utils import deepcell_service_utils as TD
 from tests import test_utils
@@ -39,11 +40,13 @@ def _frozen_tiff_clock(monkeypatch):
     """The TIFF writer stamps each file's DateTime tag with the wall clock's
     second, so two packages writing the same image across a second's boundary
     wrote different bytes (most often in a process's first case, where the
-    JAX package's first call compiles). Both write under one fixed clock."""
+    JAX package's first call compiles). Both writers, imageio's and the
+    port's codec, write under one fixed clock."""
     from imageio.plugins import tifffile as tiff_plugin
 
     stamp = datetime.datetime(2020, 1, 2, 3, 4, 5)
     monkeypatch.setattr(tiff_plugin._tifffile.TiffWriter, "_now", lambda self: stamp)
+    monkeypatch.setattr(tiff, "now", lambda: stamp)
 
 
 def _read_bytes(path):

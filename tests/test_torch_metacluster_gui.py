@@ -621,3 +621,18 @@ def test_throttle_without_event_loop_degrades_gracefully():
         record(1)
         record(2)
         assert calls == [1, 2]
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32, np.int64])
+def test_cosine_similarity_equals_sklearn(dtype):
+    """The dendrogram's similarity, computed in numpy, is sklearn's bit for
+    bit, a zero row (left unnormalized) included."""
+    from sklearn.metrics.pairwise import cosine_similarity
+
+    from ark_tpu_torch.utils.metacluster_remap_gui import metaclusterdata
+
+    x = (np.random.default_rng(5).random((17, 40)) * 9).astype(dtype)
+    x[4] = 0
+    got, want = metaclusterdata.cosine_similarity(x), cosine_similarity(x)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)

@@ -5,7 +5,10 @@ same in the other: the channel trees that come back hold equal arrays
 under equal names, the OME files themselves are equal byte for byte (the
 TIFF writer's clock held fixed, as it stamps each file with the second),
 and without a sidecar both readers recover the same names (or the same
-generic names with the same warning).
+generic names with the same warning). OME-TIFFs that carry their channel
+names only in OME-XML, as tifffile writes them, unbundle the same in both
+packages; the port writes the JAX package's OME-XML header, when asked, as
+imageio writes a description.
 """
 
 import datetime
@@ -19,6 +22,7 @@ from ark_tpu.io import load_utils as JL
 from ark_tpu.io import ome_utils as JO
 from ark_tpu.io.image_utils import read_image, save_image
 from ark_tpu_torch.io import load_utils as TL
+from ark_tpu_torch.io import tiff
 from ark_tpu_torch.io import ome_utils as TO
 from tests import test_utils
 
@@ -33,6 +37,7 @@ def _frozen_tiff_clock(monkeypatch):
 
     stamp = datetime.datetime(2020, 1, 2, 3, 4, 5)
     monkeypatch.setattr(tiff_plugin._tifffile.TiffWriter, "_now", lambda self: stamp)
+    monkeypatch.setattr(tiff, "now", lambda: stamp)
 
 
 @pytest.fixture
@@ -127,3 +132,74 @@ def test_mibitiff_loader_reads_either_packages_ome(tmp_path, tree):
 
 def test_load_utils_keeps_one_copy_of_the_channel_reader():
     assert TL._read_channel_names is TO._read_channel_names
+
+
+def _tifffile_ome(path, stack, names, tiffdata):
+    """An OME-TIFF as the vendored tifffile writes it: the JAX package's
+    OME-XML header with `tiffdata` added, one page a channel, no sidecar."""
+    from imageio.plugins import _tifffile
+
+    xml = JO._ome_xml(names, stack.shape[1:], stack.dtype).replace(
+        "</Pixels>", tiffdata + "</Pixels>")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with _tifffile.TiffWriter(path) as w:
+            w.save(stack, description=xml, photometric="minisblack", metadata=None)
+    return path
+
+
+TIFFDATA = {"none": "", "all_pages": "<TiffData/>",
+            "per_plane": "".join(f'<TiffData FirstC="{i}" IFD="{i}" PlaneCount="1"/>'
+                                 for i in range(len(CHANNELS)))}
+
+
+@pytest.mark.parametrize("tiffdata", sorted(TIFFDATA))
+def test_tifffile_ome_unbundles_the_same_in_both(tmp_path, tiffdata):
+    """Names from the OME-XML's Channel Name attributes, arrays as imageio
+    reads them: ome_to_fov, _read_channel_names and the MIBItiff loader give
+    the JAX package's results."""
+    import imageio.v3 as iio
+
+    rng = np.random.default_rng(len(tiffdata))
+    names = ["CD3", "ECAD", "H3", "Ki67"]
+    for fov in ("fovA", "fovB"):
+        stack = rng.integers(0, 4000, (len(names), 12, 10)).astype(np.uint16)
+        _tifffile_ome(str(tmp_path / f"{fov}.ome.tiff"), stack, names, TIFFDATA[tiffdata])
+    ome = str(tmp_path / "fovA.ome.tiff")
+    got = {name: _names_and_warnings(mod, ome, len(names)) for name, mod in PACKAGES.items()}
+    assert got["port"] == got["jax"] == (names, [])
+    np.testing.assert_array_equal(TO.read_image(ome), iio.imread(ome))
+    trees = {name: _channel_tree(mod.ome_to_fov(ome, str(tmp_path / name)))
+             for name, mod in PACKAGES.items()}
+    assert list(trees["port"]) == [f"{c}.tiff" for c in names]
+    _assert_same_tree(trees["port"], trees["jax"])
+    want = JL.load_imgs_from_mibitiff(str(tmp_path), channels=["Ki67", "CD3"])
+    have = TL.load_imgs_from_mibitiff(str(tmp_path), channels=["Ki67", "CD3"])
+    np.testing.assert_array_equal(have.values, want.values)
+    assert list(have.coords["fovs"]) == list(want.coords["fovs"])
+
+
+def test_ome_xml_header_when_asked_is_imageios_description(tmp_path, tree, monkeypatch):
+    """With OME_XML set the port's file is the one imageio writes when its
+    TIFF writer takes the JAX package's header as a description, and its
+    channel names come back from the header alone."""
+    import imageio.v2 as iio2
+
+    monkeypatch.setattr(TO, "OME_XML", True)
+    ome = TO.fov_to_ome(str(tree / "fov0"), str(tmp_path / "port"))
+    with open(ome + ".channels.txt") as f:
+        names = f.read().splitlines()
+    stack = np.stack([read_image(str(tree / "fov0" / f"{c}.tiff")) for c in names])
+    want = str(tmp_path / "imageio.ome.tiff")
+    writer = iio2.get_writer(want, format="TIFF")
+    writer.append_data(stack, {"description": JO._ome_xml(names, stack.shape[1:],
+                                                          stack.dtype)})
+    writer.close()
+    with open(ome, "rb") as a, open(want, "rb") as b:
+        assert a.read() == b.read()
+    os.remove(ome + ".channels.txt")
+    got = {name: _names_and_warnings(mod, ome, len(names)) for name, mod in PACKAGES.items()}
+    assert got["port"] == got["jax"] == (names, [])
+    trees = {name: _channel_tree(mod.ome_to_fov(ome, str(tmp_path / name)))
+             for name, mod in PACKAGES.items()}
+    _assert_same_tree(trees["port"], trees["jax"])

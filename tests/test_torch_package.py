@@ -4,9 +4,10 @@ The port never imports jax, nor anything of the JAX package ``ark_tpu``
 (whose ``__init__`` sets up jax's compilation cache); its sources pass the
 repo's style gate; a kernel's wrapper on CPU tensors never builds or loads
 the CUDA library, while a tensor on any other device never falls back to
-the plain version; and the modules that run on the card import without the
-host packages the card's machine may lack (imageio, sklearn, tqdm, h5py,
-matplotlib, seaborn).
+the plain version; the modules that run on the card import without the
+host packages the card's machine lacks (imageio, sklearn, h5py, matplotlib,
+seaborn) and without tqdm; no module imports imageio or sklearn at all; and
+the file entry points of the templates run with those five blocked.
 """
 
 import ast
@@ -24,8 +25,29 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "ark_tpu_torch")
-# host packages the card's machine may lack
-CARD_MISSING = ("imageio", "sklearn", "tqdm", "h5py", "matplotlib", "seaborn")
+# host packages the card's machine lacks (the smoke's first lines list them)
+CARD_MISSING = ("imageio", "sklearn", "h5py", "matplotlib", "seaborn")
+# blocked while every module is imported: tqdm is on the card's machine, but
+# the port imports it only inside the loops that draw a bar
+IMPORT_BLOCKED = CARD_MISSING + ("tqdm",)
+# the packages the port's modules never import (the port has its own TIFF
+# codec and Ward clustering)
+NEVER_IMPORTED = ("imageio", "sklearn")
+
+
+def run_blocked(code, timeout=120):
+    """Run `code` in a fresh interpreter at the repo root with every package
+    of CARD_MISSING blocked (importing one raises ImportError); fails the
+    calling test on a non-zero exit, and returns the process's stdout."""
+    prelude = ("import sys\n"
+               f"for blocked in {CARD_MISSING!r}:\n"
+               "    sys.modules[blocked] = None\n")
+    env = {k: v for k, v in os.environ.items() if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", prelude + code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return proc.stdout
 
 
 def _files(suffixes):
@@ -105,15 +127,15 @@ def _needs_matplotlib(module):
 
 def test_port_and_smoke_load_nothing_of_ark_tpu():
     """Importing every port module and chip_smoke, with the host packages the
-    card's machine may lack blocked, loads no ``ark_tpu`` module and leaves
-    jax's compilation-cache variable unset (``ark_tpu/__init__.py`` sets
-    it). The metacluster GUI, which needs matplotlib, fails to import while
-    it is blocked and imports once it is not."""
+    card's machine lacks and tqdm blocked, loads no ``ark_tpu`` module and
+    leaves jax's compilation-cache variable unset (``ark_tpu/__init__.py``
+    sets it). The metacluster GUI, which needs matplotlib, fails to import
+    while it is blocked and imports once it is not."""
     card_modules = [m for m in sorted(_modules()) if not _needs_matplotlib(m)]
     gui_modules = [m for m in sorted(_modules()) if _needs_matplotlib(m)]
     assert len(gui_modules) == 7
     code = ("import importlib, os, sys\n"
-            f"for blocked in {CARD_MISSING!r}:\n"
+            f"for blocked in {IMPORT_BLOCKED!r}:\n"
             "    sys.modules[blocked] = None\n"
             f"for m in {card_modules + ['chip_smoke']!r}:\n"
             "    importlib.import_module(m)\n"
@@ -289,7 +311,7 @@ def test_card_modules_import_without_imageio_and_sklearn():
     matrices to netCDF, neighbor counts, k-means, enrichment) work, with
     all six blocked."""
     code = ("import importlib, os, sys, tempfile\n"
-            f"for blocked in {CARD_MISSING!r}:\n"
+            f"for blocked in {IMPORT_BLOCKED!r}:\n"
             "    sys.modules[blocked] = None\n"
             f"for m in {QUANT_AND_CELL_MODULES + SPATIAL_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
@@ -378,7 +400,7 @@ def test_fiber_and_ez_seg_run_without_the_cards_missing_packages():
     modules fall under the AST scans and the style gate, which walk every
     file of the package."""
     code = ("import importlib, sys\n"
-            f"for blocked in {CARD_MISSING!r}:\n"
+            f"for blocked in {IMPORT_BLOCKED!r}:\n"
             "    sys.modules[blocked] = None\n"
             f"for m in {CLASSICAL_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
@@ -447,7 +469,7 @@ def test_mask_and_embedding_modules_run_without_the_cards_missing_packages():
     there; the modules fall under the AST scans and the style gate, which
     walk every file of the package."""
     code = ("import importlib, sys\n"
-            f"for blocked in {CARD_MISSING!r}:\n"
+            f"for blocked in {IMPORT_BLOCKED!r}:\n"
             "    sys.modules[blocked] = None\n"
             f"for m in {EMBEDDING_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
@@ -536,7 +558,7 @@ def test_lda_modules_run_without_the_cards_missing_packages():
     the modules fall under the AST scans and the style gate, which walk
     every file of the package."""
     code = ("import importlib, sys, tempfile\n"
-            f"for blocked in {CARD_MISSING!r}:\n"
+            f"for blocked in {IMPORT_BLOCKED!r}:\n"
             "    sys.modules[blocked] = None\n"
             f"for m in {LDA_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
@@ -606,7 +628,7 @@ def test_training_and_conversion_run_without_the_cards_missing_packages():
     targets, a fit, train_on_synthetic without a checkpoint file, the
     converter on a manifest-shaped layer dict, the entry's forward."""
     code = ("import importlib, sys\n"
-            f"for blocked in {CARD_MISSING + ('PIL',)!r}:\n"
+            f"for blocked in {IMPORT_BLOCKED + ('PIL',)!r}:\n"
             "    sys.modules[blocked] = None\n"
             f"for m in {TRAIN_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
@@ -672,7 +694,7 @@ def test_last_single_card_modules_run_without_the_cards_missing_packages():
     prefetch loader import and run with the card's missing packages
     blocked; the OME module imports there (imageio only inside)."""
     code = ("import importlib, os, sys, tempfile\n"
-            f"for blocked in {CARD_MISSING!r}:\n"
+            f"for blocked in {IMPORT_BLOCKED!r}:\n"
             "    sys.modules[blocked] = None\n"
             f"for m in {SLICE_10_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
@@ -716,3 +738,59 @@ def test_entry_points_of_the_last_single_card_slice_take_a_device():
         assert param is not None and param.kind is param.KEYWORD_ONLY, fn.__qualname__
         assert param.default == "cuda", fn.__qualname__
     assert inspect.signature(PrefetchLoader).parameters["device"].default == "cuda"
+
+
+def test_no_module_imports_the_packages_the_port_replaced():
+    """imageio and sklearn, which the card's machine lacks, are imported by
+    no module of the port, inside functions included: the port has its own
+    TIFF codec (``io/tiff.py``), Ward clustering
+    (``cluster_helpers.WardClustering``) and cosine similarity."""
+    offenders = [f"{os.path.relpath(path, REPO)}:{line} {name}"
+                 for path in _files((".py",)) for line, name in _imported_names(path)
+                 if name.split(".")[0] in NEVER_IMPORTED]
+    assert not offenders, offenders
+
+
+FILE_ENTRY_POINTS = """
+import tempfile
+import numpy as np
+import chip_smoke as smoke
+from ark_tpu_torch.segmentation import synthetic
+
+rng = np.random.default_rng(21)
+chans = ["chan0", "chan1", "chan2", "chan3"]
+raws = smoke.make_cohort(rng, n_fovs=2, size=64)
+raws = [r[..., :4] for r in raws]
+with tempfile.TemporaryDirectory() as base:
+    _, seconds, got = smoke.pixel_stage_from_files(raws, base, "cpu", channels=chans,
+                                                   xdim=3, ydim=3, max_k=4)
+want = smoke.drive_slice(raws, "cpu", xdim=3, ydim=3)
+smoke.check_pixel_stage_from_files(got, want, (64, 64), 9, 4)
+print("pixel steps", sorted(seconds))
+
+planted = synthetic.synthetic_cells(np.random.default_rng(22), 2, hw=64)[0]
+images = {f"fov{i}": {"nuclear": planted[i, ..., 0], "membrane": planted[i, ..., 1],
+                      "marker0": rng.gamma(1.0, 2.0, (64, 64)).astype(np.float32),
+                      "marker1": rng.poisson(3.0, (64, 64)).astype(np.float32)}
+          for i in range(2)}
+fiber = smoke.fiber_image(np.random.default_rng(23), size=64, n_fibers=4)
+kw = dict(ckpt=smoke.CKPT, xdim=3, ydim=3, max_k=4)
+with tempfile.TemporaryDirectory() as base:
+    out, seconds = smoke.templates_from_files(base, images, fiber, "cpu", **kw)
+    n_cells, n_meta = smoke.check_templates_from_files(out, images, fiber, "cpu", **kw)
+print("template steps", sorted(seconds), n_cells, n_meta)
+"""
+
+
+def test_file_entry_points_run_without_the_card_missing_packages():
+    """With imageio, sklearn, h5py, matplotlib and seaborn blocked, the
+    smoke's file paths run on the CPU at a small size (2 FOVs
+    of 64², 4 channels, a 3x3 SOM, the mini checkpoint) and pass the
+    smoke's own checks: run_pixel_clustering with its pixel masks, then
+    generate_deepcell_input -> create_deepcell_output -> generate_cell_table
+    -> the cell SOM and cell_consensus_cluster -> the cell masks ->
+    calc_dist_matrix with the neighborhood matrix, run_fiber_segmentation and
+    the fov_to_ome/ome_to_fov round trip."""
+    out = run_blocked(FILE_ENTRY_POINTS, timeout=240)
+    assert "pixel steps ['pixel_masks', 'run_pixel_clustering', 'write_tiffs']" in out
+    assert "create_deepcell_output" in out and "ome_to_fov" in out

@@ -150,3 +150,41 @@ def test_port_weights_and_labels_match_jax(runs):
         differ_meta += int((~meta_same).sum())
     assert differ_meta <= differ_som
     print(f"labels differing at near-ties: som {differ_som}, meta {differ_meta}")
+
+
+def test_pixel_consensus_without_sklearn_equals_jax(tmp_path):
+    """pixel_consensus_cluster on one 100-row SOM-average CSV (the pixel
+    SOM's) and its FOV feathers: the JAX package's (sklearn) mapping and
+    meta labels equal the port's, run in a subprocess with sklearn and the
+    other packages the card's machine lacks blocked."""
+    import shutil
+
+    from ark_tpu.phenotyping import pixel_meta_clustering as JPM
+    from tests.test_torch_package import run_blocked
+
+    rng = np.random.default_rng(91)
+    base = tmp_path / "jax"
+    (base / "pixel_mat_data").mkdir(parents=True)
+    avg = pd.DataFrame(rng.gamma(0.8, 1.0, (100, len(CHANNELS))), columns=CHANNELS)
+    avg["pixel_som_cluster"] = np.arange(1, 101)
+    avg["count"] = rng.integers(100, 1000, 100)
+    avg.to_csv(base / "pixel_channel_avg_som_cluster.csv", index=False)
+    for fov in FOVS:
+        pixels = pd.DataFrame(rng.random((400, len(CHANNELS))).astype(np.float32),
+                              columns=CHANNELS)
+        pixels["pixel_som_cluster"] = rng.integers(1, 101, 400)
+        feather.write_dataframe(pixels, str(base / "pixel_mat_data" / f"{fov}.feather"))
+    shutil.copytree(base, tmp_path / "port")
+    cc = JPM.pixel_consensus_cluster(FOVS, CHANNELS, str(base), max_k=20)
+    port = tmp_path / "port"
+    run_blocked(
+        "from ark_tpu_torch.phenotyping import pixel_meta_clustering as pm\n"
+        f"cc = pm.pixel_consensus_cluster({FOVS!r}, {CHANNELS!r}, {str(port)!r}, max_k=20)\n"
+        f"cc.mapping.to_csv({str(port / 'mapping.csv')!r}, index=False)\n")
+    pd.testing.assert_frame_equal(pd.read_csv(port / "mapping.csv"),
+                                  cc.mapping.reset_index(drop=True), check_exact=True)
+    assert cc.mapping["pixel_meta_cluster"].nunique() == 20
+    for fov in FOVS:
+        pd.testing.assert_frame_equal(_read(str(port), f"pixel_mat_data/{fov}.feather"),
+                                      _read(str(base), f"pixel_mat_data/{fov}.feather"),
+                                      check_exact=True)
