@@ -41,7 +41,7 @@ _SIGNATURES = {
     },
     "segment_sum": {
         "ark_segment_plan_launch": ([_p, ctypes.c_longlong, _i, _i, _p, _p], _i),
-        "ark_segment_sum_launch": ([_p, _p, _i, _p, _i, _i, _i, _p, _p], _i),
+        "ark_segment_sum_launch": ([_p, _p, _i, _p, _i, _i, _i, _i, _p, _p], _i),
         "ark_segment_sum_error_string": ([_i], ctypes.c_char_p),
     },
 }

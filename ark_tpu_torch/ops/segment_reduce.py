@@ -10,7 +10,11 @@ image; all of them go through one function, ``segment_sum``:
   order, and the last bits of the cell table, would change from run to run).
   The kernel walks each segment's bounding box, which ``segment_plan``
   computes once per label image on the device; a caller that sums several
-  value sets over one image builds the plan once and passes it to each sum;
+  value sets over one image builds the plan once and passes it to each sum.
+  A label image's background row is summed by a kernel of its own (a block
+  for each 8 columns), launched after the cells' walk; flat labels ((N,),
+  UMAP's sorted point ids) go to a kernel with one thread per (segment,
+  column);
 - on a CPU tensor it runs ``segment_sum_plain``, ``index_add_``, a sequential
   scatter in the same order (a plan is checked against the call, then
   ignored).
@@ -18,13 +22,13 @@ image; all of them go through one function, ``segment_sum``:
 Both give sums bitwise equal to the JAX package's CPU ``segment_sum``, row
 0 included: segment 0 (the background of a label image, point 0 of UMAP's
 edge sums) is summed like any other. Every public function takes
-``background: bool = True``. One warp walking the background of a 1024^2
-FOV is a serial chain of ~0.5M adds a column, milliseconds where the cells'
-rows take tens of microseconds, so the callers that index by cell id and
-never read row 0 (the cell table, the fiber table) pass ``background=False``:
-row 0 of the sums is then zero on every device, the background row of
-``centroids`` NaN and the one of the moment features that of an empty
-segment. Rows 1: do not depend on it.
+``background: bool = True``. Each column of the background row is one
+serial chain of adds over every background pixel (~0.44M in a dense 1024^2
+FOV, ~1.4 ms on an H100), where the cells' rows take tens of microseconds, so
+the callers that index by cell id and never read row 0 (the cell table, the
+fiber table) pass ``background=False``: row 0 of the sums is then zero on
+every device, the background row of ``centroids`` NaN and the one of the
+moment features that of an empty segment. Rows 1: do not depend on it.
 
 All functions take `num_segments` = max label + 1; tensors are on the
 device the caller chose, and the results stay there.
@@ -32,6 +36,7 @@ device the caller chose, and the results stay there.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -104,6 +109,23 @@ def _check_labels(labels: torch.Tensor, num_segments: int, device=None) -> None:
                          f"the kernel takes both on one CUDA device")
 
 
+def _on_device(device: torch.device):
+    """What makes `device` current for a launch: nothing when it is current
+    already (entering ``torch.cuda.device`` costs a few microseconds, as
+    much as a flat sum's kernel)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _stream(device: torch.device) -> int:
+    """The current CUDA stream of `device` as the raw handle the kernels take
+    (the call torch's own generated kernels make: a small sum's launch is
+    host-bound, and ``torch.cuda.current_stream(device).cuda_stream`` costs
+    as much again)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def segment_plan(labels: torch.Tensor, num_segments: int) -> SegmentPlan:
     """The plan of one label image ((H, W), or (N,) as one row) for
     ``segment_sum(..., plan=)``. On a CUDA tensor it launches the plan
@@ -121,11 +143,10 @@ def segment_plan(labels: torch.Tensor, num_segments: int) -> SegmentPlan:
     flat = _int32_labels(labels, num_segments)
     boxes = torch.empty((num_segments, 4), dtype=torch.int32, device=flat.device)
     lib = _kernels.lib("segment_sum")
-    with torch.cuda.device(flat.device):
-        stream = torch.cuda.current_stream(flat.device).cuda_stream
+    with _on_device(flat.device):
         err = lib.ark_segment_plan_launch(flat.data_ptr(), flat.numel(),
                                           _row_width(labels), num_segments,
-                                          boxes.data_ptr(), stream)
+                                          boxes.data_ptr(), _stream(flat.device))
     if err != 0:
         raise RuntimeError(f"segment_plan kernel launch failed: "
                            f"{lib.ark_segment_sum_error_string(err).decode()} ({err})")
@@ -184,15 +205,17 @@ def segment_sum(values: torch.Tensor, labels: torch.Tensor, num_segments: int,
     """Per-segment sums of `values` (N,) or (N, K) keyed by `labels` ((H, W)
     or (N,)), each accumulated in ascending pixel order; labels outside
     [0, num_segments) are dropped. With ``background=False`` segment 0 is
-    not summed and row 0 is zero (for callers that never read it: its walk
-    is one warp's serial chain over every background pixel). The CUDA kernel
-    for CUDA tensors, ``segment_sum_plain`` for CPU ones. `plan` is
-    ``segment_plan(labels, num_segments)``, built once per label image and
+    not summed and row 0 is zero (for callers that never read it: each of
+    its columns is a serial chain of adds over every background pixel). The
+    CUDA kernel for CUDA tensors, ``segment_sum_plain`` for CPU ones. `plan`
+    is ``segment_plan(labels, num_segments)``, built once per label image and
     reused; without one, this call builds it. A plan of another shape,
     device or `num_segments` raises. On CUDA tensors the wrapper launches
-    ``ark_segment_sum_launch`` on the current stream and raises if the
-    launch is refused; it never falls back. ``segment_sum.launches`` counts
-    kernel launches."""
+    ``ark_segment_sum_launch`` on the current stream (for (N,) labels the
+    flat kernel; for a label image the cells' walk, and with the background
+    the background row's kernel after it: picked by the labels' layout,
+    never their values) and raises if a launch is refused; it never falls
+    back. ``segment_sum.launches`` counts kernel launches."""
     if plan is not None:
         _check_plan(plan, labels, num_segments)
     if values.device.type == "cpu" and labels.device.type == "cpu":
@@ -201,23 +224,23 @@ def segment_sum(values: torch.Tensor, labels: torch.Tensor, num_segments: int,
     if plan is None:
         plan = segment_plan(labels, num_segments)
     n, k = values.shape[0], (values.shape[1] if values.ndim == 2 else 1)
-    vals = values.reshape(n, k).contiguous()
-    out = torch.empty((num_segments, k), dtype=torch.float32, device=vals.device)
+    vals = values if values.ndim == 2 and values.is_contiguous() else (
+        values.reshape(n, k).contiguous())
+    out = vals.new_empty((num_segments, k))
     if n == 0 or k == 0:
         return out.zero_().reshape((num_segments,) + tuple(values.shape[1:]))
     lib = _kernels.lib("segment_sum")
-    with torch.cuda.device(vals.device):
-        stream = torch.cuda.current_stream(vals.device).cuda_stream
+    with _on_device(vals.device):
         err = lib.ark_segment_sum_launch(
             vals.data_ptr(), plan.labels.data_ptr(), _row_width(labels),
-            plan.boxes.data_ptr(), num_segments, k, int(background), out.data_ptr(),
-            stream)
+            plan.boxes.data_ptr(), num_segments, k, int(background),
+            int(labels.ndim == 1), out.data_ptr(), _stream(vals.device))
     if err != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: "
                            f"{lib.ark_segment_sum_error_string(err).decode()} "
                            f"({err})")
-    segment_sum.launches += 1
-    return out.reshape((num_segments,) + tuple(values.shape[1:]))
+    segment_sum.launches += 2 if background and labels.ndim != 1 else 1
+    return out if values.ndim == 2 else out.reshape(num_segments)
 
 
 segment_sum.launches = 0

@@ -23,7 +23,10 @@ started together) and drives these paths on the card:
   plan and segment-sum kernels against their plain versions (the sums
   against index_add_ on a CPU copy) and against themselves, on dense
   3 x 1024^2 masks (~1000 cells a FOV) and on the planted cohort's
-  segmented masks, and one FOV's four sums as the cell table makes them;
+  segmented masks, the background row's kernel at K = 3 and K = 44 on both
+  (timed beside index_add_ and its byte and chain bounds) and at K = 1, 9
+  and 130, with NaN, +-inf and -0.0 values, on an all-background and a
+  no-background image, and one FOV's four sums as the cell table makes them;
   the cell tables of the planted
   cohort's segmented masks and of the dense masks with 40 seeded channels
   through create_marker_count_matrices (nuclear counts, split nuclei, every
@@ -58,7 +61,9 @@ started together) and drives these paths on the card:
   steps on the card against the CPU port given the same inputs (k-NN,
   bandwidths, the seeded negatives, the PCA start, a few epochs of
   _optimize, the t-SNE affinities and a few descent steps); and the
-  segment-sum kernel bitwise against its plain version at UMAP's edge shape;
+  segment-sum kernel's flat path bitwise against its plain version at
+  UMAP's edge shape (heads, sorted tails, unsorted tails, ids out of
+  range), timed beside index_add_ and its byte and chain bounds;
 - spatial LDA (the LDA_Preprocessing and LDA_Training_and_Inference
   templates), which launches no kernel of its own: (k) on phase (c)'s
   10 x 3000 cells, featurization (radius 100), the MST difference matrices,
@@ -163,6 +168,11 @@ COVERAGE_TIE_SHARE = 1e-3
 # the least time the card could take: published H100 SXM peaks (700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# SM cycles of one dependent __fadd_rn on the H100 (scripts/port_kernel_ab.py
+# measures it: one warp's chain of 2^20 adds, cycles by clock64): the segment
+# sum's contract adds each segment's values one after another, so a chain of
+# n adds takes at least n x this many cycles
+FADD_LATENCY_CYCLES = 4.219
 
 
 class SmokeFailure(RuntimeError):
@@ -208,12 +218,40 @@ def plain_d(weights, data):
     return w2[None, :] - 2.0 * (data @ weights.T)
 
 
-def bound_ms(nbytes=0.0, flop=0.0):
-    """(ms, "bytes" or "operations"): the larger of the bytes over the HBM
-    rate and the f32 operations over the f32 peak."""
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flop / F32_FLOP_PER_S * 1e3
-    return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")
+def bound_ms(nbytes=0.0, flop=0.0, chain=0, mhz=None):
+    """(ms, "bytes", "operations" or "chain"): the largest of the bytes over
+    the HBM rate, the f32 operations over the f32 peak and, given the
+    longest chain of dependent adds and the SM clock `mhz`, that chain's
+    cycles (FADD_LATENCY_CYCLES an add) at that clock."""
+    times = [(nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), (flop / F32_FLOP_PER_S * 1e3,
+                                                         "operations")]
+    if chain:
+        times.append((chain * FADD_LATENCY_CYCLES / (mhz * 1e3), "chain"))
+    return max(times, key=lambda t: t[0])
+
+
+def sm_clock_mhz(fn, calls):
+    """The SM clock (MHz) nvidia-smi reads while the card works through
+    `calls` queued calls of `fn`: the clock a chain bound is reckoned at."""
+    import torch
+
+    for _ in range(calls):
+        fn()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    torch.cuda.synchronize()
+    return float(out.strip().splitlines()[0].split()[0])
+
+
+def same_bits(got, want):
+    """Bitwise equal, NaN where the other has NaN (a NaN's payload is not
+    compared: the card's adds give the canonical NaN)."""
+    import torch
+
+    got, want = got.cpu(), want.cpu()
+    nan = torch.isnan(want)
+    return (got.shape == want.shape and torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
 
 
 def share(bound, ms):
@@ -1034,8 +1072,11 @@ def check_segment_sum(masks_by_comp, name="dense"):
     background (row 0 zero, rows 1: the same bits), at K = 3 and K = 44 on
     the whole-cell masks; then, on FOV 0, per-call times of the plan, of the
     sum given its plan without the background row (what the cell table
-    launches) and with it, of both, of the plain version and of CUDA
-    index_add_, each beside its bound; and one FOV's segment sums as the default cell
+    launches) and with it (events, a batch and device time), of both, of the
+    plain version and of CUDA index_add_, each beside its bound (the
+    background row's is the larger of its bytes and its chain: one
+    dependent add a background pixel, at the SM clock nvidia-smi reads under
+    its load); and one FOV's segment sums as the default cell
     table makes them (marker_quantification's _compartment_features ->
     moment_and_channel_features: per compartment one plan, the K = 3 and the
     K = 44 pass). Returns (max error of the sums, max error of the boxes,
@@ -1102,15 +1143,24 @@ def check_segment_sum(masks_by_comp, name="dense"):
                                                                       n_seg)),
                      "library_ms": time_ms(lambda: torch.zeros(
                          (n_seg, k), device=DEVICE).index_add_(0, flat, val_gpu)),
+                     "library_batch_ms": batch_ms(lambda: torch.zeros(
+                         (n_seg, k), device=DEVICE).index_add_(0, flat, val_gpu), reps=5),
                      # the foreground's values and every label read once, the
                      # sums written once; the plan: labels in, boxes out
                      "bound_ms": bound_ms(nbytes=4.0 * (fg * k + lab.size + n_seg * k))[0],
-                     # with the background row every pixel's values are read
-                     "bg_bound_ms": bound_ms(
-                         nbytes=4.0 * (lab.size * k + lab.size + n_seg * k))[0],
                      "plan_bound_ms": bound_ms(nbytes=4.0 * lab.size + 16.0 * n_seg)[0],
                      # the walk's label reads per foreground pixel (its cost model)
-                     "box_over_cell": float(box_px) / max(fg, 1)}
+                     "box_over_cell": float(box_px) / max(fg, 1),
+                     "bg_chain": int((lab == 0).sum()),
+                     "sm_mhz": sm_clock_mhz(lambda: sr.segment_sum(val_gpu, lab_gpu, n_seg,
+                                                                   plan), calls=200)}
+                # with the background row every pixel's values are read, and
+                # each column of row 0 is one chain of (background pixels) adds
+                bg_bytes = 4.0 * (lab.size * k + lab.size + n_seg * k)
+                t["bg_byte_bound_ms"] = bound_ms(nbytes=bg_bytes)[0]
+                t["bg_chain_bound_ms"] = bound_ms(chain=t["bg_chain"], mhz=t["sm_mhz"])[0]
+                t["bg_bound_ms"], t["bg_bound_by"] = bound_ms(
+                    nbytes=bg_bytes, chain=t["bg_chain"], mhz=t["sm_mhz"])
                 timing[k] = t
         t = timing[k]
         print(f"segment_sum K={k} on {len(masks)} x {masks[0].shape} {name} masks "
@@ -1125,15 +1175,22 @@ def check_segment_sum(masks_by_comp, name="dense"):
               f"(device {fmt_ms(t['device_ms'])}, {t['batch_ms']:.4f} ms a call in a "
               f"batch of 20; bound {t['bound_ms']:.4f}, share "
               f"{share(t['bound_ms'], t['ms']):.2f}, "
-              f"{share(t['bound_ms'], t['device_ms']):.2f} of the device time), with "
-              f"the background row {t['bg_ms']:.4f} ms (device "
-              f"{fmt_ms(t['bg_device_ms'])}, {t['bg_batch_ms']:.4f} ms a call in a batch "
-              f"of 5; bound {t['bg_bound_ms']:.4f}, share "
-              f"{share(t['bg_bound_ms'], t['bg_batch_ms']):.3f} of the batch time), "
+              f"{share(t['bound_ms'], t['device_ms']):.2f} of the device time), "
               f"plan and sum "
               f"{t['plan_and_sum_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, CUDA "
               f"index_add_ {t['library_ms']:.4f} ms; box area / cell area "
               f"{t['box_over_cell']:.3f}")
+        print(f"segment_sum K={k} with the background row, FOV 0 of the {name} masks "
+              f"({t['bg_chain']} background pixels) [{CARD}]: events {t['bg_ms']:.4f} ms, "
+              f"batch of 5 {t['bg_batch_ms']:.4f} ms, device {fmt_ms(t['bg_device_ms'])} "
+              f"(the walk's and the background kernel's launches); CUDA index_add_ "
+              f"events {t['library_ms']:.4f} ms, batch {t['library_batch_ms']:.4f} ms; "
+              f"byte bound {t['bg_byte_bound_ms']:.4f} ms, chain bound "
+              f"{t['bg_chain_bound_ms']:.4f} ms ({t['bg_chain']} adds x "
+              f"{FADD_LATENCY_CYCLES} cycles at {t['sm_mhz']:.0f} MHz), so bound "
+              f"{t['bg_bound_ms']:.4f} ms by {t['bg_bound_by']}: share "
+              f"{share(t['bg_bound_ms'], t['bg_batch_ms']):.3f} of the batch time, "
+              f"{share(t['bg_bound_ms'], t['bg_device_ms']):.3f} of the device time")
     values = {}
     for comp in ("whole_cell", "nuclear"):
         lab = masks_by_comp[comp][0]
@@ -1162,6 +1219,54 @@ def check_segment_sum(masks_by_comp, name="dense"):
           f"{share(timing['fov_bound_ms'], timing['fov_device_ms']):.2f} of the device "
           f"time")
     return max_err, plan_err, timing
+
+
+def check_background_row(masks, seed=46):
+    """The background row's kernel beyond the cell table's shapes, each sum
+    bitwise against segment_sum_plain on a CPU copy (NaN where it has NaN),
+    and background=False keeping rows 1:'s bits: FOV 0 of `masks` (H, W)
+    at K = 1, 9 and 130 (the column groups of 8 and 4, and 17 blocks), and
+    at K = 5 with NaN, +-inf and -0.0 (row 0 of an all -0.0 column is
+    +0.0); an image that is all background (one segment); and an image
+    with no background (Voronoi cells over every pixel). Returns the cases
+    checked."""
+    import torch
+
+    from ark_tpu_torch.ops import segment_reduce as sr
+
+    rng = np.random.default_rng(seed)
+    lab = masks[0]
+    size = lab.shape[0]
+    special = rng.normal(size=(lab.size, 5)).astype(np.float32)
+    for value in (np.nan, np.inf, -np.inf):
+        special[rng.random(special.shape) < 0.01] = value
+    special[:, 4] = -0.0
+    no_background = dense_masks(seed=seed, n_fovs=1, size=size,
+                                cell_radius=4 * size)["whole_cell"][0]
+    cases = [(f"K={k}", lab, rng.gamma(1.0, 3.0, (lab.size, k)).astype(np.float32))
+             for k in (1, 9, 130)]
+    cases += [("K=5, NaN, +-inf, -0.0", lab, special),
+              ("all background, K=44", np.zeros_like(lab),
+               rng.gamma(1.0, 3.0, (lab.size, 44)).astype(np.float32)),
+              ("no background, K=44", no_background,
+               rng.gamma(1.0, 3.0, (lab.size, 44)).astype(np.float32))]
+    check(not (no_background == 0).any(), "the no-background image has background")
+    for what, labels, vals in cases:
+        n_seg = int(labels.max()) + 1
+        lab_cpu, val_cpu = torch.as_tensor(labels), torch.as_tensor(vals)
+        lab_gpu, val_gpu = lab_cpu.to(DEVICE), val_cpu.to(DEVICE)
+        plan = sr.segment_plan(lab_gpu, n_seg)
+        got = sr.segment_sum(val_gpu, lab_gpu, n_seg, plan)
+        cells_only = sr.segment_sum(val_gpu, lab_gpu, n_seg, plan, background=False)
+        want = sr.segment_sum_plain(val_cpu, lab_cpu, n_seg)
+        check(same_bits(got, want), f"segment_sum {what}: "
+              f"{int((got.cpu() != want).sum())} sums differ from index_add_ on the CPU")
+        check(not bool(cells_only[0].any()) and same_bits(cells_only[1:], got[1:]),
+              f"segment_sum {what}: background=False changes rows 1:")
+    print(f"segment_sum with the background row on {lab.shape} images [{CARD}]: "
+          f"{', '.join(c[0] for c in cases)}: bitwise equal to index_add_ on the CPU "
+          f"(NaN where it has NaN), rows 1: unchanged without the background")
+    return [c[0] for c in cases]
 
 
 def quant_cohort(masks_by_comp, seed=45):
@@ -2443,13 +2548,18 @@ def compare_embedding_steps(data):
           f"{float(y_c.abs().max()):.3g} (atol {TSNE_ATOL})")
 
 
-def check_edge_sums(data):
-    """The segment-sum kernel at the shape UMAP's epoch gives it: the fuzzy
-    graph's edges of every cell (N x 15 sorted point ids, 2 columns, N
-    segments, point 0 a real row), heads and stably sorted tails, each
-    bitwise against segment_sum_plain on a CPU copy; timed on the tails
-    beside the plan, the plain version, CUDA index_add_ and the byte bound.
-    Returns (max error, timings)."""
+def check_edge_sums(data, window=64):
+    """The segment-sum kernel's flat path at the shape UMAP's epoch gives it:
+    the fuzzy graph's edges of every cell (N x 15 point ids, 2 columns, N
+    segments, point 0 a real row): heads, stably sorted tails, the tails
+    shuffled within runs of `window` entries (unsorted, each segment's span
+    still short), the sorted tails with 1% of the ids set to -1 or N (out of
+    range, dropped), and 20,000 ids drawn over 500 points in no order; each
+    bitwise against segment_sum_plain on a CPU copy, and background=False
+    keeping rows 1:'s bits. Timed on the sorted tails (events, a batch and
+    device time) beside the plan, the plain version, CUDA index_add_, the
+    byte bound and the chain bound (the longest segment's adds). Returns
+    (max error, timings)."""
     import torch
 
     from ark_tpu_torch.analysis import dimensionality_reduction as dr
@@ -2461,22 +2571,39 @@ def check_edge_sums(data):
     idx, _ = umap._knn(x, 15)
     heads = torch.arange(n, device=DEVICE).repeat_interleave(idx.shape[1]).to(torch.int32)
     tails = torch.sort(idx.reshape(-1), stable=True).values.to(torch.int32)
-    vals = torch.as_tensor(np.random.default_rng(57).normal(
-        size=(heads.numel(), 2)).astype(np.float32), device=DEVICE)
+    rng = np.random.default_rng(57)
+    vals = torch.as_tensor(rng.normal(size=(heads.numel(), 2)).astype(np.float32),
+                           device=DEVICE)
+    shuffled = tails.cpu().numpy().copy()
+    for start in range(0, shuffled.size, window):
+        rng.shuffle(shuffled[start:start + window])
+    out_of_range = tails.cpu().numpy().copy()
+    hit = rng.random(out_of_range.size) < 0.01
+    out_of_range[hit] = np.where(rng.random(int(hit.sum())) < 0.5, -1, n)
+    few = rng.integers(0, 500, 20_000).astype(np.int32)
+    cases = [("heads", heads, n, vals), ("tails", tails, n, vals),
+             ("tails unsorted", torch.as_tensor(shuffled, device=DEVICE), n, vals),
+             ("tails out of range", torch.as_tensor(out_of_range, device=DEVICE), n, vals),
+             ("20,000 unsorted ids", torch.as_tensor(few, device=DEVICE), 500,
+              vals[:few.size])]
     max_err = 0.0
-    for name, ids in (("heads", heads), ("tails", tails)):
-        plan = sr.segment_plan(ids, n)
-        got = sr.segment_sum(vals, ids, n, plan)
-        want = sr.segment_sum_plain(vals.cpu(), ids.cpu(), n)
+    for name, ids, n_seg, v in cases:
+        plan = sr.segment_plan(ids, n_seg)
+        got = sr.segment_sum(v, ids, n_seg, plan)
+        cells_only = sr.segment_sum(v, ids, n_seg, plan, background=False)
+        want = sr.segment_sum_plain(v.cpu(), ids.cpu(), n_seg)
         torch.cuda.synchronize()
         max_err = max(max_err, float((got.cpu() - want).abs().max()))
-        check(torch.equal(got.cpu(), want) and bool((want[0] != 0).any()),
+        check(same_bits(got, want) and bool((want[0] != 0).any()),
               f"segment_sum over UMAP's {name}: {int((got.cpu() != want).sum())} sums "
               f"differ from index_add_ on the CPU")
+        check(not bool(cells_only[0].any()) and same_bits(cells_only[1:], got[1:]),
+              f"segment_sum over UMAP's {name}: background=False changes rows 1:")
         if plan.boxes is not None:            # CUDA plans carry the boxes
-            check(torch.equal(plan.boxes, sr.segment_boxes_plain(ids, n)),
+            check(torch.equal(plan.boxes, sr.segment_boxes_plain(ids, n_seg)),
                   f"segment_plan over UMAP's {name}: boxes differ from the plain "
                   f"version's")
+    plan = sr.segment_plan(tails, n)
     flat = tails.long()
     longest = int(torch.bincount(flat, minlength=n).max())
     t = {"ms": time_ms(lambda: sr.segment_sum(vals, tails, n, plan)),
@@ -2489,19 +2616,26 @@ def check_edge_sums(data):
          "plain_ms": time_ms(lambda: sr.segment_sum_plain(vals, tails, n)),
          "library_ms": time_ms(lambda: torch.zeros((n, 2), device=DEVICE).index_add_(
              0, flat, vals)),
+         "longest": longest,
+         "sm_mhz": sm_clock_mhz(lambda: sr.segment_sum(vals, tails, n, plan), calls=2000),
          # every edge's two values and its label read once, the sums written once
-         "bound_ms": bound_ms(nbytes=4.0 * (3 * tails.numel() + 2 * n))[0],
+         "byte_bound_ms": bound_ms(nbytes=4.0 * (3 * tails.numel() + 2 * n))[0],
          "plan_bound_ms": bound_ms(nbytes=4.0 * tails.numel() + 16.0 * n)[0]}
-    print(f"segment_sum at UMAP's edge shape ({tails.numel()} sorted ids x 2 columns, {n} "
-          f"segments, longest {longest}) on {DEVICE} [{CARD}]: heads and tails bitwise equal "
-          f"to index_add_ on the CPU, row 0 included; tails per call (CUDA events, median "
-          f"of 10): sum given its plan {t['ms']:.4f} ms (device {fmt_ms(t['device_ms'])}, "
-          f"{t['batch_ms']:.4f} ms a call in a batch of 20; bound {t['bound_ms']:.4f}, share "
-          f"{share(t['bound_ms'], t['batch_ms']):.3f} of the batch time), plan "
+    t["chain_bound_ms"] = bound_ms(chain=longest, mhz=t["sm_mhz"])[0]
+    t["bound_ms"], t["bound_by"] = bound_ms(nbytes=4.0 * (3 * tails.numel() + 2 * n),
+                                            chain=longest, mhz=t["sm_mhz"])
+    print(f"segment_sum at UMAP's edge shape ({tails.numel()} ids x 2 columns, {n} "
+          f"segments, longest {longest}) on {DEVICE} [{CARD}]: {', '.join(c[0] for c in cases)} "
+          f"bitwise equal to index_add_ on the CPU, row 0 included; sorted tails per call: "
+          f"events {t['ms']:.4f} ms, batch of 20 {t['batch_ms']:.4f} ms, device "
+          f"{fmt_ms(t['device_ms'])}; CUDA index_add_ events {t['library_ms']:.4f} ms, batch "
+          f"{t['library_batch_ms']:.4f} ms; byte bound {t['byte_bound_ms']:.4f} ms, chain "
+          f"bound {t['chain_bound_ms']:.6f} ms ({longest} adds x {FADD_LATENCY_CYCLES} cycles "
+          f"at {t['sm_mhz']:.0f} MHz), so bound {t['bound_ms']:.4f} ms by {t['bound_by']}: "
+          f"share {share(t['bound_ms'], t['batch_ms']):.3f} of the batch time, "
+          f"{share(t['bound_ms'], t['device_ms']):.3f} of the device time; plan "
           f"{t['plan_ms']:.4f} ms (device {fmt_ms(t['plan_device_ms'])}; bound "
-          f"{t['plan_bound_ms']:.4f}), plain "
-          f"{t['plain_ms']:.4f} ms, CUDA index_add_ {t['library_ms']:.4f} ms "
-          f"({t['library_batch_ms']:.4f} in a batch)")
+          f"{t['plan_bound_ms']:.4f}), plain {t['plain_ms']:.4f} ms")
     return max_err, t
 
 
@@ -4119,6 +4253,7 @@ def main() -> int:
     seg_err, plan_err, seg_timing = check_segment_sum(dense)
     errs = check_segment_sum(masks["3x1024"], "segmented")[:2]
     seg_err, plan_err = max(seg_err, errs[0]), max(plan_err, errs[1])
+    check_background_row(dense["whole_cell"])
     segmented = quant_cohort(masks["3x1024"])
     seg_launches, plan_launches, _ = run_cell_table(segmented, "segmented")
     cohort = quant_cohort(dense)
@@ -4221,10 +4356,16 @@ def main() -> int:
         "plain_ms": seg_ms["plain_ms"], "bound_ms": seg_ms["bound_ms"],
         "bound_by": "bytes", "library_ms": seg_ms["library_ms"],
         "by_shape": {
-            "k44_with_background": {"ms": seg_ms["bg_ms"],
-                                    "bound_ms": seg_ms["bg_bound_ms"]},
+            **{f"k{k}_with_background": {
+                "ms": seg_timing[k]["bg_ms"], "batch_ms": seg_timing[k]["bg_batch_ms"],
+                "library_ms": seg_timing[k]["library_ms"],
+                "library_batch_ms": seg_timing[k]["library_batch_ms"],
+                "bound_ms": seg_timing[k]["bg_bound_ms"],
+                "bound_by": seg_timing[k]["bg_bound_by"]}
+               for k in (4 + N_QUANT_CHANNELS, 3)},
             "umap_edges": {key: edge_timing[key] for key in
-                           ("ms", "plain_ms", "bound_ms", "library_ms")}}}, {
+                           ("ms", "batch_ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "library_batch_ms")}}}, {
         "name": "segment_plan", "route": "cuda",
         "source": "ark_tpu_torch/csrc/segment_sum.cu",
         "replaces": "ark_tpu/ops/segment_reduce.py:44", "launches": plan_launches,

@@ -1,40 +1,35 @@
-"""A/B timing of the port's segment-sum and BMU kernels against an earlier
-design of the same kernels, on one CUDA card.
+"""A/B timing of the port's segment-sum kernel against an earlier design of
+the same kernel on one CUDA card, and the card's dependent f32 add latency.
 
     python3 scripts/port_kernel_ab.py --old-csrc DIR [--out FILE]
 
-DIR holds the earlier ``bmu.cu`` and ``segment_sum.cu`` (for example
-``git archive <commit> ark_tpu_torch/csrc | tar -x -C DIR``). They are built
-with the port's nvcc flags into a temporary directory and bound with ctypes;
-their C interfaces are the ones of the port's first designs (the BMU's is
-unchanged; the segment sum took an int64 CSR view, built per call by a
-stable sort and a binary search). Every comparison runs in turns (old, new,
-new, old), CUDA events, median of 10 calls each:
+DIR holds the earlier ``segment_sum.cu`` (for example ``git archive d83bac8
+ark_tpu_torch/csrc | tar -x -C DIR``: the design in which one warp walked the
+background row and every flat segment). It is built with the port's nvcc
+flags into a temporary directory and bound with ctypes. Its C interface is
+the plan's, unchanged, and a sum launch without the new ``flat`` argument:
+``ark_segment_sum_launch(values, labels, w, boxes, num_segments, k,
+background, out, stream)``; both designs take the same plan. Every
+comparison runs in turns (old, new, new, old); "ev" is the median of 10
+single calls between CUDA events, "batch" one pair of events around 20
+queued calls, "dev" torch.profiler's device time per call:
 
-- BMU at the pixel stage's shapes (4 x 1024^2 and 1024^2 rows x 16, K = 100)
-  and the cell SOM's (101,932 x 20, K = 100): indices and distances of the
-  two designs must be bitwise equal;
-- segment sum on FOV 0 of two 1024^2 cohorts (chip_smoke.dense_masks, ~1000
-  cells, and the planted cohort's truth masks, ~190 cells) at K = 3 and
-  K = 44: the plan alone (the kept bounding-box plan, and the build of the
-  other candidate, an int32 CSR by a stable sort and a binary search), the
-  sum given its plan, and both, against the old call and CUDA index_add_;
-  then one FOV's four sums as the default cell table makes them (two
-  compartments x two passes), all without the background row, as the cell
-  table asks for them. All sums must be bitwise equal to index_add_ on a CPU
-  copy;
-- the segment sum's two other shapes: the dense FOV with the background row
-  (K = 3 and K = 44: one warp walks every background pixel), and UMAP's
-  edge sums (101,932 points x 15 sorted ids x 2 columns, point 0 a real row:
-  the heads, and tails drawn with hubs and sorted), against the old call
-  (whose row 0 is zero, so rows 1: are compared), CUDA index_add_ and the
-  byte bound.
+- L, the latency of a dependent ``__fadd_rn`` in SM cycles: one warp adds
+  2^20 times into one register (a tool kernel of this script, built beside
+  the old design); cycles from ``clock64()``, milliseconds from events. And
+  f, the SM clock nvidia-smi reads while the background row runs.
+- the background row (segment 0 of FOV 0 of ``chip_smoke.dense_masks``,
+  1024^2, 42% background) at K = 3 and K = 44: beside CUDA ``index_add_``,
+  the byte bound and the chain bound (background pixels x L / f);
+- UMAP's edge sums: the heads and the sorted tails (101,932 points x 15
+  ids, hubs) x 2 columns, beside ``index_add_`` and the byte bound;
+- the cell table's sums without the background row (K = 3 and K = 44
+  given a plan, and one FOV's four sums with their plans) on the dense and
+  the planted masks: the cell walk should not move.
 
-Kernel times are also taken as device time (torch.profiler, every kernel a
-call launches), which leaves out the host's launch work that CUDA events
-around a single call include.
-
-It prints one line per measurement and writes them all as JSON to FILE.
+Every sum of both designs is checked bitwise against ``index_add_`` on a
+CPU copy (the old design's flat sums too). It prints one line per
+measurement and writes them all as JSON to FILE.
 """
 
 from __future__ import annotations
@@ -52,141 +47,106 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, published
-F32_FLOP_PER_S = 67e12             # H100 SXM f32 outside the tensor cores, published
+CHAIN_ADDS = 1 << 20
+
+FADD_CHAIN_CU = r"""
+#include <cuda_runtime.h>
+
+// One warp: out[lane] = x + step + step + ... (n dependent adds, n a
+// multiple of 8); cycles[lane] the SM cycles of the chain.
+__global__ void fadd_chain(float* out, long long* cycles, float step, int n) {
+  float a = out[threadIdx.x];
+  const long long t0 = clock64();
+  for (int i = 0; i < n; i += 8) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) a = __fadd_rn(a, step);
+  }
+  const long long t1 = clock64();
+  out[threadIdx.x] = a;
+  cycles[threadIdx.x] = t1 - t0;
+}
+
+extern "C" int ark_fadd_chain_launch(float* out, long long* cycles, float step, int n,
+                                     void* stream) {
+  fadd_chain<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(out, cycles, step, n);
+  return (int)cudaGetLastError();
+}
+"""
 
 
-def build_old(src_dir, out_dir):
+def build(out_dir, old_src):
+    """(old segment-sum library, FADD chain library), built in parallel."""
     from ark_tpu_torch.ops import _kernels
 
+    chain_src = os.path.join(out_dir, "fadd_chain.cu")
+    with open(chain_src, "w") as f:
+        f.write(FADD_CHAIN_CU)
+    jobs = {}
+    for name, src in (("old_segment_sum", old_src), ("fadd_chain", chain_src)):
+        path = os.path.join(out_dir, f"lib{name}.so")
+        jobs[name] = (path, subprocess.Popen([_kernels._nvcc(), *_kernels.NVCC_FLAGS,
+                                              "-o", path, src],
+                                             stderr=subprocess.PIPE, text=True))
     libs = {}
-    procs = {}
-    for name in ("bmu", "segment_sum"):
-        path = os.path.join(out_dir, f"libold_{name}.so")
-        procs[name] = (path, subprocess.Popen(
-            [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", path,
-             os.path.join(src_dir, f"{name}.cu")], stderr=subprocess.PIPE, text=True))
-    for name, (path, proc) in procs.items():
+    for name, (path, proc) in jobs.items():
         _, err = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed on the old {name}.cu:\n{err}")
+            raise RuntimeError(f"nvcc failed on {name}:\n{err}")
         libs[name] = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
-    libs["bmu"].ark_bmu_launch.argtypes = [p, p, p, ctypes.c_longlong, i, i, p, p, i, p]
-    libs["bmu"].ark_bmu_launch.restype = i
-    libs["segment_sum"].ark_segment_sum_launch.argtypes = [p, p, p, i, i, p, p]
-    libs["segment_sum"].ark_segment_sum_launch.restype = i
-    return libs
+    libs["old_segment_sum"].ark_segment_sum_launch.argtypes = [p, p, i, p, i, i, i, p, p]
+    libs["old_segment_sum"].ark_segment_sum_launch.restype = i
+    libs["fadd_chain"].ark_fadd_chain_launch.argtypes = [p, p, ctypes.c_float, i, p]
+    libs["fadd_chain"].ark_fadd_chain_launch.restype = i
+    return libs["old_segment_sum"], libs["fadd_chain"]
 
 
-def csr_plan(labels, num_segments):
-    """The CSR candidate's plan, built on the device with int32 outputs: a
-    stable order of the pixels by label and each segment's first position."""
+def fadd_latency(lib):
+    """(cycles per dependent add, ms of the chain, the clock the two imply
+    in MHz): the median of 10 timed chains after a warm-up."""
     import torch
 
-    flat = labels.reshape(-1)
-    sorted_labels, order = torch.sort(flat, stable=True)
-    offsets = torch.searchsorted(sorted_labels, torch.arange(
-        num_segments + 1, dtype=flat.dtype, device=flat.device))
-    return order.to(torch.int32), offsets.to(torch.int32)
-
-
-def sm_clock_under_load(fn, calls=2000):
-    """The SM clock (MHz) and its maximum, as nvidia-smi reads them while the
-    card works through `calls` queued calls of `fn`: what the f32 peak was
-    during the BMU's timings."""
-    import torch
-
-    for _ in range(calls):
-        fn()
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60).stdout.strip().splitlines()[0]
-    torch.cuda.synchronize()
-    return out
-
-
-def in_turns(old, new, reps=10):
-    """(old ms, new ms): medians of old, new, new, old runs, each the median
-    of `reps` CUDA-event timings."""
     from chip_smoke import time_ms
 
-    t = [time_ms(old, reps), time_ms(new, reps), time_ms(new, reps), time_ms(old, reps)]
+    out = torch.zeros(32, device="cuda")
+    cycles = torch.zeros(32, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = lib.ark_fadd_chain_launch(out.data_ptr(), cycles.data_ptr(), 1.0e-7,
+                                        CHAIN_ADDS, stream)
+        assert err == 0, err
+
+    ms = time_ms(run)
+    per_add = int(cycles.max()) / CHAIN_ADDS
+    return per_add, ms, int(cycles.max()) / ms / 1e3
+
+
+def in_turns(old, new, timer):
+    """(old, new, the four readings): old, new, new, old."""
+    t = [timer(old), timer(new), timer(new), timer(old)]
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
 
 
-def old_bmu(lib, w, x, with_dist):
+def old_sum(lib, values, labels, plan, background):
     import torch
 
-    n, c = x.shape
-    idx = torch.empty(n, dtype=torch.int32, device=x.device)
-    dist = torch.empty(n, dtype=torch.float32, device=x.device) if with_dist else None
-    w2 = torch.sum(w * w, dim=1)
-    err = lib.ark_bmu_launch(x.data_ptr(), w.data_ptr(), w2.data_ptr(), n, c, w.shape[0],
-                             idx.data_ptr(), dist.data_ptr() if with_dist else None,
-                             int(with_dist), torch.cuda.current_stream().cuda_stream)
-    assert err == 0, err
-    return idx, dist
+    from ark_tpu_torch.ops import segment_reduce as sr
 
-
-def old_segment_sum(lib, values, labels, num_segments):
-    import torch
-
-    flat = labels.reshape(-1)
-    n, k = values.shape
-    out = torch.empty((num_segments, k), dtype=torch.float32, device=values.device)
-    sorted_labels, order = torch.sort(flat, stable=True)
-    offsets = torch.searchsorted(sorted_labels, torch.arange(
-        num_segments + 1, dtype=flat.dtype, device=flat.device))
-    err = lib.ark_segment_sum_launch(values.data_ptr(), order.data_ptr(),
-                                     offsets.data_ptr(), num_segments, k, out.data_ptr(),
+    k = values.shape[1]
+    out = torch.empty((plan.num_segments, k), dtype=torch.float32, device=values.device)
+    err = lib.ark_segment_sum_launch(values.data_ptr(), plan.labels.data_ptr(),
+                                     sr._row_width(labels), plan.boxes.data_ptr(),
+                                     plan.num_segments, k,
+                                     int(background), out.data_ptr(),
                                      torch.cuda.current_stream().cuda_stream)
     assert err == 0, err
     return out
 
 
-def bmu_ab(lib, rows):
-    import torch
-
-    from ark_tpu_torch.ops import som
-    from chip_smoke import device_ms, pixel_rows
-
-    rng = np.random.default_rng(42)
-    for n, c, k in ((4_194_304, 16, 100), (1_048_576, 16, 100), (101_932, 20, 100)):
-        x = torch.as_tensor(pixel_rows(rng, n, c), device="cuda")
-        w = x[torch.as_tensor(rng.choice(n, size=k), device="cuda")].clone()
-        for with_dist in (False, True):
-            i_old, d_old = old_bmu(lib, w, x, with_dist)
-            i_new, d_new = som.bmu(w, x, return_dist=with_dist)
-            torch.cuda.synchronize()
-            same = torch.equal(i_old, i_new) and (
-                not with_dist or torch.equal(d_old.view(torch.int32), d_new.view(torch.int32)))
-            old_ms, new_ms, turns = in_turns(lambda: old_bmu(lib, w, x, with_dist),
-                                             lambda: som.bmu(w, x, return_dist=with_dist))
-            dev_old = device_ms(lambda: old_bmu(lib, w, x, with_dist))
-            dev_new = device_ms(lambda: som.bmu(w, x, return_dist=with_dist))
-            flop = 2.0 * n * k * c
-            nbytes = 4.0 * (n * c + k * c + n * (2 if with_dist else 1))
-            bound = max(flop / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-            rows.append({"kernel": "bmu", "n": n, "c": c, "k": k, "with_dist": with_dist,
-                         "old_ms": old_ms, "new_ms": new_ms, "turns_ms": turns,
-                         "old_device_ms": dev_old, "new_device_ms": dev_new,
-                         "bound_ms": bound, "share": bound / dev_new,
-                         "bitwise_equal_to_old": bool(same)})
-            print(f"bmu N={n} C={c} K={k} dist={with_dist}: old {old_ms:.4f} ms, new "
-                  f"{new_ms:.4f} ms (turns {[round(t, 4) for t in turns]}); device "
-                  f"time old {dev_old:.4f}, new {dev_new:.4f} ms; bound {bound:.4f} ms "
-                  f"(f32 FMA), share of the new device time {bound / dev_new:.2f}; "
-                  f"indices and distances bitwise equal to the old design: {same}")
-            if not same:
-                raise SystemExit("bmu: the new design differs from the old one")
-        if n == 4_194_304:
-            clock = sm_clock_under_load(lambda: som.bmu(w, x, return_dist=False))
-            rows.append({"kernel": "bmu", "n": n, "sm_clock_under_load": clock})
-            print(f"bmu N={n}: SM clock, max SM clock under load: {clock}")
-
-
 def segment_inputs(labels, k, seed):
+    """The cell table's values: [1, r, c] at K = 3 (the centroid pass),
+    gamma intensities at other K; on the card."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -197,88 +157,6 @@ def segment_inputs(labels, k, seed):
     else:
         vals = rng.gamma(1.0, 3.0, (h * w, k)).astype(np.float32)
     return torch.as_tensor(vals, device="cuda")
-
-
-def segment_ab(lib, cohorts, rows):
-    import torch
-
-    from ark_tpu_torch.ops import segment_reduce as sr
-    from chip_smoke import device_ms, time_ms
-
-    for name, masks in cohorts.items():
-        cells, nucs = (torch.as_tensor(m[0], device="cuda") for m in masks)
-        n_seg = int(cells.max()) + 1
-        fg = int((cells > 0).sum())
-        for k in (3, 44):
-            vals = segment_inputs(masks[0][0], k, k)
-            want = sr.segment_sum_plain(vals.cpu(), cells.cpu(), n_seg, background=False)
-            plan = sr.segment_plan(cells, n_seg)
-            got = sr.segment_sum(vals, cells, n_seg, plan, background=False)
-            torch.cuda.synchronize()
-            if not torch.equal(got.cpu(), want):
-                raise SystemExit(f"segment_sum {name} K={k}: not bitwise")
-            if not torch.equal(old_segment_sum(lib, vals, cells, n_seg).cpu(), want):
-                raise SystemExit(f"old segment_sum {name} K={k}: not bitwise")
-            nbytes = 4.0 * (fg * k + cells.numel() + n_seg * k)
-            bound = nbytes / HBM_BYTES_PER_S * 1e3
-            walk = lambda: sr.segment_sum(vals, cells, n_seg, plan,      # noqa: E731
-                                          background=False)
-            row = {"kernel": "segment_sum", "cohort": name, "k": k, "segments": n_seg,
-                   "foreground": fg, "bound_ms": bound,
-                   "library_ms": time_ms(lambda: torch.zeros(
-                       (n_seg, k), device="cuda").index_add_(0, cells.reshape(-1).long(),
-                                                             vals)),
-                   "box_plan_ms": time_ms(lambda: sr.segment_plan(cells, n_seg)),
-                   "box_plan_device_ms": device_ms(lambda: sr.segment_plan(cells, n_seg)),
-                   "csr_plan_ms": time_ms(lambda: csr_plan(cells, n_seg)),
-                   "csr_plan_device_ms": device_ms(lambda: csr_plan(cells, n_seg)),
-                   "walk_ms": time_ms(walk), "walk_device_ms": device_ms(walk),
-                   "old_device_ms": device_ms(lambda: old_segment_sum(lib, vals, cells,
-                                                                      n_seg))}
-            old_ms, new_ms, turns = in_turns(
-                lambda: old_segment_sum(lib, vals, cells, n_seg),
-                lambda: sr.segment_sum(vals, cells, n_seg, background=False))
-            row.update(old_ms=old_ms, new_ms=new_ms, turns_ms=turns,
-                       share=bound / row["walk_device_ms"])
-            rows.append(row)
-            print(f"segment_sum {name} FOV 0 ({n_seg - 1} labels, {fg} foreground px) "
-                  f"K={k}: old (CSR build + walk) {old_ms:.4f} ms, new (plan + walk) "
-                  f"{new_ms:.4f} ms (turns {[round(t, 4) for t in turns]}); box plan "
-                  f"{row['box_plan_ms']:.4f} ms (device {row['box_plan_device_ms']:.4f}); "
-                  f"CSR build {row['csr_plan_ms']:.4f} ms (device "
-                  f"{row['csr_plan_device_ms']:.4f}); walk {row['walk_ms']:.4f} ms "
-                  f"(device {row['walk_device_ms']:.4f}; old design's whole call, device "
-                  f"{row['old_device_ms']:.4f}); CUDA index_add_ {row['library_ms']:.4f} "
-                  f"ms; bound {bound:.4f} ms (HBM), walk device share "
-                  f"{row['share']:.2f}; bitwise equal")
-        # one FOV's default cell table: per compartment the centroid pass
-        # (K = 3) and the central-moment pass (K = 4 + 40 channels)
-        inputs = [(lab, segment_inputs(lab.cpu().numpy(), 3, 3),
-                   segment_inputs(lab.cpu().numpy(), 44, 44)) for lab in (cells, nucs)]
-
-        def four_new():
-            for lab, v3, v44 in inputs:
-                s = masks_max[id(lab)] + 1
-                plan = sr.segment_plan(lab, s)
-                sr.segment_sum(v3, lab, s, plan, background=False)
-                sr.segment_sum(v44, lab, s, plan, background=False)
-
-        def four_old():
-            for lab, v3, v44 in inputs:
-                s = masks_max[id(lab)] + 1
-                old_segment_sum(lib, v3, lab, s)
-                old_segment_sum(lib, v44, lab, s)
-
-        masks_max = {id(lab): int(lab.max()) for lab, _, _ in inputs}
-        old_ms, new_ms, turns = in_turns(four_old, four_new)
-        dev_old, dev_new = device_ms(four_old), device_ms(four_new)
-        rows.append({"kernel": "segment_sum_fov", "cohort": name, "old_ms": old_ms,
-                     "new_ms": new_ms, "turns_ms": turns, "old_device_ms": dev_old,
-                     "new_device_ms": dev_new})
-        print(f"segment sums of one {name} FOV's default cell table (2 compartments x "
-              f"(plan, K=3, K=44)): old {old_ms:.4f} ms, new {new_ms:.4f} ms (turns "
-              f"{[round(t, 4) for t in turns]}); device time old {dev_old:.4f}, new "
-              f"{dev_new:.4f} ms")
 
 
 def edge_ids(n=101_932, k=15, seed=58):
@@ -293,51 +171,90 @@ def edge_ids(n=101_932, k=15, seed=58):
     return {"umap_heads": heads, "umap_tails": np.sort(tails, kind="stable")}, n
 
 
-def segment_row0_ab(lib, dense_cells, rows):
-    """The shapes whose row 0 is read: old design (row 0 zero) against the
-    kernel with the background row, in turns."""
+def compare(lib, name, lab, vals, n_seg, background, latency, rows, clock_calls=0):
+    """One shape in turns, both designs bitwise against index_add_ on a CPU
+    copy; appends its row and prints it."""
+    import torch
+
+    from ark_tpu_torch.ops import segment_reduce as sr
+    from chip_smoke import batch_ms, bound_ms, device_ms, sm_clock_mhz, time_ms
+
+    k = vals.shape[1]
+    plan = sr.segment_plan(lab, n_seg)
+    want = sr.segment_sum_plain(vals.cpu(), lab.cpu(), n_seg, background)
+    new = lambda: sr.segment_sum(vals, lab, n_seg, plan, background)     # noqa: E731
+    old = lambda: old_sum(lib, vals, lab, plan, background)                   # noqa: E731
+    for what, fn in (("new", new), ("old", old)):
+        got = fn()
+        torch.cuda.synchronize()
+        if not torch.equal(got.cpu(), want):
+            raise SystemExit(f"{name}: the {what} design is not bitwise")
+    flat = lab.reshape(-1).long()
+    library = lambda: torch.zeros((n_seg, k), device="cuda").index_add_(  # noqa: E731
+        0, flat, vals)
+    old_ev, new_ev, turns_ev = in_turns(old, new, time_ms)
+    old_b, new_b, turns_b = in_turns(old, new, batch_ms)
+    fg = int((flat > 0).sum()) if not background else lab.numel()
+    nbytes = 4.0 * (fg * k + lab.numel() + n_seg * k)
+    row = {"shape": name, "k": k, "segments": n_seg, "entries": lab.numel(),
+           "background": background, "old_ms": old_ev, "new_ms": new_ev,
+           "turns_ms": turns_ev, "old_batch_ms": old_b, "new_batch_ms": new_b,
+           "turns_batch_ms": turns_b, "old_device_ms": device_ms(old),
+           "new_device_ms": device_ms(new), "library_ms": time_ms(library),
+           "library_batch_ms": batch_ms(library), "byte_bound_ms": bound_ms(nbytes)[0]}
+    if background and lab.ndim == 2:
+        chain = int((flat == 0).sum())
+        clock = sm_clock_mhz(new, clock_calls)
+        row.update(chain=chain, sm_mhz=clock,
+                   chain_bound_ms=chain * latency / (clock * 1e3))
+    else:
+        chain = int(torch.bincount(flat[(flat >= 0) & (flat < n_seg)],
+                                   minlength=n_seg).max())
+        row.update(chain=chain)
+    rows.append(row)
+    extra = (f", chain bound {row['chain_bound_ms']:.4f} ms ({chain} adds x {latency:.3f} "
+             f"cycles at {row['sm_mhz']:.0f} MHz)" if "chain_bound_ms" in row else
+             f", longest chain {chain}")
+    print(f"segment_sum {name} ({lab.numel()} entries, {n_seg} segments, K={k}, "
+          f"background={background}): old ev {old_ev:.4f} ms, batch {old_b:.4f}, dev "
+          f"{row['old_device_ms']}; new ev {new_ev:.4f} ms, batch {new_b:.4f}, dev "
+          f"{row['new_device_ms']} (turns ev {[round(t, 4) for t in turns_ev]}, batch "
+          f"{[round(t, 4) for t in turns_b]}); CUDA index_add_ ev "
+          f"{row['library_ms']:.4f}, batch {row['library_batch_ms']:.4f}; byte bound "
+          f"{row['byte_bound_ms']:.4f} ms{extra}; both bitwise equal to index_add_ on "
+          f"the CPU")
+
+
+def four_sums(lib, name, masks, rows):
+    """One FOV's four sums as the default cell table makes them (two
+    compartments x (plan, K = 3, K = 44), without the background row)."""
     import torch
 
     from ark_tpu_torch.ops import segment_reduce as sr
     from chip_smoke import device_ms, time_ms
 
-    ids, n_points = edge_ids()
-    cases = [(f"dense_background_k{k}", dense_cells, int(dense_cells.max()) + 1,
-              segment_inputs(dense_cells, k, k)) for k in (3, 44)]
-    rng = np.random.default_rng(59)
-    cases += [(name, lab, n_points, torch.as_tensor(
-        rng.normal(size=(lab.size, 2)).astype(np.float32), device="cuda"))
-        for name, lab in ids.items()]
-    for name, lab_np, n_seg, vals in cases:
-        lab = torch.as_tensor(lab_np, device="cuda")
-        k = vals.shape[1]
-        want = sr.segment_sum_plain(vals.cpu(), lab.cpu(), n_seg)
-        plan = sr.segment_plan(lab, n_seg)
-        got = sr.segment_sum(vals, lab, n_seg, plan)
-        torch.cuda.synchronize()
-        if not torch.equal(got.cpu(), want):
-            raise SystemExit(f"segment_sum {name}: not bitwise")
-        if not torch.equal(old_segment_sum(lib, vals, lab, n_seg).cpu()[1:], want[1:]):
-            raise SystemExit(f"old segment_sum {name}: rows 1: not bitwise")
-        bound = 4.0 * (lab.numel() * (k + 1) + n_seg * k) / HBM_BYTES_PER_S * 1e3
-        walk = lambda: sr.segment_sum(vals, lab, n_seg, plan)            # noqa: E731
-        old_ms, new_ms, turns = in_turns(lambda: old_segment_sum(lib, vals, lab, n_seg),
-                                         lambda: sr.segment_sum(vals, lab, n_seg))
-        row = {"kernel": "segment_sum", "shape": name, "k": k, "segments": n_seg,
-               "entries": lab.numel(), "bound_ms": bound, "old_ms": old_ms,
-               "new_ms": new_ms, "turns_ms": turns, "walk_ms": time_ms(walk),
-               "walk_device_ms": device_ms(walk),
-               "plan_device_ms": device_ms(lambda: sr.segment_plan(lab, n_seg)),
-               "library_ms": time_ms(lambda: torch.zeros((n_seg, k), device="cuda").index_add_(
-                   0, lab.reshape(-1).long(), vals))}
-        rows.append(row)
-        print(f"segment_sum {name} ({lab.numel()} entries, {n_seg} segments, K={k}, row 0 "
-              f"summed): old (CSR build + walk, row 0 zero) {old_ms:.4f} ms, new (plan + "
-              f"walk) {new_ms:.4f} ms (turns {[round(t, 4) for t in turns]}); walk "
-              f"{row['walk_ms']:.4f} ms (device {row['walk_device_ms']:.4f}), plan device "
-              f"{row['plan_device_ms']:.4f} ms; CUDA index_add_ {row['library_ms']:.4f} ms; "
-              f"bound {bound:.4f} ms (HBM), walk device share "
-              f"{bound / row['walk_device_ms']:.3f}; bitwise equal")
+    inputs = []
+    for m in masks:
+        lab = torch.as_tensor(m, device="cuda")
+        inputs.append((lab, int(lab.max()) + 1, segment_inputs(m, 3, 3),
+                       segment_inputs(m, 44, 44)))
+
+    def four(new):
+        for lab, s, v3, v44 in inputs:
+            plan = sr.segment_plan(lab, s)
+            for v in (v3, v44):
+                if new:
+                    sr.segment_sum(v, lab, s, plan, background=False)
+                else:
+                    old_sum(lib, v, lab, plan, False)
+
+    old_ms, new_ms, turns = in_turns(lambda: four(False), lambda: four(True), time_ms)
+    dev_old, dev_new = device_ms(lambda: four(False)), device_ms(lambda: four(True))
+    rows.append({"shape": f"{name}_fov_four_sums", "old_ms": old_ms, "new_ms": new_ms,
+                 "turns_ms": turns, "old_device_ms": dev_old, "new_device_ms": dev_new})
+    print(f"segment sums of one {name} FOV's default cell table (2 compartments x "
+          f"(plan, K=3, K=44)): old ev {old_ms:.4f} ms, new ev {new_ms:.4f} ms (turns "
+          f"{[round(t, 4) for t in turns]}); dev old {dev_old}, new {dev_new}")
 
 
 def main():
@@ -359,15 +276,37 @@ def main():
     _kernels.build_all()
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_old(args.old_csrc, tmp)
-        bmu_ab(libs["bmu"], rows)
+        lib, chain_lib = build(tmp, os.path.join(args.old_csrc, "segment_sum.cu"))
+        latency, chain_ms, chain_mhz = fadd_latency(chain_lib)
+        rows.append({"shape": "fadd_chain", "adds": CHAIN_ADDS, "cycles_per_add": latency,
+                     "ms": chain_ms, "implied_mhz": chain_mhz})
+        print(f"dependent __fadd_rn: {latency:.4f} SM cycles an add (one warp, "
+              f"{CHAIN_ADDS} adds, clock64), {chain_ms:.4f} ms by events: "
+              f"{chain_mhz:.0f} MHz")
         dense = dense_masks()
-        _, cells, nucs = synthetic.synthetic_cells(
+        cells = torch.as_tensor(dense["whole_cell"][0], device="cuda")
+        n_seg = int(cells.max()) + 1
+        for k in (3, 44):
+            compare(lib, f"dense_background_k{k}", cells,
+                    segment_inputs(dense["whole_cell"][0], k, k), n_seg, True, latency,
+                    rows, clock_calls=300)
+        ids, n_points = edge_ids()
+        rng = np.random.default_rng(59)
+        for name, lab in ids.items():
+            vals = torch.as_tensor(rng.normal(size=(lab.size, 2)).astype(np.float32),
+                                   device="cuda")
+            compare(lib, name, torch.as_tensor(lab, device="cuda"), vals, n_points, True,
+                    latency, rows)
+        _, pcells, pnucs = synthetic.synthetic_cells(
             np.random.default_rng(0), 1, hw=1024, n_cells=(900, 1000), crowding=0.35)
-        cohorts = {"dense": (dense["whole_cell"], dense["nuclear"]),
-                   "planted": (cells.astype(np.int32), nucs.astype(np.int32))}
-        segment_ab(libs["segment_sum"], cohorts, rows)
-        segment_row0_ab(libs["segment_sum"], dense["whole_cell"][0], rows)
+        cohorts = {"dense": (dense["whole_cell"][0], dense["nuclear"][0]),
+                   "planted": (pcells[0].astype(np.int32), pnucs[0].astype(np.int32))}
+        for name, masks in cohorts.items():
+            lab = torch.as_tensor(masks[0], device="cuda")
+            for k in (3, 44):
+                compare(lib, f"{name}_cells_k{k}", lab, segment_inputs(masks[0], k, k),
+                        int(lab.max()) + 1, False, latency, rows)
+            four_sums(lib, name, masks, rows)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -12,8 +12,10 @@ than 1e-6 * max(|d|, 1), and distances carry the f32 summation-order
 tolerance of tests/test_torch_som.py; a duplicated node's tie goes to the
 lowest index. The segment-sum kernel is bitwise equal to the plain version
 run on a CPU copy (row 0, the background's sums, included; zero on both with
-``background=False``) and to a second run of itself, and the plan kernel's
-boxes equal its plain version's.
+``background=False``; NaN where it has NaN) and to a second run of itself,
+on the CPU parity tests' images, widths and flat ids
+(tests/segment_sum_cases.py), and the plan kernel's boxes equal its plain
+version's.
 
 The spatial stage has no kernel of its own; its device work is held to the
 CPU port: distances (D <= 4), neighbor counts, distance files and the
@@ -61,6 +63,7 @@ from ark_tpu_torch.ops import umap as TU
 from ark_tpu_torch.segmentation import fiber_segmentation as TF
 from ark_tpu_torch.utils import data_utils as TDU
 from ark_tpu_torch.utils import plot_utils as TPU
+from tests import segment_sum_cases as cases
 from chip_smoke import (DIST_ATOL, DIST_RTOL, EXCUSED_SHARE, FIBER_DEFAULTS, OPT_ATOL,
                         OPT_EPOCHS, OPT_OUTLIERS, OPT_WORST, claim_inputs, dense_masks,
                         fiber_image, fiber_labels_differ, pixel_rows)
@@ -244,6 +247,57 @@ def test_segment_sum_kernel_matches_plain_on_cuda(card):
         TSR.segment_sum(torch.ones(3, dtype=torch.float64, device=card), lab, 6)
     with pytest.raises(ValueError, match="CUDA"):
         TSR.segment_sum(torch.ones(3, device=card), lab.cpu(), 6)
+
+
+def _kernel_against_plain(card, vals_np, ids_np, n_seg):
+    """The kernel's sums (one plan, with and without the background row)
+    against segment_sum_plain on the CPU, bitwise (NaN where it has NaN);
+    returns the launches the two sums counted."""
+    vals, ids = (torch.as_tensor(a, device=card) for a in (vals_np, ids_np))
+    want = TSR.segment_sum_plain(torch.as_tensor(vals_np), torch.as_tensor(ids_np), n_seg)
+    plan = TSR.segment_plan(ids, n_seg)
+    before = TSR.segment_sum.launches
+    got = TSR.segment_sum(vals, ids, n_seg, plan)
+    without = TSR.segment_sum(vals, ids, n_seg, plan, background=False)
+    assert cases.same_bits(got.cpu().numpy(), want.numpy())
+    assert not bool(without[0].any())
+    assert cases.same_bits(without[1:].cpu().numpy(), got[1:].cpu().numpy())
+    return TSR.segment_sum.launches - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", cases.K_VALUES)
+@pytest.mark.parametrize("kind", cases.IMAGE_KINDS)
+def test_background_kernel_on_every_image_and_width_on_cuda(card, kind, k):
+    """The background row's kernel beside the walk, on the images and at
+    the widths of the CPU parity tests: bitwise the plain version; a sum
+    with the background launches the walk and the background kernel, one
+    without it the walk alone."""
+    lab = cases.label_image(kind)
+    launches = _kernel_against_plain(card, cases.values(lab.size, k, seed=k), lab,
+                                     int(lab.max()) + 1)
+    assert launches == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", cases.FLAT_KINDS)
+def test_flat_kernel_on_ids_in_and_out_of_order_on_cuda(card, kind):
+    """The flat kernel on UMAP's ids (heads, sorted tails with hubs) and on
+    ids in no order, with ids outside [0, num_segments): bitwise the plain
+    version, one launch a sum."""
+    ids, n = cases.flat_ids(kind)
+    assert _kernel_against_plain(card, cases.values(ids.size, 2, seed=3), ids, n) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["image", "flat"])
+def test_special_values_on_cuda(card, layout):
+    """NaN, +-inf and -0.0 through both new paths: bitwise the plain
+    version (NaN where it has NaN), a column of -0.0 summing to +0.0."""
+    ids = (cases.label_image("background_42pct") if layout == "image"
+           else cases.flat_ids("sorted_hubs")[0])
+    _kernel_against_plain(card, cases.values(ids.size, 5, seed=4, special=True), ids,
+                          int(ids.max()) + 1)
 
 
 @pytest.mark.cuda

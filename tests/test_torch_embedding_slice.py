@@ -144,6 +144,7 @@ def smoke(monkeypatch):
     monkeypatch.setattr(chip_smoke, "batch_ms", lambda fn, reps=20: (fn(), 1.0)[1])
     monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, reps=10: (fn(), None)[1])
     monkeypatch.setattr(chip_smoke, "device_profile", lambda fn: (fn(), (1.0, []))[1])
+    monkeypatch.setattr(chip_smoke, "sm_clock_mhz", lambda fn, calls: (fn(), 1980.0)[1])
     for name in ("synchronize", "reset_peak_memory_stats"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)

@@ -370,6 +370,7 @@ def test_smoke_quantification_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "batch_ms", lambda fn, reps=20: (fn(), 0.0)[1])
     # a profiler that sees no device time, as on a machine without a card
     monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, reps=10: (fn(), None)[1])
+    monkeypatch.setattr(chip_smoke, "sm_clock_mhz", lambda fn, calls: (fn(), 1980.0)[1])
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     def counting(real):
         def counted(*a, **k):
@@ -392,6 +393,11 @@ def test_smoke_quantification_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     # each box holds its cell: the walk reads at least one label a pixel
     assert all(1.0 <= timing[k]["box_over_cell"] < 4.0
                for k in (3, 4 + chip_smoke.N_QUANT_CHANNELS))
+    # the background row is bound by its chain: one add a background pixel
+    assert all(timing[k]["bg_bound_by"] == "chain"
+               and timing[k]["bg_chain"] == int((masks["whole_cell"][0] == 0).sum())
+               for k in (3, 4 + chip_smoke.N_QUANT_CHANNELS))
+    assert len(chip_smoke.check_background_row(masks["whole_cell"])) == 6
     cohort = chip_smoke.quant_cohort(masks)
     launches, plan_launches, tables = chip_smoke.run_cell_table(cohort, "dense")
     assert launches == 4 * len(cohort) and plan_launches == 2 * len(cohort)

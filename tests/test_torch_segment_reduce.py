@@ -27,6 +27,7 @@ from ark_tpu.ops import segment_reduce as JSR
 from ark_tpu_torch.ops import morphology as TMO
 from ark_tpu_torch.ops import relabel as TRL
 from ark_tpu_torch.ops import segment_reduce as TSR
+from tests import segment_sum_cases as cases
 
 torch.set_num_threads(2)
 
@@ -164,6 +165,106 @@ def test_flat_sorted_labels_from_zero(n_points, k):
                     TSR.segment_sum(vals_t, ids_t, n_points, plan)):
             np.testing.assert_array_equal(got.numpy(), want)
         assert np.any(want[0] != 0)
+
+
+def _jax_segment_sum(vals, ids, num_segments, sorted_ids=False):
+    return np.asarray(jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(ids),
+                                          num_segments=num_segments,
+                                          indices_are_sorted=sorted_ids))
+
+
+def _port_sums(vals, ids, num_segments, background=True):
+    """segment_sum_plain and segment_sum given a plan, on CPU tensors."""
+    v, lab = torch.as_tensor(vals), torch.as_tensor(ids)
+    plan = TSR.segment_plan(lab, num_segments)
+    return [TSR.segment_sum_plain(v, lab.reshape(-1), num_segments, background).numpy(),
+            TSR.segment_sum(v, lab, num_segments, plan, background).numpy()]
+
+
+@pytest.mark.parametrize("k", cases.K_VALUES)
+@pytest.mark.parametrize("kind", cases.IMAGE_KINDS)
+def test_background_row_bitwise_on_every_image_and_width(kind, k):
+    """The background row's cases: ~42% background, all background (one
+    segment), no background, at every K the background kernel groups
+    differently (groups of 8 columns, 1 to 17 blocks). Both port forms equal
+    the JAX package's segment_sum bit for bit, row 0 included; without the
+    background row 0 is zero and rows 1: keep their bits."""
+    lab = cases.label_image(kind)
+    s = int(lab.max()) + 1
+    vals = cases.values(lab.size, k, seed=k)
+    want = _jax_segment_sum(vals, lab.reshape(-1), s)
+    for got in _port_sums(vals, lab, s):
+        assert cases.same_bits(got, want)
+    assert (want[0] != 0).all() == (kind != "no_background")
+    for without in _port_sums(vals, lab, s, background=False):
+        assert not without[0].any() and cases.same_bits(without[1:], want[1:])
+
+
+@pytest.mark.parametrize("kind", cases.FLAT_KINDS)
+def test_flat_ids_bitwise(kind):
+    """UMAP's flat ids (heads, sorted tails with hubs) and flat ids in no
+    order, with and without ids outside [0, num_segments): both port forms
+    equal the JAX package's segment_sum bit for bit; segment 0 is a real
+    row; without the background row 0 is zero."""
+    ids, n = cases.flat_ids(kind)
+    vals = cases.values(ids.size, 2, seed=3)
+    want = _jax_segment_sum(vals, ids, n, sorted_ids=kind in ("heads", "sorted_hubs"))
+    assert want[0].any()
+    for got in _port_sums(vals, ids, n):
+        assert cases.same_bits(got, want)
+    for without in _port_sums(vals, ids, n, background=False):
+        assert not without[0].any() and cases.same_bits(without[1:], want[1:])
+
+
+@pytest.mark.parametrize("layout", ["image", "flat"])
+def test_special_values_bitwise(layout):
+    """NaN, +-inf and -0.0 in the values: the same bits as the JAX package
+    (NaN where it has NaN), and a column of -0.0 only sums to +0.0, in
+    row 0 as in every row."""
+    if layout == "image":
+        ids = cases.label_image("background_42pct")
+    else:
+        ids, _ = cases.flat_ids("sorted_hubs")
+    s = int(ids.max()) + 1
+    vals = cases.values(ids.size, 5, seed=4, special=True)
+    want = _jax_segment_sum(vals, ids.reshape(-1), s)
+    assert np.isnan(want).any() and np.isinf(want).any()
+    for got in _port_sums(vals, ids, s):
+        assert cases.same_bits(got, want)
+        assert not np.signbit(got[:, -1]).any() and not got[:, -1].any()
+
+
+@pytest.mark.parametrize("kind", ("background_42pct", "unsorted", "out_of_range"))
+def test_kernel_spans_hold_their_segments(kind):
+    """What the kernels' walks rest on, in numpy: the background kernel
+    scans segment 0's span from its box's first pixel, rounded down to a
+    multiple of 4, to its last, and no label 0 lies before that first
+    pixel; the flat kernel walks each segment's span (first to last
+    position, from the plan's box) in order, adding the values whose label
+    is the segment, which is the sequential scatter bit for bit, unsorted
+    and out-of-range ids included."""
+    if kind == "background_42pct":
+        lab = cases.label_image(kind)
+        box = TSR.segment_boxes_plain(torch.as_tensor(lab), int(lab.max()) + 1)[0].numpy()
+        w = lab.shape[1]
+        first, end = int(box[0]) * w + int(box[2]), int(box[1]) * w + int(box[3]) + 1
+        flat = lab.reshape(-1)
+        zeros = np.nonzero(flat == 0)[0]
+        assert zeros.min() >= first and zeros.max() < end
+        assert not (flat[first & ~3:first] == 0).any()
+        return
+    ids, n = cases.flat_ids(kind)
+    vals = cases.values(ids.size, 2, seed=5)
+    boxes = TSR.segment_boxes_plain(torch.as_tensor(ids), n).numpy()
+    want = TSR.segment_sum_plain(torch.as_tensor(vals), torch.as_tensor(ids), n).numpy()
+    got = np.zeros((n, 2), np.float32)
+    for seg in range(n):
+        if boxes[seg, 0] > boxes[seg, 1]:
+            continue
+        for p in range(boxes[seg, 2], boxes[seg, 3] + 1):
+            if ids[p] == seg:
+                got[seg] = got[seg] + vals[p]
+    assert cases.same_bits(got, want)
 
 
 def test_central_moment_passes_bitwise(case):
