@@ -37,6 +37,9 @@ _SIGNATURES = {
     "watershed_claim": {
         "ark_claim_round_launch": ([_p, _p, ctypes.c_int32, _i, _i, _i, _p, _p, _p],
                                    _i),
+        "ark_claim_levels_launch": ([_p, _p, ctypes.c_int32, ctypes.c_int32,
+                                     ctypes.c_int32, _i, _i, _i, _p, _p, _p, _p, _p],
+                                    _i),
         "ark_claim_round_error_string": ([_i], ctypes.c_char_p),
     },
     "segment_sum": {

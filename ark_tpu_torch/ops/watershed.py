@@ -14,14 +14,18 @@ Two engines, chosen by the module global ``_ENGINE`` as in the reference:
   claim rounds until a round changes nothing, at most `bfs_rounds` of them
   (phase A); if phase A did not converge, the level is finished exactly with
   connected components of the conductive set (phase B, ``_resolve_level``).
-  Each claim round is ``claim_round``: on a CUDA tensor the hand-written
-  kernel in ``ark_tpu_torch/csrc/watershed_claim.cu``, on a CPU tensor its
-  plain version ``_claim_round``.
+  Phase A's rounds are ``claim_levels``: on a CUDA tensor one launch of the
+  hand-written cooperative kernel in ``ark_tpu_torch/csrc/watershed_claim.cu``
+  runs level after level on the card and returns at the first level that
+  needs phase B (or after the last); on a CPU tensor its plain version
+  ``_claim_levels`` loops over ``_claim_round``. Phase B's one frontier round
+  is ``claim_round``, the one-round kernel of the same source.
 
-The reference's ``lax.scan``/``lax.cond`` loops become Python loops with the
-same budgets and the same order of checks; each check reads one flag back
-from the device. Phase B hands ties out by minimum label, so any other
-schedule of rounds would change who owns a tie.
+The reference's ``lax.scan``/``lax.cond`` loops become loops with the same
+budgets and the same order of checks: phase A's on the card, the levels'
+in Python, which reads the stop level back once a launch. Phase B hands
+ties out by minimum label, so any other schedule of rounds would change who
+owns a tie.
 """
 
 from __future__ import annotations
@@ -126,19 +130,27 @@ def _claim_round(lab: torch.Tensor, q: torch.Tensor, mask, level: int
     return torch.where(claim, cand, lab)
 
 
-def _check_claim_operands(lab: torch.Tensor, q: torch.Tensor) -> None:
-    if lab.device.type != "cuda" or q.device != lab.device:
-        raise ValueError(f"claim_round: labels on {lab.device} and levels on "
+def _check_claim_operands(lab: torch.Tensor, q: torch.Tensor,
+                          name: str = "claim_round", cuda: bool = True) -> None:
+    """Raises on operands the claim kernels do not take; with `cuda` False,
+    on what the plain versions must refuse alike (all but the device)."""
+    if cuda and (lab.device.type != "cuda" or q.device != lab.device):
+        raise ValueError(f"{name}: labels on {lab.device} and levels on "
                          f"{q.device}; the kernel takes both on one CUDA device")
     if lab.dtype != torch.int32 or q.dtype != torch.int32:
-        raise TypeError(f"claim_round: the kernel takes int32, got labels "
+        raise TypeError(f"{name}: the kernel takes int32, got labels "
                         f"{lab.dtype} and levels {q.dtype}")
     if lab.ndim != 3 or q.shape != lab.shape:
-        raise ValueError(f"claim_round: (B, H, W) labels and levels of one "
+        raise ValueError(f"{name}: (B, H, W) labels and levels of one "
                          f"shape expected, got {tuple(lab.shape)} and "
                          f"{tuple(q.shape)}")
     if not (lab.is_contiguous() and q.is_contiguous()):
-        raise ValueError("claim_round: the kernel takes contiguous tensors")
+        raise ValueError(f"{name}: the kernel takes contiguous tensors")
+    if lab.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel's 16-byte loads take 16-byte aligned "
+                         f"tensors, got labels at {lab.data_ptr() % 16} and levels "
+                         f"at {q.data_ptr() % 16} bytes past a 16-byte boundary "
+                         f"(a view at an offset: pass a copy)")
 
 
 def claim_round(lab: torch.Tensor, q: torch.Tensor, level: int):
@@ -151,8 +163,7 @@ def claim_round(lab: torch.Tensor, q: torch.Tensor, level: int):
     launch is refused; it never falls back. ``claim_round.launches`` counts
     kernel launches."""
     if lab.device.type == "cpu" and q.device.type == "cpu":
-        new = _claim_round(lab, q, None, level)
-        return new, torch.sum(new != lab, dtype=torch.int32)
+        return _claim_round_plain(lab, q, level)
     _check_claim_operands(lab, q)
     b, h, w = lab.shape
     out = torch.empty_like(lab)
@@ -172,6 +183,95 @@ def claim_round(lab: torch.Tensor, q: torch.Tensor, level: int):
 
 
 claim_round.launches = 0
+
+
+def _claim_round_plain(lab: torch.Tensor, q: torch.Tensor, level: int):
+    """``claim_round``'s plain version on any device: ``_claim_round`` on
+    mask-encoded labels, and the number of pixels it changed (an int32
+    scalar tensor)."""
+    new = _claim_round(lab, q, None, level)
+    return new, torch.sum(new != lab, dtype=torch.int32)
+
+
+def _claim_levels(lab: torch.Tensor, q: torch.Tensor, level: int, levels: int,
+                  bfs_rounds: int, round_fn=_claim_round_plain):
+    """Phase A of levels `level`, `level` + 1, ... on mask-encoded labels:
+    each level's synchronous rounds until one changes nothing (a fixpoint)
+    or `bfs_rounds` have run. Returns (labels, the first level whose budget
+    ran out without converging, or `levels`; the rounds run). With the
+    default `round_fn` it is the plain version of the level-scan kernel;
+    given ``claim_round`` (or any function with its interface) it is the
+    loop of one-round launches the level scan ran before that kernel: a
+    launch and a host read of the changed count a round."""
+    rounds = 0
+    while level < levels:
+        for _ in range(bfs_rounds):
+            lab, changed = round_fn(lab, q, level)
+            rounds += 1
+            if int(changed) == 0:
+                break
+        else:
+            return lab, level, rounds
+        level += 1
+    return lab, level, rounds
+
+
+def claim_levels(lab: torch.Tensor, q: torch.Tensor, level: int, levels: int,
+                 bfs_rounds: int):
+    """Phase A of the level scan from `level` on mask-encoded labels (-1
+    outside the mask, 0 unlabeled): the CUDA kernel for CUDA tensors,
+    ``_claim_levels`` for CPU ones. Returns (labels, stop level, rounds) as
+    ``_claim_levels`` does, and refuses what the kernel does not take
+    (int64, a layout that is not contiguous or not 16-byte aligned, mixed
+    devices) on either device. On CUDA tensors it makes one cooperative
+    launch of ``ark_claim_levels_launch`` on the current stream, never
+    writes into `lab`, reads the stop level and the rounds back once, and
+    raises if the launch is refused; it never falls back.
+    ``claim_levels.launches`` counts kernel launches,
+    ``claim_levels.rounds`` the rounds run on either device."""
+    on_cpu = lab.device.type == "cpu" and q.device.type == "cpu"
+    _check_claim_operands(lab, q, "claim_levels", cuda=not on_cpu)
+    if on_cpu:
+        out = _claim_levels(lab, q, level, levels, bfs_rounds)
+        _levels_counts.rounds += out[2]
+        return out
+    bufs, status = _launch_levels(lab, q, level, levels, bfs_rounds)
+    stop, rounds, which = status.tolist()
+    _levels_counts.rounds += rounds
+    return (lab if which < 0 else bufs[which]), stop, rounds
+
+
+def _launch_levels(lab, q, level: int, levels: int, bfs_rounds: int):
+    """One launch of the level-scan kernel on checked CUDA operands, on the
+    current stream, without synchronising: returns (its two label buffers,
+    its status: the stop level, the rounds and which buffer holds the
+    labels, -1 for `lab`), and counts the launch in
+    ``claim_levels.launches``."""
+    b, h, w = lab.shape
+    bufs = (torch.empty_like(lab), torch.empty_like(lab))
+    # three changed counts, then the status
+    scratch = torch.zeros(6, dtype=torch.int32, device=lab.device)
+    lib = _kernels.lib("watershed_claim")
+    with torch.cuda.device(lab.device):
+        stream = torch.cuda.current_stream(lab.device).cuda_stream
+        err = lib.ark_claim_levels_launch(
+            lab.data_ptr(), q.data_ptr(), int(level), int(levels), int(bfs_rounds),
+            b, h, w, bufs[0].data_ptr(), bufs[1].data_ptr(), scratch.data_ptr(),
+            scratch[3:].data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"level-scan claim kernel launch failed: "
+                           f"{lib.ark_claim_round_error_string(err).decode()} "
+                           f"({err})")
+    _levels_counts.launches += 1
+    return bufs, scratch[3:]
+
+
+claim_levels.launches = 0
+claim_levels.rounds = 0
+# the counters' owner under a name of its own: a stand-in patched over
+# `claim_levels` (a counting wrapper, a plain version) keeps its own counts
+# and never receives the kernel's
+_levels_counts = claim_levels
 
 
 def _resolve_level(lab, rep, q, mask, level: int):
@@ -198,24 +298,31 @@ def _resolve_level(lab, rep, q, mask, level: int):
     return lab, rep, done
 
 
+def _start_labels(markers, mask) -> torch.Tensor:
+    """The level scan's first labels: the markers inside the mask, -1
+    outside it (int32, contiguous)."""
+    lab = torch.where((markers > 0) & mask, markers.to(torch.int32), 0)
+    return torch.where(mask, lab, -1).contiguous()
+
+
 def _flood(q, markers, mask, levels: int, bfs_rounds: int):
     """The level-scan flood on pre-quantized q; returns (labels, converged).
     Labels are mask-encoded (-1 outside the mask) for the claim rounds and
     phase B alike, and decoded at the end."""
     b, h, w = q.shape
     q = q.to(torch.int32).contiguous()
-    lab = torch.where((markers > 0) & mask, markers.to(torch.int32), 0)
-    lab = torch.where(mask, lab, -1).contiguous()
+    if q.data_ptr() % 16:               # a view at an offset: the kernels' loads
+        q = q.clone()
+    lab = _start_labels(markers, mask)
     rep = torch.full_like(lab, h * w)
     converged = True
-    for level in range(levels):
-        for _ in range(bfs_rounds):                       # phase A
-            lab, changed = claim_round(lab, q, level)
-            if int(changed) == 0:
-                break
-        else:                                             # phase B
+    level = 0
+    while level < levels:
+        lab, level, _ = claim_levels(lab, q, level, levels, bfs_rounds)  # phase A
+        if level < levels:                                               # phase B
             lab, rep, sv_done = _resolve_level(lab, rep, q, mask, level)
             converged = converged and sv_done
+            level += 1
     return torch.where(lab == -1, 0, lab), converged
 
 

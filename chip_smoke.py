@@ -12,13 +12,16 @@ started together) and drives these paths on the card:
   included) from 4 x 1024^2 x 16 channel TIFFs written by the port's codec,
   then the pixel masks, held bitwise to the same device phases run in memory
   (``drive_slice``), and a small cohort's CPU and CUDA runs;
-- Mesmer segmentation (template 1): the watershed claim kernel against its
-  plain round, the published full-width network with seeded weights
-  (forward in bf16 and in f32, then the host postprocess), the trained mini
-  checkpoint with the device postprocess under both flood engines on the
-  benchmark's 8 x 512^2 and 3 x 1024^2 cohorts, the level flood with the
-  kernel against the same flood with the plain round, and a small cohort's
-  CPU and CUDA runs;
+- Mesmer segmentation (template 1): the watershed claim kernels against
+  their plain versions (one round; the level scan, one cooperative launch a
+  run of levels, at budgets 0, 1, 2 and 32, and one whole phase A of each
+  cohort's relief timed beside the loop of one-round launches), the
+  published full-width network with seeded weights (forward in bf16 and in
+  f32, then the host postprocess), the trained mini checkpoint with the
+  device postprocess under both flood engines on the benchmark's 8 x 512^2
+  and 3 x 1024^2 cohorts (rounds and launches a flood), the level flood with
+  the kernels against the same flood with both plain versions, at 32, 1 and
+  0 rounds a level, and a small cohort's CPU and CUDA runs;
 - template 1's cell table and template 3's cell clustering: the segment
   plan and segment-sum kernels against their plain versions (the sums
   against index_add_ on a CPU copy) and against themselves, on dense
@@ -85,7 +88,7 @@ started together) and drives these paths on the card:
   steps launched one by one, then train_on_synthetic with the shipped
   checkpoint's recipe (2000 steps), held to the planted test's floors on
   its held-out sets through the device postprocess under the level engine
-  (the claim kernel's launches counted); (l4) a seeded manifest-shaped
+  (the claim kernels' launches counted); (l4) a seeded manifest-shaped
   Keras layer dict through the converter into the full network, against
   the CPU port at 2 x 256^2, and graft_entry.entry on the card;
 - the last single-card modules, which launch no kernel of their own (the
@@ -155,6 +158,9 @@ KERNEL_SHAPES = [(4_194_304, 16, 100), (1, 3, 7), (1000, 7, 100),
 CLAIM_SHAPES = [(8, 512, 512), (3, 1024, 1024), (1, 1, 1), (2, 7, 129),
                 (4, 33, 1000)]
 CLAIM_TIMED = CLAIM_SHAPES[:2]
+# round budgets of the level-scan kernel's checks: phase B at every level (0),
+# at most levels (1, 2), and the main path's (32)
+CLAIM_BUDGETS = (0, 1, 2, 32)
 CKPT = os.path.join(REPO, "ark_tpu", "models", "checkpoints",
                     "mesmer_mini_synthetic.npz")
 # heads of the mini checkpoint, CPU against CUDA (f32, TF32 off): the CPU
@@ -173,6 +179,14 @@ F32_FLOP_PER_S = 67e12
 # sum's contract adds each segment's values one after another, so a chain of
 # n adds takes at least n x this many cycles
 FADD_LATENCY_CYCLES = 4.219
+# the level scan's floor a round on the H100 (scripts/port_kernel_ab.py
+# --kernel claim measures both): the read rate of a working set that stays
+# in the 50 MB L2 (16-byte loads through L2 only, as the kernel reads
+# labels; the fastest of 16 MiB and the cohorts' states), and one round's
+# grid barrier at the level-scan kernel's grid (396 blocks of 512) with the
+# changed count's block atomics and its read after the barrier
+L2_BYTES_PER_S = 7.98e12
+GRID_BARRIER_MS = 0.00202
 
 
 class SmokeFailure(RuntimeError):
@@ -218,16 +232,40 @@ def plain_d(weights, data):
     return w2[None, :] - 2.0 * (data @ weights.T)
 
 
-def bound_ms(nbytes=0.0, flop=0.0, chain=0, mhz=None):
-    """(ms, "bytes", "operations" or "chain"): the largest of the bytes over
-    the HBM rate, the f32 operations over the f32 peak and, given the
-    longest chain of dependent adds and the SM clock `mhz`, that chain's
-    cycles (FADD_LATENCY_CYCLES an add) at that clock."""
+def bound_ms(nbytes=0.0, flop=0.0, chain=0, mhz=None, l2_bytes=0.0, barriers=0):
+    """(ms, "bytes", "operations", "chain", "L2 bytes" or "barriers"): the
+    largest of the bytes over the HBM rate, the f32 operations over the f32
+    peak, given the longest chain of dependent adds and the SM clock `mhz`
+    that chain's cycles (FADD_LATENCY_CYCLES an add) at that clock, and for
+    a loop of rounds on the card its bytes from L2 over L2_BYTES_PER_S and
+    its grid barriers at GRID_BARRIER_MS each."""
     times = [(nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), (flop / F32_FLOP_PER_S * 1e3,
                                                          "operations")]
     if chain:
         times.append((chain * FADD_LATENCY_CYCLES / (mhz * 1e3), "chain"))
+    if l2_bytes:
+        times.append((l2_bytes / L2_BYTES_PER_S * 1e3, "L2 bytes"))
+    if barriers:
+        times.append((barriers * GRID_BARRIER_MS, "barriers"))
     return max(times, key=lambda t: t[0])
+
+
+def claim_bytes(n, labelled):
+    """Bytes a claim round over `n` pixels must move when `labelled` of
+    them carry a label > 0: every label read and written (8 B a pixel), and
+    the level of a labelled pixel only (4 B), since no other pixel can be a
+    source."""
+    return 8.0 * n + 4.0 * labelled
+
+
+def scan_bound_ms(n, labelled, rounds):
+    """(ms, the binding term) of a level scan of `rounds` claim rounds over
+    `n` pixels, `labelled` of them labelled when it ends (labels only
+    spread, so no round has more): the state read and written once at HBM
+    speed, every round's ``claim_bytes`` at the L2 rate, and a grid barrier
+    a round."""
+    nbytes = claim_bytes(n, labelled)
+    return bound_ms(nbytes=nbytes, l2_bytes=nbytes * rounds, barriers=rounds)
 
 
 def sm_clock_mhz(fn, calls):
@@ -408,27 +446,69 @@ def device_ms(fn, reps=10):
     return None
 
 
-def check_claim_kernel(rng, levels=256):
-    """Phase 6: the claim kernel against its plain round on the card,
-    bitwise, then one round of each timed at the e2e cohorts' batch shapes.
-    Returns (max |label difference| over every check, {shape: timings})."""
+def planted_cohorts():
+    """{name: (FOVs, batch size)}: the benchmark's planted segmentation
+    cohorts, 8 x 512^2 and 3 x 1024^2."""
+    from ark_tpu_torch.segmentation import synthetic
+
+    return {
+        "8x512": (synthetic.synthetic_cells(
+            np.random.default_rng(0), 8, hw=512, n_cells=(250, 300),
+            crowding=0.35)[0], 8),
+        "3x1024": (synthetic.synthetic_cells(
+            np.random.default_rng(0), 3, hw=1024, n_cells=(900, 1000),
+            crowding=0.35)[0], 3),
+    }
+
+
+def cohort_relief(app, fovs):
+    """{compartment: (q, markers, foreground mask)}: the level flood's
+    inputs that the device postprocess makes from `fovs` (256 levels)."""
+    from ark_tpu_torch.ops import cc, watershed
+    from ark_tpu_torch.segmentation import mesmer
+
+    res = app._segment_device(app._upload(fovs), 0.1)
+    relief = {}
+    for comp in mesmer.COMPARTMENTS:
+        markers, _, _ = cc.label_batched_small(res[comp]["maxima"])
+        fgmask = res[comp]["foreground"] > 0.3
+        q = watershed._quantize(-res[comp]["inner"], fgmask, 256)
+        relief[comp] = (q, markers, fgmask)
+    return relief
+
+
+def same_scan(got, want):
+    """Two level scans' (labels, stop level, rounds) equal, labels bitwise."""
+    import torch
+
+    return torch.equal(got[0], want[0]) and tuple(got[1:]) == tuple(want[1:])
+
+
+def check_claim_kernel(rng, reliefs, levels=256):
+    """Phase 6: the one-round claim kernel against its plain round on the
+    card, bitwise, and one round of each timed at the e2e cohorts' batch
+    shapes; the level-scan kernel against its plain scan, bitwise (labels,
+    stop level, rounds) at the same shapes from level 0 and mid-way under
+    each of CLAIM_BUDGETS; then one whole phase A (levels 0 on, 32 rounds a
+    level) of each cohort's whole-cell relief in `reliefs` ({cohort: the
+    relief of ``cohort_relief``}) timed beside the loop of one-round
+    launches and the plain scan. Returns (max |label difference| over the
+    round checks, {shape: one round's timings}, max |label difference| over
+    the scan checks, {cohort: phase A's timings})."""
     import torch
 
     from ark_tpu_torch.ops import watershed
 
-    def plain(lab, q, level):
-        new = watershed._claim_round(lab, q, None, level)
-        return new, torch.sum(new != lab, dtype=torch.int32)
-
     timing = {}
     max_err = 0
+    scan_err = 0
     for shape in CLAIM_SHAPES:
         lab_np, q_np = claim_inputs(rng, shape, levels)
         lab = torch.as_tensor(lab_np, device="cuda")
         q = torch.as_tensor(q_np, device="cuda")
         for level in (0, levels // 2, levels - 1):
             new_k, chg_k = watershed.claim_round(lab, q, level)
-            new_p, chg_p = plain(lab, q, level)
+            new_p, chg_p = watershed._claim_round_plain(lab, q, level)
             torch.cuda.synchronize()
             max_err = max(max_err, int((new_k.to(torch.int64)
                                         - new_p.to(torch.int64)).abs().max()))
@@ -442,21 +522,86 @@ def check_claim_kernel(rng, levels=256):
                   f"claim {shape}: the kernel wrote into its input")
         print(f"claim {shape}: labels and changed counts equal at levels "
               f"0, {levels // 2}, {levels - 1} (last count {int(chg_k)})")
+        scans = []
+        for bfs in CLAIM_BUDGETS:
+            for start in (0, levels // 2):
+                before = watershed.claim_levels.launches
+                got = watershed.claim_levels(lab, q, start, levels, bfs)
+                check(watershed.claim_levels.launches == before + 1,
+                      f"claim_levels {shape}: not one launch a call")
+                want = watershed._claim_levels(lab, q, start, levels, bfs)
+                scan_err = max(scan_err, int((got[0].to(torch.int64)
+                                              - want[0].to(torch.int64)).abs().max()))
+                check(same_scan(got, want),
+                      f"claim_levels {shape} from {start}, {bfs} rounds a level: "
+                      f"stop {got[1]} vs {want[1]}, rounds {got[2]} vs {want[2]}, "
+                      f"{int((got[0] != want[0]).sum())} labels differ")
+                check(torch.equal(lab, torch.as_tensor(lab_np, device="cuda")),
+                      f"claim_levels {shape}: the kernel wrote into its input")
+                scans.append(f"{bfs}/{start}: stop {got[1]}, {got[2]} rounds")
+        print(f"claim_levels {shape}: labels, stop level and rounds equal to the "
+              f"plain scan (budget/start level: " + "; ".join(scans) + ")")
         if shape in CLAIM_TIMED:
             mid = levels // 2
             kernel = lambda: watershed.claim_round(lab, q, mid)   # noqa: E731
-            base = lambda: plain(lab, q, mid)                     # noqa: E731
-            # each pixel's label and level read once, its new label written once
+            base = lambda: watershed._claim_round_plain(lab, q, mid)   # noqa: E731
+            # each pixel's label read and written once, a labelled one's level
+            # read once
+            nbytes = claim_bytes(lab.numel(), int((lab > 0).sum()))
             timing[shape] = {"ms": time_ms(kernel), "plain_ms": time_ms(base),
                              "device_ms": device_ms(kernel),
                              "plain_device_ms": device_ms(base),
-                             "bound_ms": bound_ms(nbytes=12.0 * lab.numel())[0]}
+                             "bound_ms": bound_ms(nbytes=nbytes)[0]}
             print(f"claim {shape} one round: per call (CUDA events, median of "
                   f"10) kernel {timing[shape]['ms']:.4f} ms, plain "
                   f"{timing[shape]['plain_ms']:.4f} ms; device time per call "
                   f"(profiler, 10 calls) kernel {timing[shape]['device_ms']} ms, "
                   f"plain {timing[shape]['plain_device_ms']} ms")
-    return max_err, timing
+    scan_timing = {}
+    for name, relief in reliefs.items():
+        q, markers, fgmask = relief["whole_cell"]
+        lab = watershed._start_labels(markers, fgmask)
+        q = q.contiguous()
+        kernel = lambda: watershed.claim_levels(lab, q, 0, levels, 32)   # noqa: E731
+        loop = lambda: watershed._claim_levels(                            # noqa: E731
+            lab, q, 0, levels, 32, watershed.claim_round)
+        plain = lambda: watershed._claim_levels(lab, q, 0, levels, 32)   # noqa: E731
+        got, by_loop, want = kernel(), loop(), plain()
+        check(same_scan(got, want) and same_scan(by_loop, want),
+              f"phase A of {name}: the kernel (stop {got[1]}, {got[2]} rounds), the "
+              f"loop of rounds ({by_loop[1]}, {by_loop[2]}) and the plain scan "
+              f"({want[1]}, {want[2]}) disagree")
+        labelled = int((got[0] > 0).sum())
+        bound, bound_by = scan_bound_ms(lab.numel(), labelled, got[2])
+        nbytes = claim_bytes(lab.numel(), labelled)
+        # events around the launch alone (no host read): the kernel's device
+        # time with its memset; the profiler loses this kernel after the
+        # smoke's earlier profiled phases
+        launch = lambda: watershed._launch_levels(lab, q, 0, levels, 32)  # noqa: E731
+        t = {"shape": tuple(lab.shape), "stop_level": got[1], "rounds": got[2],
+             "labelled": labelled,
+             "ms": time_ms(kernel, reps=5), "device_ms": time_ms(launch, reps=5),
+             "loop_ms": time_ms(loop, reps=5), "plain_ms": time_ms(plain, reps=3),
+             "bound_ms": bound, "bound_by": bound_by,
+             "bound_terms": {
+                 "hbm_ms": bound_ms(nbytes=nbytes)[0],
+                 "l2_ms": bound_ms(l2_bytes=nbytes * got[2])[0],
+                 "barrier_ms": bound_ms(barriers=got[2])[0]}}
+        scan_timing[name] = t
+        print(f"phase A of {name} whole_cell {t['shape']} (levels 0-{levels - 1}, 32 "
+              f"rounds a level): stop level {t['stop_level']}, {t['rounds']} rounds, "
+              f"{labelled} of {lab.numel()} pixels labelled at the end, equal "
+              f"to the loop of rounds and the plain scan; kernel (1 launch) "
+              f"{t['ms']:.4f} ms (events around the call, median of 5), "
+              f"{t['device_ms']:.4f} ms (events around the launch alone); loop of "
+              f"one-round launches {t['loop_ms']:.4f} ms; plain scan "
+              f"{t['plain_ms']:.4f} ms; bound "
+              f"{bound:.4f} ms ({bound_by}; HBM {t['bound_terms']['hbm_ms']:.4f}, L2 "
+              f"{t['bound_terms']['l2_ms']:.4f}, barriers "
+              f"{t['bound_terms']['barrier_ms']:.4f}), share "
+              f"{share(bound, t['ms']):.2f} of the call, "
+              f"{share(bound, t['device_ms']):.2f} of the launch [{CARD}]")
+    return max_err, timing, scan_err, scan_timing
 
 
 def make_cohort(rng, n_fovs, size):
@@ -858,8 +1003,10 @@ def run_full_width_template(size=1024, hw=512):
 
 def run_device_postprocess(cohorts):
     """Phase 8: segment_fovs(postprocess='device') with the trained mini
-    checkpoint on the benchmark's cohorts, under each flood engine. Returns
-    the claim kernel's launches in the level engine's run of the first
+    checkpoint on the benchmark's cohorts, under each flood engine, with the
+    level engine's launches of the level-scan kernel, its rounds and phase
+    B's one-round launches per flood. Returns those counts ({"launches",
+    "rounds", "round_launches"}) in the level engine's run of the first
     cohort, the Mesmer, and each cohort's masks under the default (minimax)
     engine."""
     import torch
@@ -871,33 +1018,38 @@ def run_device_postprocess(cohorts):
     first = next(iter(cohorts))
     mesmer.segment_fovs(cohorts[first][0][:1], app=app, device=DEVICE,
                         postprocess="device")                        # warm-up
-    claim_launches = None
+    claim_counts = None
     masks = {}
     for name, (fovs, batch) in cohorts.items():
         labels = {}
+        floods = len(mesmer.COMPARTMENTS) * -(-len(fovs) // batch)
         for engine in ENGINES:
             watershed._ENGINE = engine
             app.host_fallbacks = 0
             som.bmu.launches = 0
+            watershed.claim_levels.launches = watershed.claim_levels.rounds = 0
             watershed.claim_round.launches = 0
             t0 = time.perf_counter()
             out = mesmer.segment_fovs(fovs, app=app, batch_size=batch,
                                       device=DEVICE, postprocess="device")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = watershed.claim_round.launches
+            counts = {"launches": watershed.claim_levels.launches,
+                      "rounds": watershed.claim_levels.rounds,
+                      "round_launches": watershed.claim_round.launches}
             check(app.host_fallbacks == 0,
                   f"{name} {engine}: {app.host_fallbacks} host fallbacks")
-            check((launches > 0) == (engine == "levels"),
-                  f"{name} {engine}: claim kernel launches {launches}")
+            check((counts["launches"] > 0) == (engine == "levels")
+                  and (engine == "levels" or counts["round_launches"] == 0),
+                  f"{name} {engine}: claim kernel launches {counts}")
             if engine == "levels" and name == first:
-                claim_launches = launches
+                claim_counts = counts
             for comp, lab in out.items():
-                counts = [len(np.unique(img)) - 1 for img in lab]
+                per_fov = [len(np.unique(img)) - 1 for img in lab]
                 check(lab.dtype == np.int32 and lab.shape == fovs.shape[:3],
                       f"{name} {engine} {comp}: {lab.dtype} {lab.shape}")
-                check(min(counts) >= 1 and max(counts) <= mesmer._MARKER_TABLE,
-                      f"{name} {engine} {comp}: label counts {counts}")
+                check(min(per_fov) >= 1 and max(per_fov) <= mesmer._MARKER_TABLE,
+                      f"{name} {engine} {comp}: label counts {per_fov}")
             labels[engine] = out
             app.timings = {}
             mesmer.segment_fovs(fovs, app=app, batch_size=batch, device=DEVICE,
@@ -905,9 +1057,19 @@ def run_device_postprocess(cohorts):
             split = app.timings
             app.timings = None
             print(f"e2e {name} {engine}: {wall:.3f} s wall "
-                  f"({len(fovs) / wall:.2f} FOV/s), claim launches {launches}, "
-                  f"instances per FOV {counts}; phases (synchronised run, s): "
+                  f"({len(fovs) / wall:.2f} FOV/s), claim launches (level scan, "
+                  f"phase B's rounds) {counts['launches']}, "
+                  f"{counts['round_launches']}, instances per FOV {per_fov}; "
+                  f"phases (synchronised run, s): "
                   + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+            if engine == "levels":
+                print(f"e2e {name} levels: {floods} floods, per flood "
+                      f"{counts['rounds'] / floods:.1f} phase-A rounds in "
+                      f"{counts['launches'] / floods:.1f} level-scan launches and "
+                      f"{counts['round_launches'] / floods:.1f} phase-B rounds "
+                      f"(in all {counts['rounds']} + {counts['round_launches']} "
+                      f"rounds, {counts['launches']} + {counts['round_launches']} "
+                      f"launches)")
         # the floods' claim sets are equal (phase 9 checks it); after the
         # small-object filter, a tie pixel that one engine hands to a cell
         # under the size limit and the other to a larger one is covered by
@@ -922,45 +1084,76 @@ def run_device_postprocess(cohorts):
                   f"a share {differ:.3g} of pixels (filtered tie cells)")
         masks[name] = labels["minimax"]
     watershed._ENGINE = "minimax"
-    return claim_launches, app, masks
+    return claim_counts, app, masks
 
 
-def compare_level_flood(app, fovs):
-    """Phase 9: the level flood on the cohort's own relief and markers, with
-    the kernel and with the plain round swapped in, bitwise; and its claim
-    set equal to the minimax flood's."""
+# round budgets of phase 9's level floods: the main path's, then budgets
+# under which phase B (and its one-round kernel) runs at most levels
+LEVEL_FLOOD_BUDGETS = (32, 1, 0)
+
+
+def compare_level_flood(relief):
+    """Phase 9: the level flood on a cohort's own relief and markers
+    (`relief`, from ``cohort_relief``) with the kernels and with both plain
+    versions swapped in (``claim_levels`` and ``claim_round``, counted, so
+    the swap is seen to reach every round), bitwise in labels and flag: both
+    compartments under the main path's 32 rounds a level, the whole-cell
+    compartment under 1 and 0 too; and its claim set equal to the minimax
+    flood's. Returns the one-round kernel's launches in the kernel floods."""
     import torch
 
-    from ark_tpu_torch.ops import cc, watershed
-    from ark_tpu_torch.segmentation import mesmer
+    from ark_tpu_torch.ops import watershed
 
-    res = app._segment_device(app._upload(fovs), 0.1)
+    def plain_levels(lab, q, level, levels, bfs_rounds):
+        out = watershed._claim_levels(lab, q, level, levels, bfs_rounds)
+        plain_levels.calls += 1
+        plain_levels.rounds += out[2]
+        return out
 
     def plain_round(lab, q, level):
-        new = watershed._claim_round(lab, q, None, level)
-        return new, torch.sum(new != lab, dtype=torch.int32)
+        plain_round.calls += 1
+        return watershed._claim_round_plain(lab, q, level)
 
-    for comp in mesmer.COMPARTMENTS:
-        markers, _, _ = cc.label_batched_small(res[comp]["maxima"])
-        fgmask = res[comp]["foreground"] > 0.3
-        q = watershed._quantize(-res[comp]["inner"], fgmask, 256)
-        kernel = watershed._flood(q, markers, fgmask, 256, 32)
-        real = watershed.claim_round
-        watershed.claim_round = plain_round
-        try:
-            plain = watershed._flood(q, markers, fgmask, 256, 32)
-        finally:
-            watershed.claim_round = real
-        check(torch.equal(kernel[0], plain[0]) and kernel[1] == plain[1],
-              f"level flood {comp}: kernel and plain rounds disagree "
-              f"({int((kernel[0] != plain[0]).sum())} labels, flags "
-              f"{kernel[1]} {plain[1]})")
-        h, w = q.shape[1:]
-        minimax = watershed._flood_minimax(q, markers, fgmask, 256, 2 * (h + w))
-        check(minimax[1] and torch.equal(minimax[0] > 0, kernel[0] > 0),
-              f"{comp}: the minimax and level floods cover different pixels")
-        print(f"level flood {comp} {tuple(q.shape)}: kernel == plain round, "
-              f"labels and flag ({kernel[1]}); coverage == the minimax flood's")
+    round_launches = 0
+    for comp, (q, markers, fgmask) in relief.items():
+        budgets = LEVEL_FLOOD_BUDGETS if comp == "whole_cell" else LEVEL_FLOOD_BUDGETS[:1]
+        for bfs in budgets:
+            launches = (watershed.claim_levels.launches, watershed.claim_round.launches)
+            rounds = watershed.claim_levels.rounds
+            kernel = watershed._flood(q, markers, fgmask, 256, bfs)
+            launches = (watershed.claim_levels.launches - launches[0],
+                        watershed.claim_round.launches - launches[1])
+            rounds = watershed.claim_levels.rounds - rounds
+            round_launches += launches[1]
+            real = watershed.claim_levels, watershed.claim_round
+            plain_levels.calls = plain_levels.rounds = plain_round.calls = 0
+            watershed.claim_levels, watershed.claim_round = plain_levels, plain_round
+            try:
+                plain = watershed._flood(q, markers, fgmask, 256, bfs)
+            finally:
+                watershed.claim_levels, watershed.claim_round = real
+            check(torch.equal(kernel[0], plain[0]) and kernel[1] == plain[1],
+                  f"level flood {comp} ({bfs} rounds a level): kernels and plain "
+                  f"versions disagree ({int((kernel[0] != plain[0]).sum())} labels, "
+                  f"flags {kernel[1]} {plain[1]})")
+            check((plain_levels.calls, plain_levels.rounds, plain_round.calls)
+                  == (launches[0], rounds, launches[1]) and launches[0] > 0,
+                  f"level flood {comp} ({bfs} rounds a level): the plain run made "
+                  f"{plain_levels.calls} scans of {plain_levels.rounds} rounds and "
+                  f"{plain_round.calls} phase-B rounds, the kernel run {launches[0]} "
+                  f"launches of {rounds} rounds and {launches[1]} phase-B rounds")
+            print(f"level flood {comp} {tuple(q.shape)}, {bfs} rounds a level: kernels "
+                  f"== plain versions, labels and flag ({kernel[1]}); "
+                  f"{launches[0]} level-scan launches ({rounds} rounds), "
+                  f"{launches[1]} phase-B rounds, the same in the plain run")
+            if bfs == LEVEL_FLOOD_BUDGETS[0]:
+                h, w = q.shape[1:]
+                minimax = watershed._flood_minimax(q, markers, fgmask, 256, 2 * (h + w))
+                check(minimax[1] and torch.equal(minimax[0] > 0, kernel[0] > 0),
+                      f"{comp}: the minimax and level floods cover different pixels")
+                print(f"level flood {comp}: coverage == the minimax flood's")
+    check(round_launches > 0, "level floods: phase B's one-round kernel never launched")
+    return round_launches
 
 
 def compare_segmentation_cpu_cuda():
@@ -1799,8 +1992,8 @@ def run_spatial_stage(table, name, target, reference, replay_fovs=None):
     cells. Returns the card's seconds per step."""
     from ark_tpu_torch.ops import segment_reduce, som, watershed
 
-    counters = (som.bmu, watershed.claim_round, segment_reduce.segment_sum,
-                segment_reduce.segment_plan)
+    counters = (som.bmu, watershed.claim_round, watershed.claim_levels,
+                segment_reduce.segment_sum, segment_reduce.segment_plan)
     fovs = list(table["fov"].unique())
     with tempfile.TemporaryDirectory() as base:
         for fn in counters:
@@ -1837,7 +2030,7 @@ def run_spatial_stage(table, name, target, reference, replay_fovs=None):
           f"({split['netcdf_write_s'] / seconds['calc_dist_matrix']:.1%} of its wall), "
           f"waiting for distances {split['distances_s']:.4f} s; every step equal to "
           f"the CPU port's on {len(held_fovs)} FOVs, {len(held)} cells (CPU run "
-          f"{cpu_s:.3f} s); kernel launches (bmu, claim, "
+          f"{cpu_s:.3f} s); kernel launches (bmu, claim round, level scan, "
           f"segment_sum, segment_plan) {launches}")
     print(f"spatial stage {name}: device busy {busy_s:.4f} s of the {total:.3f} s "
           f"stage ({busy_s / total:.1%}, profiled run); most device time: "
@@ -3151,7 +3344,8 @@ def compare_training_step_cpu_cuda():
 def held_out_scores(app):
     """Mesmer.predict(postprocess='device') under the level engine on the
     planted test's held-out sets; returns ({set: {compartment: (recall,
-    precision, IoU)}}, the claim kernel's launches)."""
+    precision, IoU)}}, the claim kernels' launches: {"levels": the level
+    scan's, "round": phase B's one-round kernel's})."""
     from ark_tpu_torch.ops import watershed
     from ark_tpu_torch.segmentation import synthetic
 
@@ -3159,7 +3353,7 @@ def held_out_scores(app):
             "crowded": synthetic.synthetic_cells(np.random.default_rng(555), 4, hw=64,
                                                  crowding=0.35)}
     watershed._ENGINE = "levels"
-    watershed.claim_round.launches = 0
+    watershed.claim_round.launches = watershed.claim_levels.launches = 0
     scores = {}
     for name, (imgs, cells, nucs) in sets.items():
         out = app.predict(imgs, postprocess="device")
@@ -3168,7 +3362,8 @@ def held_out_scores(app):
             stats = [synthetic.match_instances(out[comp][i], truth[i]) for i in range(4)]
             scores[name][comp] = tuple(float(np.mean([s[k] for s in stats])) for k in
                                        ("recall", "precision", "mean_matched_iou"))
-    launches = watershed.claim_round.launches
+    launches = {"levels": watershed.claim_levels.launches,
+                "round": watershed.claim_round.launches}
     watershed._ENGINE = "minimax"
     return scores, launches
 
@@ -3205,7 +3400,8 @@ def check_graphed_fit(x, targets):
 def run_training_e2e():
     """Phase (l3): train_on_synthetic on the card with the shipped
     checkpoint's recipe, then the planted test's floors on the held-out
-    sets. Returns the claim kernel's launches in that evaluation."""
+    sets. Returns the claim kernels' launches in that evaluation
+    ({"levels", "round"})."""
     import torch
 
     from ark_tpu_torch.models import unet
@@ -3228,7 +3424,8 @@ def run_training_e2e():
     check(losses.shape == (RECIPE["steps"],) and bool(np.isfinite(losses).all()),
           "train_on_synthetic: loss curve not finite")
     scores, claim_launches = held_out_scores(app)
-    check(claim_launches > 0, "held-out evaluation: the claim kernel never launched")
+    check(claim_launches["levels"] > 0,
+          "held-out evaluation: the level-scan kernel never launched")
     for comp, floor in PLANTED_FLOORS.items():
         got = scores["spaced"][comp]
         check(all(g >= f for g, f in zip(got, floor)),
@@ -3244,7 +3441,8 @@ def run_training_e2e():
     for name, comps in scores.items():
         print(f"held-out {name} (recall, precision, matched IoU; level engine): "
               + ", ".join(f"{c} {tuple(round(v, 3) for v in r)}" for c, r in comps.items()))
-    print(f"held-out evaluation: claim kernel launches {claim_launches}")
+    print(f"held-out evaluation: claim kernel launches (level scan, phase B's "
+          f"rounds) {claim_launches['levels']}, {claim_launches['round']}")
     return claim_launches
 
 
@@ -3287,8 +3485,8 @@ def run_conversion():
 
 
 def run_training_phase():
-    """Phase (l): training and conversion. Returns the claim kernel's
-    launches in the held-out evaluation of (l3)."""
+    """Phase (l): training and conversion. Returns the claim kernels'
+    launches in the held-out evaluation of (l3) ({"levels", "round"})."""
     x, targets = training_batch(61, TRAIN_BATCH, TRAIN_HW, DEVICE)
     run_training_steps(x, targets)
     check_deterministic_steps(x, targets)
@@ -3513,11 +3711,12 @@ def check_trace(pool):
 def run_single_card_modules():
     """Phase (m), which launches none of the port's kernels (checked).
     Returns the timings of (m1)-(m3), (m4)'s kernel events and the kernel
-    counts it read: [bmu, claim round, segment sum, segment plan]."""
+    counts it read: [bmu, claim round, level scan, segment sum, segment
+    plan]."""
     from ark_tpu_torch.ops import segment_reduce, som, watershed
 
-    counters = (som.bmu, watershed.claim_round, segment_reduce.segment_sum,
-                segment_reduce.segment_plan)
+    counters = (som.bmu, watershed.claim_round, watershed.claim_levels,
+                segment_reduce.segment_sum, segment_reduce.segment_plan)
     for fn in counters:
         fn.launches = 0
     parts = {}
@@ -3537,7 +3736,8 @@ def run_single_card_modules():
     print("phase (m) seconds by part (host clock, CPU references included): "
           + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
     launches = [fn.launches for fn in counters]
-    check(launches == [0, 0, 0, 0], f"phase (m) launched the port's kernels: {launches}")
+    check(launches == [0] * len(counters),
+          f"phase (m) launched the port's kernels: {launches}")
     return cc_t, quant_t, prefetch_t, trace_kernels, launches
 
 
@@ -3834,7 +4034,7 @@ UMAP_F64_ULPS = 64
 # hold the split exactly (equal halves on 2 ranks, bitwise 1 rank on one)
 MESMER_GRAD_RTOL = 1e-3
 BITWISE_STAGES = ("pixel", "quant", "enrichment", "flood", "fiber")
-COUNTED_KERNELS = ("bmu", "claim_round", "segment_sum", "segment_plan")
+COUNTED_KERNELS = ("bmu", "claim_round", "claim_levels", "segment_sum", "segment_plan")
 
 
 def multi_gpu_inputs(pixel, app, flood_fovs, dense, quant, spatial, lda_out, fiber_fov,
@@ -4182,8 +4382,14 @@ def run_multi_gpu(inp):
           f"({sum(v.nbytes for v in inp.values()) / 2 ** 30:.2f} GiB)")
     totals = {k: sum(r[k] for res in runs.values() for r in res["launches"])
               for k in COUNTED_KERNELS}
-    check(all(v > 0 for v in totals.values()),
-          f"multi-GPU: a kernel of the sharded paths never launched: {totals}")
+    # the one-round kernel runs only in phase B, which 32 rounds a level may
+    # never need; each FOV's level flood is one level-scan launch, and one
+    # more after each phase B short of the last level
+    floods = len(runs) * len(inp["flood_elev"])
+    check(all(v > 0 for k, v in totals.items() if k != "claim_round")
+          and floods <= totals["claim_levels"] <= floods + totals["claim_round"],
+          f"multi-GPU: a kernel of the sharded paths never launched, or the level "
+          f"floods' launches ({floods} floods) do not add up: {totals}")
     return totals
 
 
@@ -4197,7 +4403,7 @@ def main() -> int:
         raise SmokeFailure("torch.cuda.is_available() is False: this smoke "
                            "run needs a CUDA card")
     from ark_tpu_torch.ops import _kernels
-    from ark_tpu_torch.segmentation import synthetic
+    from ark_tpu_torch.segmentation import mesmer
 
     global CARD
     CARD = gpu_name_and_power()
@@ -4229,21 +4435,18 @@ def main() -> int:
     section_done("pixel stage")
 
     # segmentation (template 1)
-    claim_err, claim_timing = check_claim_kernel(np.random.default_rng(43))
-    run_full_width_template()
     t0 = time.perf_counter()
-    cohorts = {
-        "8x512": (synthetic.synthetic_cells(
-            np.random.default_rng(0), 8, hw=512, n_cells=(250, 300),
-            crowding=0.35)[0], 8),
-        "3x1024": (synthetic.synthetic_cells(
-            np.random.default_rng(0), 3, hw=1024, n_cells=(900, 1000),
-            crowding=0.35)[0], 3),
-    }
+    cohorts = planted_cohorts()
     print(f"planted cohorts generated on the host: "
           f"{time.perf_counter() - t0:.1f} s")
-    claim_launches, app, masks = run_device_postprocess(cohorts)
-    compare_level_flood(app, cohorts["8x512"][0])
+    relief_app = mesmer.Mesmer(weights_path=CKPT, device=DEVICE)
+    reliefs = {name: cohort_relief(relief_app, fovs) for name, (fovs, _) in cohorts.items()}
+    claim_err, claim_timing, scan_err, scan_timing = check_claim_kernel(
+        np.random.default_rng(43), reliefs)
+    run_full_width_template()
+    claim_counts, app, masks = run_device_postprocess(cohorts)
+    flood_round_launches = compare_level_flood(reliefs["8x512"])
+    del relief_app, reliefs
     compare_segmentation_cpu_cuda()
 
     section_done("segmentation")
@@ -4305,7 +4508,7 @@ def main() -> int:
 
     # the last single-card modules: single-image labeling, the bisection
     # quantiles, the prefetch loader and the profiler's trace
-    (bmu_m_launches, claim_m_launches, seg_m_launches,
+    (bmu_m_launches, claim_m_launches, claim_levels_m_launches, seg_m_launches,
      plan_m_launches) = run_single_card_modules()[-1]
     section_done("single-card modules")
 
@@ -4324,6 +4527,7 @@ def main() -> int:
           + ", ".join(f"{k} {v:.1f}" for k, v in sections.items()))
 
     claim_ms = claim_timing[CLAIM_TIMED[0]]
+    scan_ms = scan_timing["8x512"]
     seg_ms = seg_timing[4 + N_QUANT_CHANNELS]
     print(json.dumps({"kernels": [{
         "name": "bmu", "route": "cuda", "source": "ark_tpu_torch/csrc/bmu.cu",
@@ -4337,14 +4541,36 @@ def main() -> int:
         "library_ms": None}, {
         "name": "watershed_claim", "route": "cuda",
         "source": "ark_tpu_torch/csrc/watershed_claim.cu",
-        "replaces": "ark_tpu/ops/watershed.py:173", "launches": claim_launches,
-        "launches_by_path": {"segmentation": claim_launches,
-                             "training_held_out": claim_train_launches,
+        "replaces": "ark_tpu/ops/watershed.py:173",
+        "launches": claim_counts["round_launches"],
+        "launches_by_path": {"segmentation": claim_counts["round_launches"],
+                             "phase_b_check": flood_round_launches,
+                             "training_held_out": claim_train_launches["round"],
                              "single_card_modules": claim_m_launches,
                              "multi_gpu": multi["claim_round"]},
         "max_abs_err": claim_err, "ms": claim_ms["ms"],
         "plain_ms": claim_ms["plain_ms"], "bound_ms": claim_ms["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {
+        "name": "watershed_claim_levels", "route": "cuda",
+        "source": "ark_tpu_torch/csrc/watershed_claim.cu",
+        "replaces": "ark_tpu/ops/watershed.py:173",
+        "drives": "ark_tpu/ops/watershed.py:556-576",
+        "launches": claim_counts["launches"],
+        "launches_by_path": {"segmentation": claim_counts["launches"],
+                             "training_held_out": claim_train_launches["levels"],
+                             "single_card_modules": claim_levels_m_launches,
+                             "multi_gpu": multi["claim_levels"]},
+        "rounds": claim_counts["rounds"],
+        "max_abs_err": scan_err, "ms": scan_ms["ms"], "device_ms": scan_ms["device_ms"],
+        "loop_ms": scan_ms["loop_ms"], "plain_ms": scan_ms["plain_ms"],
+        "bound_ms": scan_ms["bound_ms"],
+        "bound_by": "operations" if scan_ms["bound_by"] == "barriers" else "bytes",
+        "bound_term": scan_ms["bound_by"], "library_ms": None,
+        "by_shape": {name: {k: t[k] for k in (
+            "shape", "stop_level", "rounds", "labelled", "ms", "device_ms", "loop_ms",
+            "plain_ms",
+            "bound_ms", "bound_by", "bound_terms")}
+            for name, t in scan_timing.items()}}, {
         "name": "segment_sum", "route": "cuda",
         "source": "ark_tpu_torch/csrc/segment_sum.cu",
         "replaces": "ark_tpu/ops/segment_reduce.py:44", "launches": seg_launches,

@@ -1,7 +1,30 @@
-"""A/B timing of the port's segment-sum kernel against an earlier design of
-the same kernel on one CUDA card, and the card's dependent f32 add latency.
+"""A/B timing of one of the port's kernels against an earlier design of the
+same kernel on one CUDA card, with the card constants its bound rests on.
 
-    python3 scripts/port_kernel_ab.py --old-csrc DIR [--out FILE]
+    python3 scripts/port_kernel_ab.py --old-csrc DIR [--kernel segment_sum] [--out FILE]
+    python3 scripts/port_kernel_ab.py --old-csrc DIR --kernel claim [--out FILE]
+
+``--kernel claim``: DIR holds the earlier ``watershed_claim.cu`` (for example
+``git archive c792996 ark_tpu_torch/csrc | tar -x -C D`` and DIR =
+``D/ark_tpu_torch/csrc``: one kernel launch a claim round, which the level
+scan drove from the host with a memset, a launch and a read of the changed
+count a round). It is built with the port's nvcc flags beside this
+script's tools (two kernels, and the level-scan kernel's grid from
+today's source, which the tools include) and bound with ctypes (its
+``ark_claim_round_launch`` has the interface of today's). On phase 8's
+planted cohorts (8 x 512^2 and 3 x 1024^2, the mini checkpoint's relief of
+each compartment) it times, in turns (old, new, new, old): phase A from
+level 0 (32 rounds a level) as that loop of the earlier kernel's rounds against one launch of the
+level-scan kernel, and the whole level flood (``watershed._flood``) with
+each; and one round of the earlier one-round kernel against today's at both
+cohort shapes. Every result of both designs is checked bitwise against the
+plain scan and flood. It measures the two constants of
+``chip_smoke.scan_bound_ms``: the read rate of an L2-resident working set
+(16-byte ``ld.global.cg`` loads over 16 MiB and over each cohort's state)
+and one round's grid barrier at the level-scan kernel's grid (block
+atomics into a ring of counters, the barrier, the read after it).
+
+``--kernel segment_sum`` (the default):
 
 DIR holds the earlier ``segment_sum.cu`` (for example ``git archive d83bac8
 ark_tpu_torch/csrc | tar -x -C DIR``: the design in which one warp walked the
@@ -257,20 +280,316 @@ def four_sums(lib, name, masks, rows):
           f"{[round(t, 4) for t in turns]}); dev old {dev_old}, new {dev_new}")
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--old-csrc", required=True)
-    ap.add_argument("--out", default=None)
-    args = ap.parse_args()
+CLAIM_TOOLS_CU = r"""
+// today's claim kernels, for the level-scan kernel's grid (levels_grid)
+#include "watershed_claim.cu"
 
+// The level-scan kernel's grid over b x h x w labels (fewer than 2^31) on
+// the current device, as ark_claim_levels_launch sizes it, or minus the
+// error that would refuse the launch.
+extern "C" int ark_claim_levels_grid(int b, int h, int w) {
+  const uint32_t n = (uint32_t)((long long)b * h * w);
+  unsigned grid = 0;
+  const cudaError_t err = w % kVec == 0 ? levels_grid<true>(n, &grid)
+                                        : levels_grid<false>(n, &grid);
+  return err == cudaSuccess ? (int)grid : -(int)err;
+}
+
+// Reads n16 16-byte words `passes` times through L2 only (ld.global.cg, as
+// the claim kernels read labels), four loads in flight a thread.
+__global__ void __launch_bounds__(256) l2_read(const int4* buf, long long n16, int passes,
+                                               int* sink) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  int acc = 0;
+  for (int p = 0; p < passes; ++p) {
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n16;
+         i += 4 * stride) {
+      int4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        v[u] = i + u * stride < n16 ? __ldcg(buf + i + u * stride) : make_int4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc ^= v[u].x ^ v[u].y ^ v[u].z ^ v[u].w;
+    }
+  }
+  if (acc == 0x7fffffff) sink[0] = acc;   // keeps the loads
+}
+
+// The level-scan kernel's round without its pixels, in its 512-thread
+// blocks: each block adds 1 into counts[r % 3] (a warp reduction, a shared
+// and a global atomic), block 0 clears counts[(r + 1) % 3], a grid barrier,
+// one thread a block reads the count and shares it. Runs `rounds` rounds
+// while every block's count arrives; out[0] = rounds.
+__global__ void __launch_bounds__(512) barrier_rounds(int* counts, int rounds, int* out) {
+  __shared__ int block_sum;
+  __shared__ int round_count;
+  cg::grid_group grid = cg::this_grid();
+  int r = 0;
+  for (;;) {
+    if (threadIdx.x == 0) block_sum = 0;
+    __syncthreads();
+    const int mine = __reduce_add_sync(0xffffffffu, threadIdx.x == 0 ? 1 : 0);
+    if ((threadIdx.x & 31) == 0 && mine != 0) atomicAdd(&block_sum, mine);
+    __syncthreads();
+    int* const count = counts + r % 3;
+    if (threadIdx.x == 0 && block_sum != 0) atomicAdd(count, block_sum);
+    if (blockIdx.x == 0 && threadIdx.x == 0) counts[(r + 1) % 3] = 0;
+    grid.sync();
+    if (threadIdx.x == 0) round_count = __ldcg(count);
+    __syncthreads();
+    const int c = round_count;
+    ++r;
+    if (c != (int)gridDim.x || r == rounds) break;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) out[0] = r;
+}
+
+extern "C" int ark_l2_read_launch(const void* buf, long long n16, int passes, int* sink,
+                                  void* stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, l2_read, 256, 0);
+  l2_read<<<per_sm * sms, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(buf), n16, passes, sink);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ark_barrier_rounds_launch(int blocks, int* counts, int rounds, int* out,
+                                         void* stream) {
+  void* args[] = {&counts, &rounds, &out};
+  return (int)cudaLaunchCooperativeKernel((const void*)barrier_rounds, dim3(blocks),
+                                          dim3(512), args, 0,
+                                          static_cast<cudaStream_t>(stream));
+}
+"""
+
+BARRIER_ROUNDS = 2000
+L2_PASSES = 50
+
+
+def build_claim(out_dir, old_src):
+    """(the earlier claim library, the tool kernels' library), built in
+    parallel."""
+    from ark_tpu_torch.ops import _kernels
+
+    tools_src = os.path.join(out_dir, "claim_tools.cu")
+    with open(tools_src, "w") as f:
+        f.write(CLAIM_TOOLS_CU)
+    jobs = {}
+    today = ["-I", os.path.dirname(_kernels.source("watershed_claim"))]
+    for name, src, extra in (("old_claim", old_src, []),
+                             ("claim_tools", tools_src, today)):
+        path = os.path.join(out_dir, f"lib{name}.so")
+        jobs[name] = (path, subprocess.Popen([_kernels._nvcc(), *_kernels.NVCC_FLAGS,
+                                              *extra, "-o", path, src],
+                                             stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for name, (path, proc) in jobs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {name}:\n{err}")
+        libs[name] = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    old = libs["old_claim"].ark_claim_round_launch
+    old.argtypes, old.restype = [p, p, ctypes.c_int32, i, i, i, p, p, p], i
+    tools = libs["claim_tools"]
+    tools.ark_l2_read_launch.argtypes = [p, ctypes.c_longlong, i, p, p]
+    tools.ark_barrier_rounds_launch.argtypes = [i, p, i, p, p]
+    tools.ark_claim_levels_grid.argtypes = [i, i, i]
+    tools.ark_l2_read_launch.restype = tools.ark_barrier_rounds_launch.restype = i
+    tools.ark_claim_levels_grid.restype = i
+    return libs["old_claim"], tools
+
+
+def l2_read_rate(tools, nbytes):
+    """Bytes per second of L2_PASSES passes of 16-byte L2-only reads over a
+    working set of `nbytes` (warmed first), by events."""
+    import torch
+
+    from chip_smoke import time_ms
+
+    buf = torch.ones(nbytes // 4, dtype=torch.int32, device="cuda")
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(passes):
+        err = tools.ark_l2_read_launch(buf.data_ptr(), nbytes // 16, passes,
+                                       sink.data_ptr(), stream)
+        assert err == 0, err
+
+    one, many = time_ms(lambda: run(1)), time_ms(lambda: run(L2_PASSES))
+    return nbytes * (L2_PASSES - 1) / ((many - one) * 1e-3)
+
+
+def barrier_ms(tools, blocks):
+    """ms of one round of ``barrier_rounds`` at `blocks` blocks: the
+    difference of BARRIER_ROUNDS rounds and one, over BARRIER_ROUNDS - 1."""
+    import torch
+
+    from chip_smoke import time_ms
+
+    counts = torch.zeros(3, dtype=torch.int32, device="cuda")
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(rounds):
+        counts.zero_()
+        err = tools.ark_barrier_rounds_launch(blocks, counts.data_ptr(), rounds,
+                                              out.data_ptr(), stream)
+        assert err == 0, err
+
+    one, many = time_ms(lambda: run(1)), time_ms(lambda: run(BARRIER_ROUNDS))
+    if int(out) != BARRIER_ROUNDS:
+        raise SystemExit(f"barrier_rounds stopped after {int(out)} rounds: a count "
+                         f"went missing")
+    return (many - one) / (BARRIER_ROUNDS - 1)
+
+
+def old_round(lib):
+    """The earlier one-round claim kernel behind ``claim_round``'s
+    interface: a zeroed count, a launch."""
+    import torch
+
+    def claim_round(lab, q, level):
+        b, h, w = lab.shape
+        out = torch.empty_like(lab)
+        changed = torch.zeros((), dtype=torch.int32, device=lab.device)
+        err = lib.ark_claim_round_launch(lab.data_ptr(), q.data_ptr(), int(level), b, h,
+                                         w, out.data_ptr(), changed.data_ptr(),
+                                         torch.cuda.current_stream().cuda_stream)
+        assert err == 0, err
+        return out, changed
+
+    return claim_round
+
+
+def claim_ab(args):
+    import torch
+
+    from ark_tpu_torch.ops import _kernels, watershed
+    from ark_tpu_torch.segmentation import mesmer
+    from chip_smoke import (CKPT, batch_ms, claim_bytes, cohort_relief, device_ms,
+                            gpu_name_and_power, planted_cohorts, same_scan, time_ms,
+                            wall_ms)
+
+    card = gpu_name_and_power()
+    print(card)
+    _kernels.build_all()
+    rows = []
+    app = mesmer.Mesmer(weights_path=CKPT, device="cuda")
+    reliefs = {name: cohort_relief(app, fovs)
+               for name, (fovs, _) in planted_cohorts().items()}
+    del app
+    with tempfile.TemporaryDirectory() as tmp:
+        lib, tools = build_claim(tmp, os.path.join(args.old_csrc, "watershed_claim.cu"))
+        sizes = {"16MiB": 16 << 20}
+        for name, relief in reliefs.items():
+            n = relief["whole_cell"][0].numel()
+            sizes[f"{name}_state"] = -(-3 * 4 * n // 16) * 16   # two label buffers, levels
+        for name, nbytes in sizes.items():
+            rate = l2_read_rate(tools, nbytes)
+            rows.append({"shape": f"l2_read_{name}", "bytes": nbytes, "bytes_per_s": rate})
+            print(f"L2-only 16-byte reads over {nbytes} bytes ({name}), {L2_PASSES} passes: "
+                  f"{rate / 1e12:.3f} TB/s")
+        for name, relief in reliefs.items():
+            b, h, w = relief["whole_cell"][0].shape
+            blocks = tools.ark_claim_levels_grid(b, h, w)
+            assert blocks > 0, blocks
+            ms = barrier_ms(tools, blocks)
+            rows.append({"shape": f"barrier_{name}", "blocks": blocks, "ms": ms})
+            print(f"one round's grid barrier at the level-scan kernel's grid for {name} "
+                  f"({blocks} blocks of 512): {ms * 1e3:.3f} us")
+        old_rnd = old_round(lib)
+
+        def old_scan(lab, q, level, levels, bfs_rounds):
+            return watershed._claim_levels(lab, q, level, levels, bfs_rounds, old_rnd)
+
+        for name, relief in reliefs.items():
+            for comp, (q, markers, fgmask) in relief.items():
+                q = q.contiguous()
+                lab = watershed._start_labels(markers, fgmask)
+                want = watershed._claim_levels(lab, q, 0, 256, 32)
+                new = lambda: watershed.claim_levels(lab, q, 0, 256, 32)   # noqa: E731
+                old = lambda: old_scan(lab, q, 0, 256, 32)                 # noqa: E731
+                for what, fn in (("new", new), ("old", old)):
+                    if not same_scan(fn(), want):
+                        raise SystemExit(f"phase A {name} {comp}: the {what} design "
+                                         f"differs from the plain scan")
+                old_ev, new_ev, turns_ev = in_turns(old, new, time_ms)
+                old_dev, new_dev, turns_dev = in_turns(old, new, device_ms)
+                launch_ms = time_ms(lambda: watershed._launch_levels(lab, q, 0, 256, 32))
+                row = {"shape": f"phase_a_{name}_{comp}", "pixels": lab.numel(),
+                       "rounds": want[2], "stop_level": want[1], "old_ms": old_ev,
+                       "new_ms": new_ev, "turns_ms": turns_ev, "old_device_ms": old_dev,
+                       "new_device_ms": new_dev, "turns_device_ms": turns_dev,
+                       "new_launch_ms": launch_ms,
+                       "round_bytes": claim_bytes(lab.numel(), int((want[0] > 0).sum()))}
+                rows.append(row)
+                print(f"phase A {name} {comp} {tuple(lab.shape)} from level 0, 32 rounds a "
+                      f"level ({want[2]} rounds, stop {want[1]}): old loop of rounds ev "
+                      f"{old_ev:.4f} ms, dev {old_dev:.4f}; new level-scan launch ev "
+                      f"{new_ev:.4f} ms, dev {new_dev:.4f}, events around the launch "
+                      f"alone {launch_ms:.4f} (turns ev "
+                      f"{[round(t, 4) for t in turns_ev]}, dev "
+                      f"{[round(t, 4) for t in turns_dev]}); both equal to the plain scan")
+                want_flood = watershed._flood(q, markers, fgmask, 256, 32)
+                real = watershed.claim_levels, watershed.claim_round
+
+                def old_flood():
+                    watershed.claim_levels, watershed.claim_round = old_scan, old_rnd
+                    try:
+                        return watershed._flood(q, markers, fgmask, 256, 32)
+                    finally:
+                        watershed.claim_levels, watershed.claim_round = real
+
+                new_flood = lambda: watershed._flood(q, markers, fgmask, 256, 32)  # noqa: E731
+                got = old_flood()
+                if not (torch.equal(got[0], want_flood[0]) and got[1] == want_flood[1]):
+                    raise SystemExit(f"flood {name} {comp}: the old design differs")
+                old_w, new_w, turns_w = in_turns(old_flood, new_flood, wall_ms)
+                rows.append({"shape": f"flood_{name}_{comp}", "old_wall_ms": old_w,
+                             "new_wall_ms": new_w, "turns_wall_ms": turns_w})
+                print(f"level flood {name} {comp} (host clock with a synchronise, median "
+                      f"of 5): old {old_w:.4f} ms, new {new_w:.4f} ms (turns "
+                      f"{[round(t, 4) for t in turns_w]}); equal labels and flag")
+            q = relief["whole_cell"][0].contiguous()
+            lab = torch.as_tensor(claim_like(q), device="cuda")
+            for what, fn in (("old", old_rnd), ("new", watershed.claim_round)):
+                got = fn(lab, q, 128)[0]
+                if not torch.equal(got, watershed._claim_round(lab, q, None, 128)):
+                    raise SystemExit(f"one round {name}: the {what} kernel differs")
+            old = lambda: old_rnd(lab, q, 128)                       # noqa: E731
+            new = lambda: watershed.claim_round(lab, q, 128)         # noqa: E731
+            old_ev, new_ev, turns_ev = in_turns(old, new, time_ms)
+            old_b, new_b, turns_b = in_turns(old, new, batch_ms)
+            old_dev, new_dev, turns_dev = in_turns(old, new, device_ms)
+            rows.append({"shape": f"round_{name}", "old_ms": old_ev, "new_ms": new_ev,
+                         "old_batch_ms": old_b, "new_batch_ms": new_b,
+                         "old_device_ms": old_dev, "new_device_ms": new_dev,
+                         "turns_device_ms": turns_dev})
+            print(f"one claim round {name} {tuple(lab.shape)} (level 128): old ev "
+                  f"{old_ev:.4f} ms, batch {old_b:.4f}, dev {old_dev:.4f}; new ev "
+                  f"{new_ev:.4f}, batch {new_b:.4f}, dev {new_dev:.4f} (turns dev "
+                  f"{[round(t, 4) for t in turns_dev]}); both equal to the plain round")
+    return card, rows
+
+
+def claim_like(q):
+    """Labels like ``chip_smoke.claim_inputs``' on `q`'s shape, seeded."""
+    from chip_smoke import claim_inputs
+
+    return claim_inputs(np.random.default_rng(60), tuple(q.shape))[0]
+
+
+def segment_sum_ab(args):
     import torch
 
     from ark_tpu_torch.ops import _kernels
     from ark_tpu_torch.segmentation import synthetic
     from chip_smoke import dense_masks, gpu_name_and_power
 
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA card")
     card = gpu_name_and_power()
     print(card)
     _kernels.build_all()
@@ -307,6 +626,21 @@ def main():
                 compare(lib, f"{name}_cells_k{k}", lab, segment_inputs(masks[0], k, k),
                         int(lab.max()) + 1, False, latency, rows)
             four_sums(lib, name, masks, rows)
+    return card, rows
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--old-csrc", required=True)
+    ap.add_argument("--kernel", choices=("segment_sum", "claim"), default="segment_sum")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    card, rows = (claim_ab if args.kernel == "claim" else segment_sum_ab)(args)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -6,7 +6,7 @@ tests/conftest.py (which imports jax):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda -q
 
-Tolerances: the claim kernel and the floods are integer work, bitwise; BMU
+Tolerances: the claim kernels and the floods are integer work, bitwise; BMU
 indices may differ only where the plain version's two best nodes are closer
 than 1e-6 * max(|d|, 1), and distances carry the f32 summation-order
 tolerance of tests/test_torch_som.py; a duplicated node's tie goes to the
@@ -64,8 +64,9 @@ from ark_tpu_torch.segmentation import fiber_segmentation as TF
 from ark_tpu_torch.utils import data_utils as TDU
 from ark_tpu_torch.utils import plot_utils as TPU
 from tests import segment_sum_cases as cases
-from chip_smoke import (DIST_ATOL, DIST_RTOL, EXCUSED_SHARE, FIBER_DEFAULTS, OPT_ATOL,
-                        OPT_EPOCHS, OPT_OUTLIERS, OPT_WORST, claim_inputs, dense_masks,
+from chip_smoke import (CLAIM_BUDGETS, CLAIM_SHAPES, DIST_ATOL, DIST_RTOL, EXCUSED_SHARE,
+                        FIBER_DEFAULTS, OPT_ATOL, OPT_EPOCHS, OPT_OUTLIERS, OPT_WORST,
+                        claim_inputs, dense_masks,
                         fiber_image, fiber_labels_differ, pixel_rows)
 
 
@@ -161,7 +162,64 @@ def test_claim_kernel_matches_plain_on_cuda(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bfs_rounds", [1, 32])
+@pytest.mark.parametrize("bfs_rounds", CLAIM_BUDGETS)
+def test_claim_levels_kernel_matches_plain_on_cuda(card, bfs_rounds):
+    """The level-scan kernel == the plain scan, bitwise: labels, stop level
+    and rounds, from level 0 and mid-way, at the smoke's claim shapes; one
+    launch a call, and its input is not written."""
+    rng = np.random.default_rng(bfs_rounds)
+    for shape in CLAIM_SHAPES:
+        lab_np, q_np = claim_inputs(rng, shape)
+        lab = torch.as_tensor(lab_np, device=card)
+        q = torch.as_tensor(q_np, device=card)
+        for level in (0, 128):
+            before = TW.claim_levels.launches
+            got, stop, rounds = TW.claim_levels(lab, q, level, 256, bfs_rounds)
+            assert TW.claim_levels.launches == before + 1
+            want, want_stop, want_rounds = TW._claim_levels(lab, q, level, 256, bfs_rounds)
+            assert torch.equal(got, want) and (stop, rounds) == (want_stop, want_rounds)
+            assert torch.equal(lab.cpu(), torch.from_numpy(lab_np))
+
+
+@pytest.mark.cuda
+def test_claim_levels_refuses_what_the_kernel_does_not_take_on_cuda(card):
+    lab, q = (torch.as_tensor(a, device=card)
+              for a in claim_inputs(np.random.default_rng(1), (2, 8, 12)))
+    with pytest.raises(TypeError, match="int32"):
+        TW.claim_levels(lab.to(torch.int64), q.to(torch.int64), 0, 256, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        TW.claim_levels(lab.transpose(1, 2), q.transpose(1, 2), 0, 256, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        TW.claim_levels(lab, q.cpu(), 0, 256, 2)
+
+
+@pytest.mark.cuda
+def test_claim_kernels_refuse_views_off_16_bytes_on_cuda(card):
+    """A contiguous view that starts off a 16-byte boundary raises before
+    either kernel's 16-byte loads could fault; a copy of it runs and equals
+    the plain versions; the level flood copies such levels itself."""
+    lab, q = (torch.as_tensor(a, device=card)
+              for a in claim_inputs(np.random.default_rng(4), (2, 7, 129)))
+    assert lab[1:].is_contiguous() and lab[1:].data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        TW.claim_round(lab[1:], q[1:], 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        TW.claim_levels(lab[1:], q[1:], 0, 256, 2)
+    a, b = lab[1:].clone(), q[1:].clone()
+    got, chg = TW.claim_round(a, b, 128)
+    assert torch.equal(got, TW._claim_round(a, b, None, 128))
+    got = TW.claim_levels(a, b, 0, 256, 2)
+    want = TW._claim_levels(a, b, 0, 256, 2)
+    assert torch.equal(got[0], want[0]) and got[1:] == want[1:]
+    markers = torch.where(lab > 0, lab, 0)
+    mask = lab >= 0
+    flood = TW._flood(q[1:], markers[1:], mask[1:], 256, 32)
+    plain = TW._flood(q[1:].cpu(), markers[1:].cpu(), mask[1:].cpu(), 256, 32)
+    assert torch.equal(flood[0].cpu(), plain[0]) and flood[1] == plain[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bfs_rounds", CLAIM_BUDGETS)
 def test_level_flood_on_cuda_matches_cpu(card, bfs_rounds):
     """The level engine on the card (kernel rounds, phase B on the device)
     == the same flood on the CPU (plain rounds), labels and flag."""

@@ -126,7 +126,7 @@ def _check_against_jax_and_truth(got, ref, cohort):
 @pytest.mark.parametrize("engine", ["minimax", "levels"], indirect=True)
 def test_segment_fovs_device_matches_jax(engine, cohort):
     tapp = TM.Mesmer(weights_path=CKPT, device="cpu")
-    launches = TW.claim_round.launches
+    launches, levels_launches = TW.claim_round.launches, TW.claim_levels.launches
     got = TM.segment_fovs(cohort[0], app=tapp, batch_size=3, device="cpu",
                           postprocess="device")
     ref = JM.segment_fovs(cohort[0], app=JM.Mesmer(weights_path=CKPT), batch_size=3,
@@ -134,6 +134,7 @@ def test_segment_fovs_device_matches_jax(engine, cohort):
     _check_against_jax_and_truth(got, ref, cohort)
     assert tapp.host_fallbacks == 0
     assert TW.claim_round.launches == launches      # CPU tensors: no kernel
+    assert TW.claim_levels.launches == levels_launches
 
 
 def test_predict_host_matches_jax(cohort, tapp, japp):
@@ -199,26 +200,39 @@ def test_create_deepcell_output_writes_masks(tmp_path, cohort):
 def test_smoke_segmentation_phases_rehearse_on_cpu(monkeypatch):
     """chip_smoke.py's segmentation phases, driven on the CPU at a tiny size
     (the card's run is the same code at full size): every check they make
-    holds, and the level engine's claim rounds are counted."""
+    holds, and the level engine's level scans, their rounds and phase B's
+    rounds are counted."""
     import chip_smoke
 
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    real = TW.claim_round
+    real_levels, real_round = TW.claim_levels, TW.claim_round
 
-    def counted(lab, q, level):
+    # the smoke reads the counts of whatever stands under the name: this
+    # wrapper's, kept here from what the real one returns
+    def counted(lab, q, level, levels, bfs_rounds):
+        out = real_levels(lab, q, level, levels, bfs_rounds)
         counted.launches += 1
-        return real(lab, q, level)
+        counted.rounds += out[2]
+        return out
 
-    counted.launches = 0
-    monkeypatch.setattr(TW, "claim_round", counted)
+    def counted_round(lab, q, level):
+        counted_round.launches += 1
+        return real_round(lab, q, level)
+
+    counted.launches = counted.rounds = counted_round.launches = 0
+    monkeypatch.setattr(TW, "claim_levels", counted)
+    monkeypatch.setattr(TW, "claim_round", counted_round)
     monkeypatch.setattr(TW, "_ENGINE", TW._ENGINE)
     fovs = TS.synthetic_cells(np.random.default_rng(0), 2, hw=64,
                               n_cells=(12, 16), crowding=0.35)[0]
-    launches, app, masks = chip_smoke.run_device_postprocess({"small": (fovs, 2)})
+    counts, app, masks = chip_smoke.run_device_postprocess({"small": (fovs, 2)})
     assert sorted(masks["small"]) == ["nuclear", "whole_cell"]
     assert masks["small"]["whole_cell"].shape == fovs.shape[:3]
     # the level engine's plain run, then its phase-timed run
-    assert 2 * launches == counted.launches > 0 and app.host_fallbacks == 0
+    assert 2 * counts["launches"] == counted.launches > 0 and app.host_fallbacks == 0
+    assert 2 * counts["rounds"] == counted.rounds >= counts["launches"]
+    assert 2 * counts["round_launches"] == counted_round.launches
     assert TW._ENGINE == "minimax"
-    chip_smoke.compare_level_flood(app, fovs)
+    relief = chip_smoke.cohort_relief(app, fovs)
+    assert chip_smoke.compare_level_flood(relief) > 0

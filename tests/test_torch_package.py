@@ -271,6 +271,24 @@ def test_cpu_claim_round_never_touches_the_cuda_library(monkeypatch):
     assert watershed.claim_round.launches == before
 
 
+def test_cpu_claim_levels_never_touches_the_cuda_library(monkeypatch):
+    from ark_tpu_torch.ops import watershed
+
+    def refuse(*_):
+        raise AssertionError("claim_levels on CPU tensors asked for the library")
+
+    monkeypatch.setattr(_kernels, "lib", refuse)
+    monkeypatch.setattr(_kernels, "build", refuse)
+    before = watershed.claim_levels.launches
+    lab = torch.tensor([[[0, 3, -1], [0, 0, 2]]], dtype=torch.int32)
+    q = torch.tensor([[[0, 0, 0], [0, 0, 1]]], dtype=torch.int32)
+    new, stop, rounds = watershed.claim_levels(lab, q, 0, 2, 4)
+    # level 0: 3 claims two pixels, then 3 the last one, then a fixpoint;
+    # level 1: 2 becomes a source, but nothing is left to claim
+    assert new.tolist() == [[[3, 3, -1], [3, 3, 2]]] and (stop, rounds) == (2, 4)
+    assert watershed.claim_levels.launches == before
+
+
 SPATIAL_MODULES = [
     "ark_tpu_torch.utils.netcdf3", "ark_tpu_torch.ops.distances",
     "ark_tpu_torch.ops.kmeans", "ark_tpu_torch.analysis.spatial_analysis_utils",

@@ -13,6 +13,7 @@ import pytest
 import scipy.ndimage as ndi
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from ark_tpu.ops import quantiles as jq
@@ -163,6 +164,114 @@ def test_level_flood_phase_b_matches_jax(bfs_rounds):
                               64, bfs_rounds)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert got_done == bool(done)
+
+
+_jax_round = jax.jit(JW._claim_round)
+
+
+def _jax_claim_levels(lab, q, mask, level, levels, bfs_rounds):
+    """Phase A as the JAX package's level scan runs it: JW._claim_round on
+    labels with a mask operand, each level until a round changes nothing or
+    `bfs_rounds` rounds have run. Returns (labels, stop level, rounds)."""
+    lab, q, mask = jnp.asarray(lab), jnp.asarray(q), jnp.asarray(mask)
+    rounds = 0
+    while level < levels:
+        for _ in range(bfs_rounds):
+            new = _jax_round(lab, q, mask, jnp.int32(level))
+            rounds += 1
+            done = bool(jnp.all(new == lab))
+            lab = new
+            if done:
+                break
+        else:
+            return np.asarray(lab), level, rounds
+        level += 1
+    return np.asarray(lab), level, rounds
+
+
+def _claim_levels_inputs(kind):
+    """(mask-encoded labels, levels, level count): claim_inputs' random
+    labels, or markers on a smooth relief with a masked band."""
+    if kind == "random":
+        lab, q = claim_inputs(np.random.default_rng(21), (2, 24, 37), levels=16)
+        return lab, q, 16
+    elev, markers, mask = _relief(5, b=2, h=24, w=40, n_markers=4)
+    mask[1, :, 18:20] = False
+    q = np.array(JW._quantize(jnp.asarray(elev), jnp.asarray(mask), 32))
+    return np.where(mask, markers, -1).astype(np.int32), q, 32
+
+
+@pytest.mark.parametrize("kind", ["random", "relief"])
+@pytest.mark.parametrize("start", ["first", "mid"])
+@pytest.mark.parametrize("bfs_rounds", [0, 1, 2, 32])
+def test_claim_levels_matches_jax_round_loop(kind, start, bfs_rounds):
+    """The plain level scan == a loop of the JAX package's round with its
+    break rule: labels (decoded), stop level and rounds, bit for bit; the
+    wrapper gives the same on CPU tensors and counts its rounds, and the
+    mask's -1 stays where it was."""
+    lab, q, levels = _claim_levels_inputs(kind)
+    level = 0 if start == "first" else levels // 2
+    mask = lab >= 0
+    want, want_stop, want_rounds = _jax_claim_levels(np.where(mask, lab, 0), q, mask,
+                                                     level, levels, bfs_rounds)
+    got, stop, rounds = TW._claim_levels(torch.from_numpy(lab), torch.from_numpy(q),
+                                         level, levels, bfs_rounds)
+    np.testing.assert_array_equal(np.where(mask, got.numpy(), 0), want)
+    assert ((got.numpy() == -1) == ~mask).all()
+    assert (stop, rounds) == (want_stop, want_rounds)
+    # the budgets under 32 leave levels to phase B; 32 converges everywhere
+    assert (stop < levels) == (bfs_rounds < 32)
+    before = TW.claim_levels.rounds, TW.claim_levels.launches
+    again = TW.claim_levels(torch.from_numpy(lab), torch.from_numpy(q), level, levels,
+                            bfs_rounds)
+    assert torch.equal(again[0], got) and again[1:] == (stop, rounds)
+    assert (TW.claim_levels.rounds, TW.claim_levels.launches) == (
+        before[0] + rounds, before[1])
+
+
+def test_claim_levels_refuses_what_the_kernel_does_not_take():
+    """int64, a transposed layout, operands on two devices and a view that
+    starts off a 16-byte boundary (the kernel's loads are 16 bytes) raise,
+    on the CPU as on the card."""
+    lab, q = (torch.from_numpy(a) for a in claim_inputs(np.random.default_rng(2),
+                                                        (2, 6, 9)))
+    with pytest.raises(TypeError, match="int32"):
+        TW.claim_levels(lab.to(torch.int64), q.to(torch.int64), 0, 16, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        TW.claim_levels(lab.transpose(1, 2), q.transpose(1, 2), 0, 16, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        TW.claim_levels(lab, q.to("meta"), 0, 16, 2)
+    assert lab[1:].is_contiguous() and lab[1:].data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        TW.claim_levels(lab[1:], q[1:], 0, 16, 2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        TW.claim_levels(lab[1:].clone(), q[1:], 0, 16, 2)
+
+
+def test_level_flood_takes_levels_at_an_offset():
+    """The level flood copies levels that start off a 16-byte boundary, so
+    its claim rounds take them: the same labels and flag as from a fresh
+    tensor."""
+    elev, markers, mask = _relief(9, b=3, h=7, w=129, n_markers=4)
+    q = torch.from_numpy(np.array(JW._quantize(jnp.asarray(elev), jnp.asarray(mask),
+                                               256)))
+    m, k = torch.from_numpy(markers), torch.from_numpy(mask)
+    assert q[1:].data_ptr() % 16
+    got = TW._flood(q[1:], m[1:], k[1:], 256, 2)
+    want = TW._flood(q[1:].clone(), m[1:], k[1:], 256, 2)
+    assert torch.equal(got[0], want[0]) and got[1] == want[1]
+
+
+def test_claim_levels_loop_of_rounds_is_the_plain_scan():
+    """``_claim_levels`` given the one-round wrapper (the loop of one-round
+    launches the level scan ran before its kernel) == its plain default,
+    at a budget that leaves levels to phase B and at one that does not."""
+    lab, q, levels = _claim_levels_inputs("relief")
+    lab, q = torch.from_numpy(lab), torch.from_numpy(q)
+    for bfs_rounds in (2, 32):
+        got = TW._claim_levels(lab, q, 0, levels, bfs_rounds, TW.claim_round)
+        want = TW._claim_levels(lab, q, 0, levels, bfs_rounds)
+        assert torch.equal(got[0], want[0]) and got[1:] == want[1:]
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
