@@ -8,19 +8,42 @@ two label columns, and converting every untouched column through pandas
 both ways made host IO — not the TPU — the 100-FOV cohort bottleneck
 (PERF.md endurance run). Passthrough columns stay as arrow buffers;
 computed columns are converted with the same `Array.from_pandas` path
-`write_feather(df)` uses, so files read back identically either way."""
+`write_feather(df)` uses, so files read back identically either way.
+
+Every write, the pixel stage's CSV tables' (`write_csv`) too, runs in a
+`feather.write` span whose `bytes` is the file's size on disk."""
 
 from __future__ import annotations
 
+import contextlib
+import os
 from typing import Dict, List, Optional
 
 import pandas as pd
 import pyarrow as pa
 from pyarrow import feather as _pa_feather
 
+from ark_tpu_torch.utils import profiling
+
+
+@contextlib.contextmanager
+def _write_span(path):
+    path = str(path)
+    with profiling.span("feather.write", path=path) as sp:
+        yield path
+        if sp.recorded:
+            sp.attrs["bytes"] = os.path.getsize(path)
+
 
 def write_dataframe(df: pd.DataFrame, path, compression: str = "uncompressed"):
-    _pa_feather.write_feather(df, str(path), compression=compression)
+    with _write_span(path) as path:
+        _pa_feather.write_feather(df, path, compression=compression)
+
+
+def write_csv(df: pd.DataFrame, path, **kwargs):
+    """`df.to_csv(path, **kwargs)`, in the same span as the feather writes."""
+    with _write_span(path) as path:
+        df.to_csv(path, **kwargs)
 
 
 def read_dataframe(path, columns: Optional[List[str]] = None) -> pd.DataFrame:
@@ -36,7 +59,8 @@ def read_table(path) -> pa.Table:
 
 
 def write_table(table: pa.Table, path, compression: str = "uncompressed"):
-    _pa_feather.write_feather(table, str(path), compression=compression)
+    with _write_span(path) as path:
+        _pa_feather.write_feather(table, path, compression=compression)
 
 
 def table_set_columns(table: pa.Table,

@@ -1,4 +1,4 @@
-"""The port's TIFF codec: numpy, zlib and the standard library only.
+"""The port's TIFF codec: numpy, zlib and the standard library, no imaging package.
 
 ``write``/``encode`` lay a channels-first stack or a 2-D image out byte for
 byte as imageio's legacy TIFF plugin writes it (its vendored tifffile's
@@ -19,6 +19,9 @@ the first page's shape). Anything else (multi-file or modulo OME series,
 several samples a pixel in an OME series, ImageJ and vendor series, other
 compressions) raises a ``ValueError`` naming the tag and its value.
 ``shape_dtype`` reads the IFDs only.
+
+``read`` and ``write`` run in ``tiff.read`` and ``tiff.write`` spans whose
+``bytes`` is the file's size.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from __future__ import annotations
 import datetime
 import io
 import json
+import os
 import struct
 import sys
 import xml.etree.ElementTree as etree
@@ -33,6 +37,8 @@ import zlib
 from typing import BinaryIO, List, Optional, Tuple
 
 import numpy as np
+
+from ark_tpu_torch.utils import profiling
 
 
 def now() -> datetime.datetime:
@@ -230,9 +236,11 @@ def encode(data: np.ndarray, description: Optional[str] = None) -> bytes:
 
 def write(path: str, data: np.ndarray, description: Optional[str] = None) -> None:
     """Write `data` to `path` as ``encode`` lays it out."""
-    buf = encode(data, description)
-    with open(path, "wb") as f:
-        f.write(buf)
+    with profiling.span("tiff.write") as sp:
+        buf = encode(data, description)
+        with open(path, "wb") as f:
+            f.write(buf)
+        sp.attrs["bytes"] = len(buf)
 
 
 # --- reading -----------------------------------------------------------------
@@ -562,7 +570,9 @@ def decode(buf: bytes) -> np.ndarray:
 def read(path: str) -> np.ndarray:
     """The first series of the TIFF at `path`, as ``imageio.v3.imread``
     returns it."""
-    with open(path, "rb") as fh:
+    with profiling.span("tiff.read") as sp, open(path, "rb") as fh:
+        if sp.recorded:
+            sp.attrs["bytes"] = os.fstat(fh.fileno()).st_size
         return _decode(fh)
 
 

@@ -26,6 +26,10 @@ budgets and the same order of checks: phase A's on the card, the levels'
 in Python, which reads the stop level back once a launch. Phase B hands
 ties out by minimum label, so any other schedule of rounds would change who
 owns a tie.
+
+``flood`` runs in a ``watershed.flood`` span: its ``engine``, and its
+``blocks``: the minimax engine's relaxation and re-labeling blocks (each
+loop a child span with its own count), the level engine's claim rounds.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch.nn.functional as F
 
 from ark_tpu_torch.ops import _kernels, cc
 from ark_tpu_torch.ops.quantiles import masked_order_stats
+from ark_tpu_torch.utils import profiling
 
 
 def watershed(image: np.ndarray, markers: np.ndarray,
@@ -305,10 +310,11 @@ def _start_labels(markers, mask) -> torch.Tensor:
     return torch.where(mask, lab, -1).contiguous()
 
 
-def _flood(q, markers, mask, levels: int, bfs_rounds: int):
+def _flood(q, markers, mask, levels: int, bfs_rounds: int, stats=None):
     """The level-scan flood on pre-quantized q; returns (labels, converged).
     Labels are mask-encoded (-1 outside the mask) for the claim rounds and
-    phase B alike, and decoded at the end."""
+    phase B alike, and decoded at the end. `stats`, a dict, gets the claim
+    rounds run as `blocks`."""
     b, h, w = q.shape
     q = q.to(torch.int32).contiguous()
     if q.data_ptr() % 16:               # a view at an offset: the kernels' loads
@@ -316,13 +322,16 @@ def _flood(q, markers, mask, levels: int, bfs_rounds: int):
     lab = _start_labels(markers, mask)
     rep = torch.full_like(lab, h * w)
     converged = True
-    level = 0
+    level = rounds = 0
     while level < levels:
-        lab, level, _ = claim_levels(lab, q, level, levels, bfs_rounds)  # phase A
-        if level < levels:                                               # phase B
+        lab, level, run = claim_levels(lab, q, level, levels, bfs_rounds)  # phase A
+        rounds += run
+        if level < levels:                                                 # phase B
             lab, rep, sv_done = _resolve_level(lab, rep, q, mask, level)
             converged = converged and sv_done
             level += 1
+    if stats is not None:
+        stats["blocks"] = rounds
     return torch.where(lab == -1, 0, lab), converged
 
 
@@ -441,8 +450,11 @@ def _refine_round(newlab, pk, qs, lb: int, labm: int, claimable):
     return torch.where(take, cand, newlab)
 
 
-def _flood_minimax(q, markers, mask, levels: int, rounds: int):
-    """Minimax flood on pre-quantized q; returns (labels, converged)."""
+def _flood_minimax(q, markers, mask, levels: int, rounds: int, stats=None):
+    """Minimax flood on pre-quantized q; returns (labels, converged). The
+    relaxation's blocks run in a ``watershed.relax`` span, the re-labeling's
+    in a ``watershed.relabel`` span, each with its `blocks`; `stats`, a
+    dict, gets the two counts' sum as `blocks`."""
     lb = _label_bits(levels)
     labm = (1 << lb) - 1
     lab0 = torch.where((markers > 0) & mask, markers.to(torch.int32), 0)
@@ -453,27 +465,35 @@ def _flood_minimax(q, markers, mask, levels: int, rounds: int):
     n_blocks = -(-rounds // _MINIMAX_BLOCK)
 
     done = False
-    for _ in range(n_blocks):
-        pk = _minimax_sweep(pk, qs, labm, claimable, absorb)
-        for _ in range(_MINIMAX_BLOCK):
-            pk = _minimax_round(pk, qs, labm, claimable)
-        # certificate: one more NEIGHBOUR round changes nothing
-        probe = _minimax_round(pk, qs, labm, claimable)
-        done = torch.equal(probe, pk)
-        pk = probe
-        if done:
-            break
+    block = 0
+    with profiling.span("watershed.relax") as relax:
+        for block in range(1, n_blocks + 1):
+            pk = _minimax_sweep(pk, qs, labm, claimable, absorb)
+            for _ in range(_MINIMAX_BLOCK):
+                pk = _minimax_round(pk, qs, labm, claimable)
+            # certificate: one more NEIGHBOUR round changes nothing
+            probe = _minimax_round(pk, qs, labm, claimable)
+            done = torch.equal(probe, pk)
+            pk = probe
+            if done:
+                break
+        relax.attrs["blocks"] = block
 
     newlab = lab0
     rdone = False
-    for _ in range(n_blocks):
-        new = newlab
-        for _ in range(_MINIMAX_BLOCK):
-            new = _refine_round(new, pk, qs, lb, labm, claimable)
-        rdone = torch.equal(new, newlab)
-        newlab = new
-        if rdone:
-            break
+    block = 0
+    with profiling.span("watershed.relabel") as relabel:
+        for block in range(1, n_blocks + 1):
+            new = newlab
+            for _ in range(_MINIMAX_BLOCK):
+                new = _refine_round(new, pk, qs, lb, labm, claimable)
+            rdone = torch.equal(new, newlab)
+            newlab = new
+            if rdone:
+                break
+        relabel.attrs["blocks"] = block
+    if stats is not None:
+        stats["blocks"] = relax.attrs["blocks"] + relabel.attrs["blocks"]
     lab = torch.where(pk == _LAB_SENTINEL, 0, newlab)
     # labels must fit the packed key's label field; an overflow folds into
     # the flag so callers take their certified fallback
@@ -489,10 +509,12 @@ def flood(q, markers, mask, levels: int, bfs_rounds: int):
     """Engine-dispatched device flood on pre-quantized q; returns (labels,
     converged). `bfs_rounds` applies to the level engine only; the minimax
     engine budgets 2(h+w) rounds."""
-    if _ENGINE == "minimax":
-        h, w = q.shape[1:]
-        return _flood_minimax(q, markers, mask, levels, rounds=2 * (h + w))
-    return _flood(q, markers, mask, levels, bfs_rounds)
+    with profiling.span("watershed.flood", engine=_ENGINE) as sp:
+        if _ENGINE == "minimax":
+            h, w = q.shape[1:]
+            return _flood_minimax(q, markers, mask, levels, rounds=2 * (h + w),
+                                  stats=sp.attrs)
+        return _flood(q, markers, mask, levels, bfs_rounds, stats=sp.attrs)
 
 
 def _quantize_and_flood(image, markers, mask, levels: int, bfs_rounds: int):

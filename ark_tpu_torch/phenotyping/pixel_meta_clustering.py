@@ -129,7 +129,7 @@ def generate_meta_avg_files(fovs, channels, base_dir, pixel_cc,
         fovs, channels, base_dir, "pixel_meta_cluster", pixel_cc.max_k,
         data_dir, num_fovs_subset=num_fovs_subset, seed=seed, keep_count=True,
         table_source=table_source)
-    avg.to_csv(meta_cluster_avg_path, index=False)
+    feather.write_csv(avg, meta_cluster_avg_path, index=False)
 
     print("Mapping meta cluster values onto average channel expression across "
           "pixel SOM clusters")
@@ -138,7 +138,7 @@ def generate_meta_avg_files(fovs, channels, base_dir, pixel_cc,
         som_avg = som_avg.drop(columns="pixel_meta_cluster")
     som_avg["pixel_som_cluster"] = som_avg["pixel_som_cluster"].astype(int)
     som_avg = som_avg.merge(pixel_cc.mapping, on="pixel_som_cluster", how="left")
-    som_avg.to_csv(som_cluster_avg_path, index=False)
+    feather.write_csv(som_avg, som_cluster_avg_path, index=False)
 
 
 def update_pixel_meta_labels(pixel_data_path, pixel_remapped_dict,
@@ -248,7 +248,7 @@ def generate_remap_avg_files(fovs, channels, base_dir, pixel_data_dir,
         num_fovs_subset=num_fovs_subset, seed=seed, keep_count=True)
     meta_avg["pixel_meta_cluster_rename"] = \
         meta_avg["pixel_meta_cluster"].map(rename_dict)
-    meta_avg.to_csv(meta_cluster_avg_path, index=False)
+    feather.write_csv(meta_avg, meta_cluster_avg_path, index=False)
 
     print("Re-assigning meta cluster column in pixel SOM cluster average "
           "channel expression table")
@@ -257,4 +257,4 @@ def generate_remap_avg_files(fovs, channels, base_dir, pixel_data_dir,
         som_avg["pixel_som_cluster"].map(remap_dict)
     som_avg["pixel_meta_cluster_rename"] = \
         som_avg["pixel_meta_cluster"].map(rename_dict)
-    som_avg.to_csv(som_cluster_avg_path, index=False)
+    feather.write_csv(som_avg, som_cluster_avg_path, index=False)

@@ -193,4 +193,4 @@ def generate_som_avg_files(fovs, channels, base_dir, pixel_pysom,
         fovs, channels, base_dir, "pixel_som_cluster", expected,
         data_dir, num_fovs_subset=num_fovs_subset, seed=seed, keep_count=True,
         table_source=table_source)
-    avg.to_csv(som_cluster_avg_path, index=False)
+    feather.write_csv(avg, som_cluster_avg_path, index=False)

@@ -12,6 +12,11 @@ run the hand-written claim kernel. The device path falls back to the host
 flood only when a round budget reports non-convergence, as the reference
 does; ``Mesmer.host_fallbacks`` counts those fallbacks.
 
+Spans (``ark_tpu_torch.utils.profiling``): a ``mesmer.segment_fovs`` (or
+``mesmer.predict``) root, a ``mesmer.<phase>`` child with device events for
+each phase of the device path and its readback, and ``mesmer.host_post``
+with one ``mesmer.host_flood`` a FOV in the host postprocess's pool.
+
 Weights: an ``.npz`` checkpoint in the JAX package's format (its
 ``__config__`` names the architecture), an injected model, or seeded random
 init of the full published configuration.
@@ -32,6 +37,7 @@ from ark_tpu_torch.models import unet
 from ark_tpu_torch.ops import cc, morphology
 from ark_tpu_torch.ops import watershed as watershed_ops
 from ark_tpu_torch.ops.quantiles import masked_order_stats
+from ark_tpu_torch.utils import profiling
 
 # the reference's device deep-watershed parameters (mesmer.py:31-39)
 _DEVICE_WATERSHED_LEVELS = 256
@@ -126,6 +132,11 @@ class Mesmer:
             torch.cuda.synchronize(self.device)
         self.timings[name] = self.timings.get(name, 0.0) + time.perf_counter() - t0
 
+    def _span(self, name: str, **attrs):
+        """The phase's span, beside `_phase`: it times the phase by device
+        events and never synchronises."""
+        return profiling.span("mesmer." + name, device=self.device, **attrs)
+
     def _forward(self, xn: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The network on normalized (B, H, W, 2) f32; f32 models run with
         TF32 off."""
@@ -146,12 +157,12 @@ class Mesmer:
     def _segment_device(self, x: torch.Tensor, maxima_threshold: float):
         """Normalize, forward, and per compartment the inner distance, the
         foreground and the maxima, on the device."""
-        with self._phase("normalize"):
+        with self._span("normalize"), self._phase("normalize"):
             xn = _percentile_normalize(x)
-        with self._phase("forward"):
+        with self._span("forward"), self._phase("forward"):
             out = self._forward(xn)
         res = {}
-        with self._phase("maxima"):
+        with self._span("maxima"), self._phase("maxima"):
             for comp in COMPARTMENTS:
                 inner = out[f"{comp}_inner_distance"][..., 0]
                 res[comp] = {
@@ -169,18 +180,18 @@ class Mesmer:
         out = {}
         done = True
         for comp in COMPARTMENTS:
-            with self._phase("markers"):
+            with self._span("markers", comp=comp), self._phase("markers"):
                 markers, _, m_done = cc.label_batched_small(res[comp]["maxima"])
-            with self._phase("quantize"):
+            with self._span("quantize", comp=comp), self._phase("quantize"):
                 fgmask = res[comp]["foreground"] > _f32(
                     interior_threshold, res[comp]["foreground"].device)
                 q = watershed_ops._quantize(-res[comp]["inner"], fgmask,
                                             _DEVICE_WATERSHED_LEVELS)
-            with self._phase("flood"):
+            with self._span("flood", comp=comp), self._phase("flood"):
                 lab, w_done = watershed_ops.flood(
                     q, markers, fgmask, _DEVICE_WATERSHED_LEVELS,
                     _DEVICE_WATERSHED_BFS_ROUNDS)
-            with self._phase("area_filter"):
+            with self._span("area_filter", comp=comp), self._phase("area_filter"):
                 out[comp], a_ok = cc.area_filter_batched(
                     lab, min_area=min_cell_size, n_max=_MARKER_TABLE)
             done = done and m_done and w_done and a_ok
@@ -194,22 +205,24 @@ class Mesmer:
         import scipy.ndimage as ndi
 
         def postprocess_one(args):
-            inner_b, foreground_b, maxima_b = args
-            markers, _ = ndi.label(maxima_b)
-            mask = foreground_b > interior_threshold
-            lab = watershed_ops.watershed(-inner_b, markers, mask)
-            return morphology.remove_small_objects(lab, min_size=min_cell_size)
+            b, inner_b, foreground_b, maxima_b = args
+            with profiling.span("mesmer.host_flood", parent=post, fov=b):
+                markers, _ = ndi.label(maxima_b)
+                mask = foreground_b > interior_threshold
+                lab = watershed_ops.watershed(-inner_b, markers, mask)
+                return morphology.remove_small_objects(lab, min_size=min_cell_size)
 
         labels = {}
-        for comp in COMPARTMENTS:
-            inner = devres[comp]["inner"].cpu().numpy()
-            foreground = devres[comp]["foreground"].cpu().numpy()
-            maxima = devres[comp]["maxima"].cpu().numpy()
-            work = [(inner[b], foreground[b], maxima[b])
-                    for b in range(inner.shape[0])]
-            with concurrent.futures.ThreadPoolExecutor() as pool:
-                batch_labels = list(pool.map(postprocess_one, work))
-            labels[comp] = np.stack(batch_labels).astype(np.int32)
+        with profiling.span("mesmer.host_post") as post:
+            for comp in COMPARTMENTS:
+                inner = devres[comp]["inner"].cpu().numpy()
+                foreground = devres[comp]["foreground"].cpu().numpy()
+                maxima = devres[comp]["maxima"].cpu().numpy()
+                work = [(b, inner[b], foreground[b], maxima[b])
+                        for b in range(inner.shape[0])]
+                with concurrent.futures.ThreadPoolExecutor() as pool:
+                    batch_labels = list(pool.map(postprocess_one, work))
+                labels[comp] = np.stack(batch_labels).astype(np.int32)
         return labels
 
     def predict(self, batch: np.ndarray, maxima_threshold: float = 0.1,
@@ -223,12 +236,13 @@ class Mesmer:
         if postprocess not in ("host", "device"):
             raise ValueError(f"postprocess must be 'host' or 'device', "
                              f"got {postprocess!r}")
-        x = self._upload(batch)
-        if postprocess == "device":
-            return self._finish_device_post(self._dispatch_device_post(
-                x, maxima_threshold, interior_threshold, min_cell_size))
-        dev = self._segment_device(x, maxima_threshold)
-        return self._postprocess_device_out(dev, interior_threshold, min_cell_size)
+        with profiling.span("mesmer.predict", fovs=len(batch)):
+            x = self._upload(batch)
+            if postprocess == "device":
+                return self._finish_device_post(self._dispatch_device_post(
+                    x, maxima_threshold, interior_threshold, min_cell_size))
+            dev = self._segment_device(x, maxima_threshold)
+            return self._postprocess_device_out(dev, interior_threshold, min_cell_size)
 
     def _dispatch_device_post(self, x, maxima_threshold, interior_threshold,
                               min_cell_size):
@@ -244,7 +258,8 @@ class Mesmer:
         (counted in `host_fallbacks`)."""
         out, done, x, maxima_threshold, interior_threshold, min_cell_size = pending
         if done:
-            return {k: v.cpu().numpy().astype(np.int32) for k, v in out.items()}
+            with self._span("readback"):
+                return {k: v.cpu().numpy().astype(np.int32) for k, v in out.items()}
         self.host_fallbacks += 1
         dev = self._segment_device(x, maxima_threshold)
         return self._postprocess_device_out(dev, interior_threshold, min_cell_size)
@@ -278,19 +293,20 @@ def segment_fovs(fov_images: np.ndarray, weights_path: Optional[str] = None,
         whole.append(out["whole_cell"])
         nuc.append(out["nuclear"])
 
-    pending = None
-    for i in range(0, fov_images.shape[0], batch_size):
-        x = app._upload(fov_images[i:i + batch_size])
-        if postprocess == "device":
-            collect(app._finish_device_post(app._dispatch_device_post(
-                x, maxima_threshold, interior_threshold, min_cell_size)))
-            continue
-        dev = app._segment_device(x, maxima_threshold)
+    with profiling.span("mesmer.segment_fovs", fovs=fov_images.shape[0]):
+        pending = None
+        for i in range(0, fov_images.shape[0], batch_size):
+            x = app._upload(fov_images[i:i + batch_size])
+            if postprocess == "device":
+                collect(app._finish_device_post(app._dispatch_device_post(
+                    x, maxima_threshold, interior_threshold, min_cell_size)))
+                continue
+            dev = app._segment_device(x, maxima_threshold)
+            if pending is not None:
+                collect(app._postprocess_device_out(pending, interior_threshold,
+                                                    min_cell_size))
+            pending = dev
         if pending is not None:
             collect(app._postprocess_device_out(pending, interior_threshold,
                                                 min_cell_size))
-        pending = dev
-    if pending is not None:
-        collect(app._postprocess_device_out(pending, interior_threshold,
-                                            min_cell_size))
     return {"whole_cell": np.concatenate(whole), "nuclear": np.concatenate(nuc)}

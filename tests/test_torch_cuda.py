@@ -764,6 +764,41 @@ def test_trace_holds_cuda_kernel_events_on_cuda(card, tmp_path):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("device", [True, "cuda"])
+def test_device_span_reads_the_events_around_its_kernels_on_cuda(card, device, monkeypatch):
+    """A span given the card times a known run of kernels by its events,
+    within 10% of events recorded just outside it, and never synchronises."""
+    from ark_tpu_torch.utils import profiling
+
+    a = torch.randn(2048, 2048, device=card)
+    for _ in range(3):
+        a = torch.tanh(a @ a)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    real_sync = torch.cuda.synchronize
+
+    def no_sync(*args, **kwargs):
+        raise AssertionError("the span synchronised")
+    profiling.reset()
+    try:
+        monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
+        with profiling.recording():
+            start.record()
+            with profiling.span("matmuls", device=device):
+                for _ in range(40):
+                    a = torch.tanh(a @ a)
+            end.record()
+        monkeypatch.setattr(torch.cuda, "synchronize", real_sync)
+        torch.cuda.synchronize()
+        (got,) = profiling.spans()
+    finally:
+        profiling.reset()
+    want = start.elapsed_time(end)
+    assert want > 1.0
+    assert abs(got["device_ms"] - want) <= 0.1 * want, (got["device_ms"], want)
+
+
+@pytest.mark.cuda
 def test_prefetch_copies_on_its_own_stream_on_cuda(card):
     """Each result copied from pinned memory on the loader's stream reaches
     the consumer's stream, which works on it at once, equal to the host

@@ -1,0 +1,196 @@
+"""The spans of the two benchmarked paths, on the CPU.
+
+Template 2's `run_pixel_clustering` on tests/phenotyping/test_pixie_fused.py's
+cohort: one `pixie.run` root a call, each phase a child of it, the
+`timings` dict filled from the phase spans, one `pixie.load_fov` a FOV, and
+the `feather.write` bytes equal to the files left on disk. Template 1's
+`segment_fovs` on the in-repo checkpoint: one `mesmer.segment_fovs` root, a
+`mesmer.<phase>` span for each phase with its device (here the host's)
+milliseconds, and a `watershed.flood` whose `blocks` count the loops run
+(the minimax engine's two loops are its children, each with its count).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from ark_tpu_torch.ops import watershed as TW
+from ark_tpu_torch.phenotyping import pixie_fused
+from ark_tpu_torch.segmentation import mesmer as TM
+from ark_tpu_torch.segmentation import synthetic as TS
+from ark_tpu_torch.utils import profiling
+from tests.phenotyping.test_pixie_fused import CHANNELS, FOVS, MAX_K, _build_cohort
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CKPT = os.path.join(REPO, "ark_tpu", "models", "checkpoints", "mesmer_mini_synthetic.npz")
+PIXIE_PHASES = {"chan_percentiles": "chan_percentiles_s", "norm_sweep": "norm_sweep_s",
+                "subset_quantile": "subset_quantile_s", "som_train": "som_train_s",
+                "assign": "assign_write_s", "som_avg": "som_avg_s",
+                "consensus_meta_assign": "consensus_meta_assign_s",
+                "final_write": "final_write_s", "meta_avg": "meta_avg_s"}
+ASSIGN_PARTS = {"assign.d2h_wait": "assign_d2h_wait_s", "assign.flush": "assign_flush_s"}
+MESMER_PHASES = ("normalize", "forward", "maxima", "markers", "quantize", "flood",
+                 "area_filter", "readback")
+
+
+def _recorded(fn):
+    profiling.reset()
+    try:
+        with profiling.recording():
+            out = fn()
+        return out, profiling.spans()
+    finally:
+        profiling.reset()
+
+
+def _seconds(s):
+    return (s["end_ns"] - s["start_ns"]) / 1e9
+
+
+@pytest.fixture(scope="module")
+def pixie_run(tmp_path_factory):
+    base, tiff_dir, seg_dir = _build_cohort(tmp_path_factory.mktemp("spans"))
+    timings = {}
+    _, spans = _recorded(lambda: pixie_fused.run_pixel_clustering(
+        FOVS, CHANNELS, base, tiff_dir, seg_dir=seg_dir, img_sub_folder=None,
+        max_k=MAX_K, subset_proportion=0.5, timings=timings, device="cpu"))
+    return base, timings, spans
+
+
+def test_pixie_run_is_one_tree_with_a_child_a_phase(pixie_run):
+    _, _, spans = pixie_run
+    (root,) = [s for s in spans if s["parent"] is None]
+    assert root["name"] == "pixie.run" and root["attrs"] == {"fovs": len(FOVS)}
+    assert {s["root"] for s in spans} == {root["id"]}
+    ids = {s["id"] for s in spans}
+    assert all(s["parent"] in ids for s in spans if s is not root)
+    phases = {s["name"]: s for s in spans
+              if s["parent"] == root["id"] and s["name"] in PIXIE_PHASES}
+    assert set(phases) == set(PIXIE_PHASES)
+    for s in spans:
+        if s["name"] in ASSIGN_PARTS:
+            assert s["parent"] == phases["assign"]["id"]
+
+
+def test_pixie_timings_are_the_phase_spans(pixie_run):
+    """Every key the dict had, each the sum of its spans' seconds, rounded
+    to the dict's 3 places a span."""
+    _, timings, spans = pixie_run
+    keys = {**PIXIE_PHASES, **ASSIGN_PARTS}
+    assert set(timings) == set(keys.values())
+    for name, key in keys.items():
+        mine = [_seconds(s) for s in spans if s["name"] == name]
+        assert mine, name
+        assert abs(timings[key] - sum(mine)) <= 0.0005 * len(mine) + 1e-9, key
+    assert len([s for s in spans if s["name"] == "assign.flush"]) == len(FOVS)
+
+
+def test_pixie_loads_each_fov_once_under_its_span(pixie_run):
+    _, _, spans = pixie_run
+    loads = [s for s in spans if s["name"] == "pixie.load_fov"]
+    assert sorted(s["attrs"]["fov"] for s in loads) == sorted(FOVS)
+    by_id = {s["id"]: s for s in spans}
+    reads = [s for s in spans if s["name"] == "tiff.read"]
+    # the channel TIFFs are the loads' children; the masks are read apart
+    assert sum(by_id[s["parent"]]["name"] == "pixie.load_fov" for s in reads) \
+        == len(FOVS) * len(CHANNELS)
+    assert all(s["attrs"]["bytes"] > 0 for s in reads)
+
+
+def test_pixie_write_bytes_are_the_files_on_disk(pixie_run):
+    """The last write of each path holds the bytes the path holds now, and
+    every feather and CSV the run left was written in a span."""
+    base, _, spans = pixie_run
+    last = {}
+    for s in spans:
+        if s["name"] == "feather.write":
+            path = s["attrs"]["path"]
+            last[path[:-4] if path.endswith(".tmp") else path] = s["attrs"]["bytes"]
+    on_disk = {}
+    for d, _, files in os.walk(base):
+        for f in files:
+            if f.endswith((".feather", ".csv")):
+                on_disk[os.path.join(d, f)] = os.path.getsize(os.path.join(d, f))
+    assert on_disk and set(on_disk) == set(last)
+    assert sum(last.values()) == sum(on_disk.values())
+    assert all(last[p] == n for p, n in on_disk.items())
+
+
+@pytest.fixture(scope="module")
+def app():
+    return TM.Mesmer(weights_path=CKPT, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def fovs():
+    return TS.synthetic_cells(np.random.default_rng(3), 2, hw=64)[0]
+
+
+def _count(monkeypatch, name):
+    real = getattr(TW, name)
+    calls = []
+
+    def counted(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append(out)
+        return out
+    monkeypatch.setattr(TW, name, counted)
+    return calls
+
+
+def test_mesmer_call_is_one_tree_with_its_phases(app, fovs, monkeypatch):
+    sweeps = _count(monkeypatch, "_minimax_sweep")
+    refines = _count(monkeypatch, "_refine_round")
+    _, spans = _recorded(lambda: TM.segment_fovs(fovs, app=app, batch_size=2, device="cpu",
+                                                 postprocess="device"))
+    (root,) = [s for s in spans if s["parent"] is None]
+    assert root["name"] == "mesmer.segment_fovs" and root["attrs"] == {"fovs": 2}
+    assert {s["root"] for s in spans} == {root["id"]}
+    counts = {p: sum(s["name"] == f"mesmer.{p}" for s in spans) for p in MESMER_PHASES}
+    assert counts == {"normalize": 1, "forward": 1, "maxima": 1, "markers": 2, "quantize": 2,
+                      "flood": 2, "area_filter": 2, "readback": 1}
+    for s in spans:
+        if s["name"].startswith("mesmer.") and s is not root:
+            assert s["parent"] == root["id"]
+            assert s["device_ms"] == pytest.approx(_seconds(s) * 1e3)
+    by_id = {s["id"]: s for s in spans}
+    floods = [s for s in spans if s["name"] == "watershed.flood"]
+    assert len(floods) == 2
+    assert all(by_id[s["parent"]]["name"] == "mesmer.flood" for s in floods)
+    assert all(s["attrs"]["engine"] == "minimax" for s in floods)
+    loops = {name: [s for s in spans if s["name"] == name]
+             for name in ("watershed.relax", "watershed.relabel")}
+    for name, parts in loops.items():
+        assert sorted(by_id[s["parent"]]["id"] for s in parts) == sorted(s["id"] for s in floods)
+    assert sum(s["attrs"]["blocks"] for s in loops["watershed.relax"]) == len(sweeps) > 0
+    assert sum(s["attrs"]["blocks"] for s in loops["watershed.relabel"]) \
+        == len(refines) // TW._MINIMAX_BLOCK > 0
+    assert len(refines) % TW._MINIMAX_BLOCK == 0
+    for flood in floods:
+        assert flood["attrs"]["blocks"] == sum(s["attrs"]["blocks"] for s in spans
+                                               if s["parent"] == flood["id"])
+
+
+def test_level_flood_counts_its_claim_rounds(app, fovs, monkeypatch):
+    monkeypatch.setattr(TW, "_ENGINE", "levels")
+    runs = _count(monkeypatch, "claim_levels")
+    _, spans = _recorded(lambda: app.predict(fovs[:1], postprocess="device"))
+    floods = [s for s in spans if s["name"] == "watershed.flood"]
+    assert [s["attrs"]["engine"] for s in floods] == ["levels", "levels"]
+    assert sum(s["attrs"]["blocks"] for s in floods) == sum(r[2] for r in runs) > 0
+    (root,) = [s for s in spans if s["parent"] is None]
+    assert root["name"] == "mesmer.predict"
+
+
+def test_host_postprocess_hands_its_span_to_the_pool(app, fovs):
+    _, spans = _recorded(lambda: TM.segment_fovs(fovs, app=app, batch_size=2, device="cpu"))
+    (root,) = [s for s in spans if s["parent"] is None]
+    (post,) = [s for s in spans if s["name"] == "mesmer.host_post"]
+    floods = [s for s in spans if s["name"] == "mesmer.host_flood"]
+    assert post["parent"] == root["id"]
+    assert sorted(s["attrs"]["fov"] for s in floods) == [0, 0, 1, 1]
+    assert all(s["parent"] == post["id"] and s["root"] == root["id"] for s in floods)
