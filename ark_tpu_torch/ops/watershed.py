@@ -9,7 +9,14 @@ Two engines, chosen by the module global ``_ENGINE`` as in the reference:
 
 - ``"minimax"`` (the default): packed (value, label) relaxation of the
   minimax recurrence, accelerated by four directional scans per block, then a
-  breadth-first re-labeling over optimal edges (``_flood_minimax``).
+  breadth-first re-labeling over optimal edges (``_flood_minimax``). The
+  re-labeling is ``minimax_relabel``: on a CUDA tensor one launch of the
+  hand-written cooperative kernel in ``ark_tpu_torch/csrc/minimax_relabel.cu``
+  runs all its rounds on the card (where the plain loop made ~20 launches a
+  round and a synchronising comparison every 16) and is read back once; it
+  keeps the reference's rule of blocks of 16 rounds, and its rounds stay
+  synchronous, so labels, flag and block count are the plain loop's. On a
+  CPU tensor the plain loop of ``_refine_round`` blocks runs.
 - ``"levels"``: the level scan (``_flood``). For each of `levels` levels,
   claim rounds until a round changes nothing, at most `bfs_rounds` of them
   (phase A); if phase A did not converge, the level is finished exactly with
@@ -29,7 +36,9 @@ owns a tie.
 
 ``flood`` runs in a ``watershed.flood`` span: its ``engine``, and its
 ``blocks``: the minimax engine's relaxation and re-labeling blocks (each
-loop a child span with its own count), the level engine's claim rounds.
+loop a child span with its own count; the re-labeling's also with its
+``rounds`` and its ``engine``, "kernel" or "plain"), the level engine's
+claim rounds.
 """
 
 from __future__ import annotations
@@ -450,11 +459,133 @@ def _refine_round(newlab, pk, qs, lb: int, labm: int, claimable):
     return torch.where(take, cand, newlab)
 
 
+def _relabel_plain(lab0, pk, qs, lb: int, labm: int, claimable, n_blocks: int):
+    """The re-labeling's plain loop on any device: blocks of
+    ``_MINIMAX_BLOCK`` ``_refine_round`` rounds until a block changes
+    nothing, at most `n_blocks` blocks. Returns (labels, converged, blocks,
+    rounds run)."""
+    newlab = lab0
+    rdone = False
+    block = 0
+    for block in range(1, n_blocks + 1):
+        new = newlab
+        for _ in range(_MINIMAX_BLOCK):
+            new = _refine_round(new, pk, qs, lb, labm, claimable)
+        rdone = torch.equal(new, newlab)
+        newlab = new
+        if rdone:
+            break
+    return newlab, rdone, block, block * _MINIMAX_BLOCK
+
+
+def _relabel_blocks(rounds: int, converged: bool, n_blocks: int):
+    """(blocks, converged) as ``_relabel_plain`` reports them, from the
+    rounds a run that stops at the first round changing nothing ran and
+    whether that round came. Labels only go from 0 to a label, so a block
+    changes nothing iff its first round does: the plain loop ends with the
+    block that holds that round if the round opens it, else with the next
+    block, unless the budget of `n_blocks` ends first (then the last block
+    changed labels and the flag is False)."""
+    if not converged:
+        return n_blocks, False
+    block = -(-rounds // _MINIMAX_BLOCK)
+    if (rounds - 1) % _MINIMAX_BLOCK == 0:
+        return block, True
+    if block < n_blocks:
+        return block + 1, True
+    return block, False
+
+
+def minimax_relabel(lab0, pk, qs, lb: int, labm: int, claimable, n_blocks: int):
+    """The minimax flood's re-labeling from first labels `lab0` over the
+    relaxed keys `pk` and shifted heights `qs` ((B, H, W) int32; `claimable`
+    bool): the CUDA kernel for CUDA tensors, ``_relabel_plain`` for CPU
+    ones, in a ``watershed.relabel`` span with the plain loop's `blocks`,
+    the `rounds` run and the `engine` that ran them ("kernel" or "plain").
+    Returns (labels, converged, blocks, rounds run) with the labels, flag
+    and blocks of ``_relabel_plain``, bit for bit. On CUDA tensors it makes
+    one cooperative launch of ``ark_minimax_relabel_launch`` on the current
+    stream, reads its status back once and raises if the launch is refused;
+    it never falls back. ``minimax_relabel.launches`` counts kernel
+    launches, ``minimax_relabel.rounds`` the rounds run on either device."""
+    with profiling.span("watershed.relabel") as span:
+        if lab0.device.type == "cpu":
+            out, engine = _relabel_plain(lab0, pk, qs, lb, labm, claimable, n_blocks), "plain"
+        else:
+            _check_relabel_operands(lab0, pk, qs, claimable)
+            lab0, pk, qs, claimable = (t.contiguous() for t in (lab0, pk, qs, claimable))
+            bufs, status = _launch_relabel(lab0, pk, qs, lb, labm, claimable, n_blocks)
+            rounds, which, converged = status.tolist()
+            blocks, rdone = _relabel_blocks(rounds, bool(converged), n_blocks)
+            out, engine = (bufs[which], rdone, blocks, rounds), "kernel"
+        span.attrs.update(engine=engine, blocks=out[2], rounds=out[3])
+    _relabel_counts.rounds += out[3]
+    return out
+
+
+def _check_relabel_operands(lab0, pk, qs, claimable):
+    """Refuse what the re-labeling kernel does not take: operands off one
+    CUDA device, dtypes other than int32 labels, keys and heights and a bool
+    mask, shapes that are not one (B, H, W)."""
+    if lab0.device.type != "cuda" or any(t.device != lab0.device
+                                         for t in (pk, qs, claimable)):
+        raise ValueError(f"minimax_relabel: labels on {lab0.device}, keys on "
+                         f"{pk.device}, heights on {qs.device}, claimable on "
+                         f"{claimable.device}; the kernel takes all on one CUDA device")
+    if {lab0.dtype, pk.dtype, qs.dtype} != {torch.int32} \
+            or claimable.dtype != torch.bool:
+        raise TypeError(f"minimax_relabel: the kernel takes int32 labels, keys and "
+                        f"heights and a bool mask, got {lab0.dtype}, {pk.dtype}, "
+                        f"{qs.dtype}, {claimable.dtype}")
+    if lab0.ndim != 3 or not pk.shape == qs.shape == claimable.shape == lab0.shape:
+        raise ValueError(f"minimax_relabel: (B, H, W) operands of one shape expected, "
+                         f"got {[tuple(t.shape) for t in (lab0, pk, qs, claimable)]}")
+
+
+def _launch_relabel(lab0, pk, qs, lb: int, labm: int, claimable, n_blocks: int):
+    """One launch of the re-labeling kernel on checked, contiguous CUDA
+    operands, on the current stream, without synchronising: returns (its
+    two label buffers, its status: the rounds run, which buffer holds the
+    labels, 1 if the last round changed nothing), and counts the launch in
+    ``minimax_relabel.launches``."""
+    b, h, w = lab0.shape
+    bufs = (torch.empty_like(lab0), torch.empty_like(lab0))
+    edges = torch.empty(lab0.shape, dtype=torch.uint8, device=lab0.device)
+    # three changed flags, then the status
+    scratch = torch.zeros(6, dtype=torch.int32, device=lab0.device)
+    lib = _kernels.lib("minimax_relabel")
+    with torch.cuda.device(lab0.device):
+        stream = torch.cuda.current_stream(lab0.device).cuda_stream
+        err = lib.ark_minimax_relabel_launch(
+            lab0.data_ptr(), pk.data_ptr(), qs.data_ptr(), claimable.data_ptr(), int(lb),
+            int(labm), _MINIMAX_BLOCK * int(n_blocks), b, h, w, edges.data_ptr(),
+            bufs[0].data_ptr(), bufs[1].data_ptr(), scratch.data_ptr(),
+            scratch[3:].data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"re-labeling kernel launch failed: "
+                           f"{lib.ark_minimax_relabel_error_string(err).decode()} ({err})")
+    _relabel_counts.launches += 1
+    return bufs, scratch[3:]
+
+
+minimax_relabel.launches = 0
+minimax_relabel.rounds = 0
+# the counters' owner under a name of its own, as `_levels_counts`: a stand-in
+# patched over `minimax_relabel` keeps its own counts
+_relabel_counts = minimax_relabel
+
+
 def _flood_minimax(q, markers, mask, levels: int, rounds: int, stats=None):
     """Minimax flood on pre-quantized q; returns (labels, converged). The
-    relaxation's blocks run in a ``watershed.relax`` span, the re-labeling's
-    in a ``watershed.relabel`` span, each with its `blocks`; `stats`, a
-    dict, gets the two counts' sum as `blocks`."""
+    relaxation's blocks run in a ``watershed.relax`` span with its `blocks`;
+    the re-labeling (``minimax_relabel``: one kernel launch on CUDA tensors,
+    the plain loop of ``_refine_round`` blocks on CPU ones) in its
+    ``watershed.relabel`` span with the plain loop's `blocks`, the `rounds`
+    run and the `engine` that ran them; `stats`, a dict, gets the
+    two block counts' sum as `blocks`. The kernel keeps the plain loop's
+    rule of blocks of ``_MINIMAX_BLOCK`` rounds (see
+    ``csrc/minimax_relabel.cu``), and its rounds stay synchronous, so the
+    labels, flag and blocks are the plain loop's."""
     lb = _label_bits(levels)
     labm = (1 << lb) - 1
     lab0 = torch.where((markers > 0) & mask, markers.to(torch.int32), 0)
@@ -479,21 +610,10 @@ def _flood_minimax(q, markers, mask, levels: int, rounds: int, stats=None):
                 break
         relax.attrs["blocks"] = block
 
-    newlab = lab0
-    rdone = False
-    block = 0
-    with profiling.span("watershed.relabel") as relabel:
-        for block in range(1, n_blocks + 1):
-            new = newlab
-            for _ in range(_MINIMAX_BLOCK):
-                new = _refine_round(new, pk, qs, lb, labm, claimable)
-            rdone = torch.equal(new, newlab)
-            newlab = new
-            if rdone:
-                break
-        relabel.attrs["blocks"] = block
+    newlab, rdone, relabel_blocks, _ = minimax_relabel(lab0, pk, qs, lb, labm, claimable,
+                                                       n_blocks)
     if stats is not None:
-        stats["blocks"] = relax.attrs["blocks"] + relabel.attrs["blocks"]
+        stats["blocks"] = relax.attrs["blocks"] + relabel_blocks
     lab = torch.where(pk == _LAB_SENTINEL, 0, newlab)
     # labels must fit the packed key's label field; an overflow folds into
     # the flag so callers take their certified fallback

@@ -21,7 +21,11 @@ started together) and drives these paths on the card:
   device postprocess under both flood engines on the benchmark's 8 x 512^2
   and 3 x 1024^2 cohorts (rounds and launches a flood), the level flood with
   the kernels against the same flood with both plain versions, at 32, 1 and
-  0 rounds a level, and a small cohort's CPU and CUDA runs;
+  0 rounds a level, the minimax flood's re-labeling kernel against its
+  plain loop on the operands of the 3 x 1024^2 cohort's floods and of two
+  4 x 1024^2 cell-like reliefs, one crossing a plateau in as many rounds as
+  the benchmark's floods (at the flood's budget and at 1 and 3 blocks;
+  timed with its bound), and a small cohort's CPU and CUDA runs;
 - template 1's cell table and template 3's cell clustering: the segment
   plan and segment-sum kernels against their plain versions (the sums
   against index_add_ on a CPU copy) and against themselves, on dense
@@ -459,6 +463,42 @@ def planted_cohorts():
             np.random.default_rng(0), 3, hw=1024, n_cells=(900, 1000),
             crowding=0.35)[0], 3),
     }
+
+
+def cell_relief(b, h, w, seed, device=None, crossing=False):
+    """(levels, markers, mask) of a cell-like relief on `device` (DEVICE by
+    default), from `seed`: a smooth random field (uniform noise under three
+    11 x 11 box filters), a marker at each local maximum (5 x 5) above the
+    field's mean, 256 levels of the negated field over the mask. The mask
+    is where the field lies above its mean (72 re-labeling rounds at
+    4 x 1024^2 from seed 7, 56% of the 4-pixel chunks with bits); or,
+    `crossing`, the whole image, the field flat at its mean below it (a
+    plateau at the top level around the cells) and markers only in each
+    image's left fifth, so the labels cross the plateau in over 1,000
+    rounds, as in the segmentation cell's floods (1,852 at 4 x 1024^2 from
+    seed 7; the cell's 1,122 and 1,271), every pixel with bits."""
+    import torch
+    import torch.nn.functional as F
+
+    from ark_tpu_torch.ops import watershed
+
+    device = DEVICE if device is None else device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand((b, 1, h, w), generator=gen, device=device)
+    for _ in range(3):
+        x = F.avg_pool2d(x, 11, stride=1, padding=5, count_include_pad=False)
+    peak = (x == F.max_pool2d(x, 5, stride=1, padding=2))[:, 0]
+    x = x[:, 0]
+    mean = x.mean()
+    mask = x > mean
+    seeds = peak & mask
+    if crossing:
+        mask = torch.ones_like(mask)
+        x = torch.maximum(x, mean)
+        seeds[..., max(w // 5, 1):] = False
+    seeds = seeds.reshape(-1)
+    markers = torch.where(seeds, torch.cumsum(seeds, 0, dtype=torch.int32), 0)
+    return watershed._quantize(-x, mask, 256), markers.reshape(b, h, w), mask
 
 
 def cohort_relief(app, fovs):
@@ -1005,10 +1045,12 @@ def run_device_postprocess(cohorts):
     """Phase 8: segment_fovs(postprocess='device') with the trained mini
     checkpoint on the benchmark's cohorts, under each flood engine, with the
     level engine's launches of the level-scan kernel, its rounds and phase
-    B's one-round launches per flood. Returns those counts ({"launches",
-    "rounds", "round_launches"}) in the level engine's run of the first
-    cohort, the Mesmer, and each cohort's masks under the default (minimax)
-    engine."""
+    B's one-round launches per flood, and the minimax engine's launches of
+    the re-labeling kernel (one a flood) and its rounds. Returns the level
+    engine's counts ({"launches", "rounds", "round_launches"}) in its run
+    of the first cohort, the minimax engine's ({cohort: {"launches",
+    "rounds", "floods"}}), the Mesmer, and each cohort's masks under the
+    default (minimax) engine."""
     import torch
 
     from ark_tpu_torch.ops import som, watershed
@@ -1019,6 +1061,7 @@ def run_device_postprocess(cohorts):
     mesmer.segment_fovs(cohorts[first][0][:1], app=app, device=DEVICE,
                         postprocess="device")                        # warm-up
     claim_counts = None
+    relabel_counts = {}
     masks = {}
     for name, (fovs, batch) in cohorts.items():
         labels = {}
@@ -1029,6 +1072,7 @@ def run_device_postprocess(cohorts):
             som.bmu.launches = 0
             watershed.claim_levels.launches = watershed.claim_levels.rounds = 0
             watershed.claim_round.launches = 0
+            watershed.minimax_relabel.launches = watershed.minimax_relabel.rounds = 0
             t0 = time.perf_counter()
             out = mesmer.segment_fovs(fovs, app=app, batch_size=batch,
                                       device=DEVICE, postprocess="device")
@@ -1037,6 +1081,14 @@ def run_device_postprocess(cohorts):
             counts = {"launches": watershed.claim_levels.launches,
                       "rounds": watershed.claim_levels.rounds,
                       "round_launches": watershed.claim_round.launches}
+            relabel = {"launches": watershed.minimax_relabel.launches,
+                       "rounds": watershed.minimax_relabel.rounds, "floods": floods}
+            check(relabel["launches"] == (floods if engine == "minimax" else 0)
+                  and (relabel["rounds"] > 0) == (engine == "minimax"),
+                  f"{name} {engine}: re-labeling kernel launches and rounds {relabel}, "
+                  f"{floods} floods")
+            if engine == "minimax":
+                relabel_counts[name] = relabel
             check(app.host_fallbacks == 0,
                   f"{name} {engine}: {app.host_fallbacks} host fallbacks")
             check((counts["launches"] > 0) == (engine == "levels")
@@ -1062,6 +1114,9 @@ def run_device_postprocess(cohorts):
                   f"{counts['round_launches']}, instances per FOV {per_fov}; "
                   f"phases (synchronised run, s): "
                   + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+            if engine == "minimax":
+                print(f"e2e {name} minimax: {floods} floods, {relabel['launches']} "
+                      f"re-labeling launches of {relabel['rounds']} rounds in all")
             if engine == "levels":
                 print(f"e2e {name} levels: {floods} floods, per flood "
                       f"{counts['rounds'] / floods:.1f} phase-A rounds in "
@@ -1084,7 +1139,7 @@ def run_device_postprocess(cohorts):
                   f"a share {differ:.3g} of pixels (filtered tie cells)")
         masks[name] = labels["minimax"]
     watershed._ENGINE = "minimax"
-    return claim_counts, app, masks
+    return claim_counts, relabel_counts, app, masks
 
 
 # round budgets of phase 9's level floods: the main path's, then budgets
@@ -1154,6 +1209,147 @@ def compare_level_flood(relief):
                 print(f"level flood {comp}: coverage == the minimax flood's")
     check(round_launches > 0, "level floods: phase B's one-round kernel never launched")
     return round_launches
+
+
+# re-labeling budgets of phase 9b beside the flood's own: 1 block ends before
+# every flood's re-labeling converges (flag False, the partial labels
+# compared), 3 before the cell-like reliefs'
+RELABEL_BUDGETS = (1, 3)
+# phase 9b's cell-like reliefs at the segmentation cell's batch shape; the
+# crossing one runs as many rounds as that cell's floods, and its timings go
+# into the kernels line
+RELABEL_CELL_LIKE = (4, 1024, 1024)
+RELABEL_TIMED = "4x1024 crossing"
+
+
+def relabel_operands(q, markers, fgmask):
+    """The re-labeling's operands as ``_flood_minimax`` hands them to
+    ``minimax_relabel`` after its relaxation on `q`'s device (256 levels,
+    the main path's budget of 2 (H + W) rounds): (first labels, keys,
+    shifted heights, label bits, label mask, claimable, blocks), and that
+    flood's (labels, converged)."""
+    from ark_tpu_torch.ops import watershed
+
+    got = []
+    real = watershed.minimax_relabel
+
+    def capture(*args):
+        got.append(args)
+        return real(*args)
+
+    watershed.minimax_relabel = capture
+    try:
+        h, w = q.shape[1:]
+        flood = watershed._flood_minimax(q, markers, fgmask, 256, 2 * (h + w))
+    finally:
+        watershed.minimax_relabel = real
+    return got[0], flood
+
+
+def relabel_chunks(pk, qs, lb, labm, claimable):
+    """Chunks of 4 consecutive pixels of the flat stack (the kernel's unit
+    of work) that hold a pixel with a bit: a claimable pixel with a key and
+    a neighbour whose exit value equals its value. Only those chunks are
+    written in a round."""
+    import torch
+    import torch.nn.functional as F
+
+    from ark_tpu_torch.ops import watershed
+
+    h, w = pk.shape[1:]
+    v = pk >> lb
+    exitv = F.pad(watershed._lift(pk, qs, labm) >> lb, (1, 1, 1, 1), value=-1)
+    hit = ((exitv[:, :h, 1:w + 1] == v) | (exitv[:, 2:, 1:w + 1] == v)
+           | (exitv[:, 1:h + 1, :w] == v) | (exitv[:, 1:h + 1, 2:] == v))
+    bits = (hit & claimable & (pk != watershed._LAB_SENTINEL)).reshape(-1)
+    pad = -bits.numel() % 4
+    bits = torch.cat([bits, bits.new_zeros(pad)]) if pad else bits
+    return int(bits.reshape(-1, 4).any(1).sum())
+
+
+def relabel_bound_ms(n, chunks, rounds):
+    """(ms, the binding term) of the re-labeling kernel's own traffic over
+    `n` pixels in `rounds` rounds, `chunks` of its 4-pixel chunks holding
+    bits: the first phase's reads (labels, keys, heights, mask: 13 B a
+    pixel) and writes (bits and both label buffers: 9 B) once at HBM speed;
+    every round's reads of every pixel's bits and labels (5 B) and writes
+    of every chunk with bits (16 B) at the L2 rate; a grid barrier a round.
+    This is the design's traffic, not what the re-labeling needs: after the
+    first rounds only a thin frontier still waits for a label."""
+    return bound_ms(nbytes=22.0 * n, l2_bytes=rounds * (5.0 * n + 16.0 * chunks),
+                    barriers=rounds)
+
+
+def check_relabel_kernel(floods):
+    """Phase 9b: the minimax flood's re-labeling kernel against its plain
+    loop on the card, on the operands each minimax flood of `floods`
+    ({name: (levels, markers, mask)}: a cohort's compartments from
+    ``cohort_relief``, ``cell_relief``s) hands it after its relaxation:
+    ``minimax_relabel`` against ``_relabel_plain`` bitwise in labels, flag
+    and blocks at the flood's budget and at RELABEL_BUDGETS blocks, one
+    launch a call, its operands unwritten; then at the flood's budget
+    timed: events around a call (its status read back), events around the
+    launch alone, the plain loop, and the bound of ``relabel_bound_ms``.
+    Returns (max |label difference|, the launches it checked, {name:
+    timings})."""
+    import torch
+
+    from ark_tpu_torch.ops import watershed
+
+    max_err, checked, timing = 0, 0, {}
+    for comp, (q, markers, fgmask) in floods.items():
+        (*ops, n_blocks), flood = relabel_operands(q, markers, fgmask)
+        check(flood[1], f"re-labeling {comp}: the minimax flood did not converge")
+        tensors = [t for t in ops if isinstance(t, torch.Tensor)]
+        saved = [t.clone() for t in tensors]
+        runs = []
+        for budget in (n_blocks, *RELABEL_BUDGETS):
+            before = watershed.minimax_relabel.launches
+            got = watershed.minimax_relabel(*ops, budget)
+            check(watershed.minimax_relabel.launches == before + 1,
+                  f"re-labeling {comp}, {budget} blocks: not one launch a call")
+            checked += 1
+            want = watershed._relabel_plain(*ops, budget)
+            max_err = max(max_err, int((got[0].to(torch.int64)
+                                        - want[0].to(torch.int64)).abs().max()))
+            check(torch.equal(got[0], want[0]) and got[1:3] == want[1:3],
+                  f"re-labeling {comp}, {budget} blocks: the kernel (flag {got[1]}, "
+                  f"{got[2]} blocks) and the plain loop ({want[1]}, {want[2]}) disagree, "
+                  f"{int((got[0] != want[0]).sum())} labels differ")
+            check(all(torch.equal(a, b) for a, b in zip(tensors, saved)),
+                  f"re-labeling {comp}: the kernel wrote into its operands")
+            runs.append(f"{budget}: flag {got[1]}, {got[2]} blocks, {got[3]} rounds")
+            if budget == n_blocks:
+                main = got
+        print(f"re-labeling {comp} {tuple(q.shape)}: labels, flag and blocks equal to the "
+              f"plain loop, operands unwritten (budget in blocks: " + "; ".join(runs) + ")")
+        launch_ops = [t.contiguous() if isinstance(t, torch.Tensor) else t for t in ops]
+        kernel = lambda: watershed.minimax_relabel(*ops, n_blocks)           # noqa: E731
+        launch = lambda: watershed._launch_relabel(*launch_ops, n_blocks)    # noqa: E731
+        plain = lambda: watershed._relabel_plain(*ops, n_blocks)             # noqa: E731
+        n, rounds = main[0].numel(), main[3]
+        chunks = relabel_chunks(*ops[1:6])
+        bound, bound_by = relabel_bound_ms(n, chunks, rounds)
+        t = {"shape": tuple(q.shape), "blocks": main[2], "rounds": rounds,
+             "chunks_with_bits": chunks,
+             "ms": time_ms(kernel, reps=5), "device_ms": time_ms(launch, reps=5),
+             "plain_ms": time_ms(plain, reps=3), "bound_ms": bound, "bound_by": bound_by,
+             "bound_terms": {
+                 "hbm_ms": bound_ms(nbytes=22.0 * n)[0],
+                 "l2_ms": bound_ms(l2_bytes=rounds * (5.0 * n + 16.0 * chunks))[0],
+                 "barrier_ms": bound_ms(barriers=rounds)[0]}}
+        timing[comp] = t
+        print(f"re-labeling {comp} {t['shape']} ({t['blocks']} blocks, {rounds} kernel "
+              f"rounds, {chunks} of {-(-n // 4)} chunks with bits): kernel (1 launch) "
+              f"{t['ms']:.4f} ms (events around the call, median of 5), "
+              f"{t['device_ms']:.4f} ms (events around the launch alone); plain loop "
+              f"{t['plain_ms']:.4f} ms; bound of the design's traffic {bound:.4f} ms "
+              f"({bound_by}; HBM {t['bound_terms']['hbm_ms']:.4f}, L2 "
+              f"{t['bound_terms']['l2_ms']:.4f}, barriers "
+              f"{t['bound_terms']['barrier_ms']:.4f}), share "
+              f"{share(bound, t['ms']):.2f} of the call, "
+              f"{share(bound, t['device_ms']):.2f} of the launch [{CARD}]")
+    return max_err, checked, timing
 
 
 def compare_segmentation_cpu_cuda():
@@ -1993,7 +2189,8 @@ def run_spatial_stage(table, name, target, reference, replay_fovs=None):
     from ark_tpu_torch.ops import segment_reduce, som, watershed
 
     counters = (som.bmu, watershed.claim_round, watershed.claim_levels,
-                segment_reduce.segment_sum, segment_reduce.segment_plan)
+                watershed.minimax_relabel, segment_reduce.segment_sum,
+                segment_reduce.segment_plan)
     fovs = list(table["fov"].unique())
     with tempfile.TemporaryDirectory() as base:
         for fn in counters:
@@ -2031,7 +2228,7 @@ def run_spatial_stage(table, name, target, reference, replay_fovs=None):
           f"waiting for distances {split['distances_s']:.4f} s; every step equal to "
           f"the CPU port's on {len(held_fovs)} FOVs, {len(held)} cells (CPU run "
           f"{cpu_s:.3f} s); kernel launches (bmu, claim round, level scan, "
-          f"segment_sum, segment_plan) {launches}")
+          f"re-labeling, segment_sum, segment_plan) {launches}")
     print(f"spatial stage {name}: device busy {busy_s:.4f} s of the {total:.3f} s "
           f"stage ({busy_s / total:.1%}, profiled run); most device time: "
           + "; ".join(f"{k} {v:.4f} s" for k, v in top))
@@ -3711,12 +3908,13 @@ def check_trace(pool):
 def run_single_card_modules():
     """Phase (m), which launches none of the port's kernels (checked).
     Returns the timings of (m1)-(m3), (m4)'s kernel events and the kernel
-    counts it read: [bmu, claim round, level scan, segment sum, segment
-    plan]."""
+    counts it read: [bmu, claim round, level scan, re-labeling, segment
+    sum, segment plan]."""
     from ark_tpu_torch.ops import segment_reduce, som, watershed
 
     counters = (som.bmu, watershed.claim_round, watershed.claim_levels,
-                segment_reduce.segment_sum, segment_reduce.segment_plan)
+                watershed.minimax_relabel, segment_reduce.segment_sum,
+                segment_reduce.segment_plan)
     for fn in counters:
         fn.launches = 0
     parts = {}
@@ -4034,7 +4232,8 @@ UMAP_F64_ULPS = 64
 # hold the split exactly (equal halves on 2 ranks, bitwise 1 rank on one)
 MESMER_GRAD_RTOL = 1e-3
 BITWISE_STAGES = ("pixel", "quant", "enrichment", "flood", "fiber")
-COUNTED_KERNELS = ("bmu", "claim_round", "claim_levels", "segment_sum", "segment_plan")
+COUNTED_KERNELS = ("bmu", "claim_round", "claim_levels", "minimax_relabel", "segment_sum",
+                   "segment_plan")
 
 
 def multi_gpu_inputs(pixel, app, flood_fovs, dense, quant, spatial, lda_out, fiber_fov,
@@ -4384,12 +4583,14 @@ def run_multi_gpu(inp):
               for k in COUNTED_KERNELS}
     # the one-round kernel runs only in phase B, which 32 rounds a level may
     # never need; each FOV's level flood is one level-scan launch, and one
-    # more after each phase B short of the last level
+    # more after each phase B short of the last level; each FOV's minimax
+    # flood is one re-labeling launch
     floods = len(runs) * len(inp["flood_elev"])
     check(all(v > 0 for k, v in totals.items() if k != "claim_round")
-          and floods <= totals["claim_levels"] <= floods + totals["claim_round"],
-          f"multi-GPU: a kernel of the sharded paths never launched, or the level "
-          f"floods' launches ({floods} floods) do not add up: {totals}")
+          and floods <= totals["claim_levels"] <= floods + totals["claim_round"]
+          and totals["minimax_relabel"] == floods,
+          f"multi-GPU: a kernel of the sharded paths never launched, or the "
+          f"floods' launches ({floods} floods an engine) do not add up: {totals}")
     return totals
 
 
@@ -4444,8 +4645,13 @@ def main() -> int:
     claim_err, claim_timing, scan_err, scan_timing = check_claim_kernel(
         np.random.default_rng(43), reliefs)
     run_full_width_template()
-    claim_counts, app, masks = run_device_postprocess(cohorts)
+    claim_counts, relabel_counts, app, masks = run_device_postprocess(cohorts)
     flood_round_launches = compare_level_flood(reliefs["8x512"])
+    relabel_floods = {f"3x1024 {comp}": r for comp, r in reliefs["3x1024"].items()}
+    relabel_floods["4x1024 cell-like"] = cell_relief(*RELABEL_CELL_LIKE, seed=7)
+    relabel_floods[RELABEL_TIMED] = cell_relief(*RELABEL_CELL_LIKE, seed=7, crossing=True)
+    relabel_err, relabel_checked, relabel_timing = check_relabel_kernel(relabel_floods)
+    del relabel_floods
     del relief_app, reliefs
     compare_segmentation_cpu_cuda()
 
@@ -4508,8 +4714,8 @@ def main() -> int:
 
     # the last single-card modules: single-image labeling, the bisection
     # quantiles, the prefetch loader and the profiler's trace
-    (bmu_m_launches, claim_m_launches, claim_levels_m_launches, seg_m_launches,
-     plan_m_launches) = run_single_card_modules()[-1]
+    (bmu_m_launches, claim_m_launches, claim_levels_m_launches, relabel_m_launches,
+     seg_m_launches, plan_m_launches) = run_single_card_modules()[-1]
     section_done("single-card modules")
 
     # the templates' file entry points: templates 1 -> 3 -> spatial, fiber and
@@ -4529,6 +4735,8 @@ def main() -> int:
     claim_ms = claim_timing[CLAIM_TIMED[0]]
     scan_ms = scan_timing["8x512"]
     seg_ms = seg_timing[4 + N_QUANT_CHANNELS]
+    relabel_ms = relabel_timing[RELABEL_TIMED]
+    relabel_main = relabel_counts["3x1024"]
     print(json.dumps({"kernels": [{
         "name": "bmu", "route": "cuda", "source": "ark_tpu_torch/csrc/bmu.cu",
         "replaces": "ark_tpu/ops/som.py:132", "launches": bmu_launches,
@@ -4571,6 +4779,26 @@ def main() -> int:
             "plain_ms",
             "bound_ms", "bound_by", "bound_terms")}
             for name, t in scan_timing.items()}}, {
+        "name": "relabel_kernel", "route": "cuda",
+        "source": "ark_tpu_torch/csrc/minimax_relabel.cu",
+        "replaces": "ark_tpu/ops/watershed.py:482-500",
+        "launches": relabel_main["launches"],
+        "launches_by_path": {"segmentation": sum(c["launches"]
+                                                 for c in relabel_counts.values()),
+                             "relabel_check": relabel_checked,
+                             "single_card_modules": relabel_m_launches,
+                             "multi_gpu": multi["minimax_relabel"]},
+        "rounds": relabel_main["rounds"],
+        "max_abs_err": relabel_err, "ms": relabel_ms["ms"],
+        "device_ms": relabel_ms["device_ms"], "plain_ms": relabel_ms["plain_ms"],
+        "bound_ms": relabel_ms["bound_ms"],
+        "bound_by": "operations" if relabel_ms["bound_by"] == "barriers" else "bytes",
+        "bound_term": f"{relabel_ms['bound_by']} of the design's own traffic",
+        "library_ms": None,
+        "by_shape": {comp: {k: t[k] for k in (
+            "shape", "blocks", "rounds", "chunks_with_bits", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "bound_terms")}
+            for comp, t in relabel_timing.items()}}, {
         "name": "segment_sum", "route": "cuda",
         "source": "ark_tpu_torch/csrc/segment_sum.cu",
         "replaces": "ark_tpu/ops/segment_reduce.py:44", "launches": seg_launches,

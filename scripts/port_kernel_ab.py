@@ -3,6 +3,25 @@ same kernel on one CUDA card, with the card constants its bound rests on.
 
     python3 scripts/port_kernel_ab.py --old-csrc DIR [--kernel segment_sum] [--out FILE]
     python3 scripts/port_kernel_ab.py --old-csrc DIR --kernel claim [--out FILE]
+    python3 scripts/port_kernel_ab.py --kernel relabel [--out FILE]
+
+``--kernel relabel``: the minimax flood's re-labeling as one launch of the
+kernel in ``csrc/minimax_relabel.cu`` against the loop of ``_refine_round``
+blocks that ran before it (``watershed._relabel_plain`` on the same CUDA
+tensors: ~20 launches a round and a synchronising comparison every 16
+rounds). Its operands are the smoke's phase 9b's (``chip_smoke``): the
+floods of phase 8's planted 3 x 1024^2 cohort (``cohort_relief``, the mini
+checkpoint's relief of each compartment, ~10-25 rounds a flood) and a
+4 x 1024^2 cell-like relief whose labels cross a plateau in as many rounds
+as the benchmark's segmentation floods run (``cell_relief(crossing=True)``,
+over 1,000 rounds), each flood captured after its relaxation
+(``relabel_operands``). Each is timed in turns (plain,
+kernel, kernel, plain) by events around a call and by the profiler's device
+time, with the bound of the kernel's own per-round traffic
+(``chip_smoke.relabel_bound_ms``); and the whole flood (``_flood_minimax``,
+host clock with a synchronise) with each, beside the level engine's flood
+(``_flood``, 32 rounds a level) on the same relief. Both are checked bitwise
+against the plain loop: labels, flag and blocks.
 
 ``--kernel claim``: DIR holds the earlier ``watershed_claim.cu`` (for example
 ``git archive c792996 ark_tpu_torch/csrc | tar -x -C D`` and DIR =
@@ -583,6 +602,77 @@ def claim_like(q):
     return claim_inputs(np.random.default_rng(60), tuple(q.shape))[0]
 
 
+def relabel_ab(args):
+    import torch
+
+    from ark_tpu_torch.ops import _kernels, watershed
+    from ark_tpu_torch.segmentation import mesmer
+    from chip_smoke import (CKPT, RELABEL_CELL_LIKE, RELABEL_TIMED, cell_relief,
+                            cohort_relief, device_ms, gpu_name_and_power,
+                            planted_cohorts, relabel_bound_ms, relabel_chunks,
+                            relabel_operands, time_ms, wall_ms)
+
+    card = gpu_name_and_power()
+    print(card)
+    _kernels.build_all()
+    app = mesmer.Mesmer(weights_path=CKPT, device="cuda")
+    floods = {f"3x1024 {comp}": r for comp, r in
+              cohort_relief(app, planted_cohorts()["3x1024"][0]).items()}
+    floods[RELABEL_TIMED] = cell_relief(*RELABEL_CELL_LIKE, seed=7, device="cuda",
+                                        crossing=True)
+    del app
+    rows = []
+    for comp, (q, markers, mask) in floods.items():
+        (*ops, n_blocks), _ = relabel_operands(q, markers, mask)
+        want = watershed._relabel_plain(*ops, n_blocks)
+        got = watershed.minimax_relabel(*ops, n_blocks)
+        if not (torch.equal(got[0], want[0]) and got[1:3] == want[1:3]):
+            raise SystemExit(f"re-labeling {comp}: the kernel differs from the plain loop "
+                             f"(flag, blocks {got[1:3]} against {want[1:3]})")
+        new = lambda: watershed.minimax_relabel(*ops, n_blocks)        # noqa: E731
+        old = lambda: watershed._relabel_plain(*ops, n_blocks)         # noqa: E731
+        old_ev, new_ev, turns_ev = in_turns(old, new, lambda fn: time_ms(fn, reps=3))
+        old_dev, new_dev = device_ms(old, reps=2), device_ms(new)
+        n, rounds = q.numel(), got[3]
+        chunks = relabel_chunks(*ops[1:6])
+        bound, bound_by = relabel_bound_ms(n, chunks, rounds)
+        real = watershed.minimax_relabel
+        h, w = q.shape[1:]
+
+        def old_flood():
+            watershed.minimax_relabel = watershed._relabel_plain
+            try:
+                return watershed._flood_minimax(q, markers, mask, 256, 2 * (h + w))
+            finally:
+                watershed.minimax_relabel = real
+
+        new_flood = lambda: watershed._flood_minimax(q, markers, mask, 256,  # noqa: E731
+                                                     2 * (h + w))
+        a, b = old_flood(), new_flood()
+        if not (torch.equal(a[0], b[0]) and a[1] == b[1]):
+            raise SystemExit(f"flood {comp}: the kernel's flood differs from the plain one")
+        old_w, new_w, turns_w = in_turns(old_flood, new_flood, lambda fn: wall_ms(fn, reps=3))
+        levels_w = wall_ms(lambda: watershed._flood(q, markers, mask, 256, 32), reps=3)
+        row = {"shape": f"relabel_{comp}", "pixels": n, "chunks_with_bits": chunks,
+               "blocks": got[2], "rounds": rounds, "converged": got[1], "old_ms": old_ev,
+               "new_ms": new_ev, "turns_ms": turns_ev, "old_device_ms": old_dev,
+               "new_device_ms": new_dev, "bound_ms": bound, "bound_by": bound_by,
+               "share_of_device": bound / new_dev if new_dev else None,
+               "flood_old_wall_ms": old_w, "flood_new_wall_ms": new_w,
+               "flood_turns_wall_ms": turns_w, "level_flood_wall_ms": levels_w}
+        rows.append(row)
+        share = f"{bound / new_dev:.2f}" if new_dev else "not measured"
+        print(f"re-labeling {comp} {tuple(q.shape)} ({got[2]} blocks, {rounds} kernel rounds, "
+              f"{chunks} of {-(-n // 4)} chunks with bits, converged {got[1]}): plain loop "
+              f"ev {old_ev:.4f} ms, dev {old_dev}; kernel ev {new_ev:.4f} ms, dev {new_dev} "
+              f"(turns ev {[round(t, 4) for t in turns_ev]}); bound of the design's traffic "
+              f"{bound:.4f} ms ({bound_by}), share of dev {share}; whole flood (host clock) "
+              f"plain {old_w:.2f} ms, kernel {new_w:.2f} ms (turns "
+              f"{[round(t, 2) for t in turns_w]}), the level engine's flood {levels_w:.2f} ms; "
+              f"both equal to the plain loop")
+    return card, rows
+
+
 def segment_sum_ab(args):
     import torch
 
@@ -631,16 +721,20 @@ def segment_sum_ab(args):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--old-csrc", required=True)
-    ap.add_argument("--kernel", choices=("segment_sum", "claim"), default="segment_sum")
+    ap.add_argument("--old-csrc", default=None)
+    ap.add_argument("--kernel", choices=("segment_sum", "claim", "relabel"),
+                    default="segment_sum")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    if args.kernel != "relabel" and not args.old_csrc:
+        ap.error(f"--kernel {args.kernel} needs --old-csrc")
 
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    card, rows = (claim_ab if args.kernel == "claim" else segment_sum_ab)(args)
+    card, rows = {"claim": claim_ab, "segment_sum": segment_sum_ab,
+                  "relabel": relabel_ab}[args.kernel](args)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

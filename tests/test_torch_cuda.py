@@ -6,16 +6,16 @@ tests/conftest.py (which imports jax):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda -q
 
-Tolerances: the claim kernels and the floods are integer work, bitwise; BMU
-indices may differ only where the plain version's two best nodes are closer
-than 1e-6 * max(|d|, 1), and distances carry the f32 summation-order
-tolerance of tests/test_torch_som.py; a duplicated node's tie goes to the
-lowest index. The segment-sum kernel is bitwise equal to the plain version
-run on a CPU copy (row 0, the background's sums, included; zero on both with
-``background=False``; NaN where it has NaN) and to a second run of itself,
-on the CPU parity tests' images, widths and flat ids
-(tests/segment_sum_cases.py), and the plan kernel's boxes equal its plain
-version's.
+Tolerances: the claim kernels, the re-labeling kernel and the floods are
+integer work, bitwise; BMU indices may differ only where the plain
+version's two best nodes are closer than 1e-6 * max(|d|, 1), and distances
+carry the f32 summation-order tolerance of tests/test_torch_som.py; a
+duplicated node's tie goes to the lowest index. The segment-sum kernel is
+bitwise equal to the plain version run on a CPU copy (row 0, the
+background's sums, included; zero on both with ``background=False``; NaN
+where it has NaN) and to a second run of itself, on the CPU parity tests'
+images, widths and flat ids (tests/segment_sum_cases.py), and the plan
+kernel's boxes equal its plain version's.
 
 The spatial stage has no kernel of its own; its device work is held to the
 CPU port: distances (D <= 4), neighbor counts, distance files and the
@@ -232,6 +232,73 @@ def test_level_flood_on_cuda_matches_cpu(card, bfs_rounds):
     want = TW._flood(*args, 64, bfs_rounds)
     got = TW._flood(*[a.to(card) for a in args], 64, bfs_rounds)
     assert torch.equal(got[0].cpu(), want[0]) and got[1] == want[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [None, 1, 3])
+def test_relabel_kernel_matches_plain_loop_on_cuda(card, budget):
+    """The re-labeling kernel == the plain loop of ``_refine_round`` blocks
+    on the same CUDA tensors, bitwise: labels, flag and blocks, at 4 x 1024^2
+    on a cell-like relief and on one whose labels cross a plateau (over
+    1,000 rounds, as the segmentation cell's floods), and at odd shapes (W % 4 !=
+    0, a single pixel), at the flood's budget and at budgets of 1 and 3
+    blocks (flag False); one launch a call, the rounds within the plain
+    loop's last two blocks, the operands unwritten. The reliefs and the
+    operands are the smoke's (``chip_smoke.cell_relief``,
+    ``relabel_operands``)."""
+    from chip_smoke import cell_relief, relabel_operands
+
+    for shape, crossing in (((4, 1024, 1024), False), ((4, 1024, 1024), True),
+                            ((1, 1, 1), False), ((2, 7, 129), False), ((3, 33, 1001), True),
+                            ((2, 64, 36), False)):
+        (*args, n_blocks), _ = relabel_operands(*cell_relief(*shape, seed=7, device=card,
+                                                             crossing=crossing))
+        n_blocks = n_blocks if budget is None else budget
+        saved = [a.clone() for a in args if isinstance(a, torch.Tensor)]
+        before = TW.minimax_relabel.launches, TW.minimax_relabel.rounds
+        got = TW.minimax_relabel(*args, n_blocks)
+        assert TW.minimax_relabel.launches == before[0] + 1
+        assert TW.minimax_relabel.rounds == before[1] + got[3]
+        want = TW._relabel_plain(*args, n_blocks)
+        assert torch.equal(got[0], want[0]) and got[1:3] == want[1:3], shape
+        assert want[3] - 2 * TW._MINIMAX_BLOCK < got[3] <= want[3]
+        assert all(torch.equal(a, b) for a, b in
+                   zip([a for a in args if isinstance(a, torch.Tensor)], saved))
+        if shape[0] == 4:   # 72 or ~1,850 rounds: the flood's budget ends them, 3 blocks not
+            assert got[1] is (budget is None)
+            assert got[3] > (1000 if crossing else 48) or budget is not None
+
+
+@pytest.mark.cuda
+def test_minimax_flood_on_cuda_matches_cpu(card):
+    """The minimax flood on the card (the re-labeling kernel) == the same
+    flood on the CPU (the plain loop), labels and flag, on whole tensors and
+    on views at an offset; one re-labeling launch a flood, and the
+    ``watershed.relabel`` span's engine, blocks (the CPU's) and rounds."""
+    from ark_tpu_torch.utils import profiling
+    from chip_smoke import cell_relief
+
+    q, markers, mask = cell_relief(3, 200, 131, seed=5, device=card)
+    for view in (slice(None), slice(1, None)):
+        args = [t[view] for t in (q, markers, mask)]
+        runs = {}
+        for device in (card, "cpu"):
+            profiling.reset()
+            before = TW.minimax_relabel.launches
+            try:
+                with profiling.recording():
+                    out = TW.flood(*[a.to(device) for a in args], 256, 32)
+                (relabel,) = [s for s in profiling.spans()
+                              if s["name"] == "watershed.relabel"]
+            finally:
+                profiling.reset()
+            runs[device] = out, relabel["attrs"], TW.minimax_relabel.launches - before
+        (got, attrs, launches), (want, plain, plain_launches) = runs[card], runs["cpu"]
+        assert torch.equal(got[0].cpu(), want[0]) and got[1] is want[1] is True
+        assert (launches, plain_launches) == (1, 0)
+        assert attrs["engine"] == "kernel" and plain["engine"] == "plain"
+        assert attrs["blocks"] == plain["blocks"] > 1
+        assert plain["rounds"] - 2 * TW._MINIMAX_BLOCK < attrs["rounds"] <= plain["rounds"]
 
 
 def _segment_cases(rng):

@@ -200,8 +200,8 @@ def test_create_deepcell_output_writes_masks(tmp_path, cohort):
 def test_smoke_segmentation_phases_rehearse_on_cpu(monkeypatch):
     """chip_smoke.py's segmentation phases, driven on the CPU at a tiny size
     (the card's run is the same code at full size): every check they make
-    holds, and the level engine's level scans, their rounds and phase B's
-    rounds are counted."""
+    holds, the level engine's level scans, their rounds and phase B's
+    rounds are counted, and so are the minimax engine's re-labelings."""
     import chip_smoke
 
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
@@ -220,19 +220,44 @@ def test_smoke_segmentation_phases_rehearse_on_cpu(monkeypatch):
         counted_round.launches += 1
         return real_round(lab, q, level)
 
+    def counted_relabel(*args):
+        out = real_relabel(*args)
+        counted_relabel.launches += 1
+        counted_relabel.rounds += out[3]
+        return out
+
+    real_relabel = TW.minimax_relabel
     counted.launches = counted.rounds = counted_round.launches = 0
+    counted_relabel.launches = counted_relabel.rounds = 0
     monkeypatch.setattr(TW, "claim_levels", counted)
     monkeypatch.setattr(TW, "claim_round", counted_round)
+    monkeypatch.setattr(TW, "minimax_relabel", counted_relabel)
     monkeypatch.setattr(TW, "_ENGINE", TW._ENGINE)
     fovs = TS.synthetic_cells(np.random.default_rng(0), 2, hw=64,
                               n_cells=(12, 16), crowding=0.35)[0]
-    counts, app, masks = chip_smoke.run_device_postprocess({"small": (fovs, 2)})
+    counts, relabel, app, masks = chip_smoke.run_device_postprocess({"small": (fovs, 2)})
     assert sorted(masks["small"]) == ["nuclear", "whole_cell"]
     assert masks["small"]["whole_cell"].shape == fovs.shape[:3]
     # the level engine's plain run, then its phase-timed run
     assert 2 * counts["launches"] == counted.launches > 0 and app.host_fallbacks == 0
     assert 2 * counts["rounds"] == counted.rounds >= counts["launches"]
     assert 2 * counts["round_launches"] == counted_round.launches
+    # the minimax engine's counted run: one re-labeling a flood; the level
+    # engine's runs after it, none
+    assert relabel["small"]["launches"] == relabel["small"]["floods"] == 2
+    assert relabel["small"]["rounds"] > 0 and counted_relabel.launches == 0
     assert TW._ENGINE == "minimax"
     relief = chip_smoke.cohort_relief(app, fovs)
     assert chip_smoke.compare_level_flood(relief) > 0
+    # the re-labeling check with the card's timers stubbed; the counted
+    # wrapper stands in for the kernel's launch count
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, reps=10: 1.0)
+    monkeypatch.setattr(chip_smoke, "CARD", "no card (CPU rehearsal)")
+    before = counted_relabel.launches
+    floods = {**relief, "cell-like": chip_smoke.cell_relief(2, 64, 48, seed=7),
+              "crossing": chip_smoke.cell_relief(2, 64, 48, seed=7, crossing=True)}
+    err, checked, timing = chip_smoke.check_relabel_kernel(floods)
+    assert err == 0 and checked == 4 * (1 + len(chip_smoke.RELABEL_BUDGETS))
+    assert counted_relabel.launches - before == checked + 4     # and the captured floods
+    assert sorted(timing) == ["cell-like", "crossing", "nuclear", "whole_cell"]
+    assert all(t["rounds"] > 0 and t["bound_ms"] > 0 for t in timing.values())

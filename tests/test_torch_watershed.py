@@ -302,6 +302,131 @@ def test_minimax_round_budget_flag_matches_jax(rounds):
     assert got_done is bool(done) is (rounds == 128)
 
 
+def _relabel_by_edges(lab0, pk, qs, lb, labm, claimable, n_blocks):
+    """The re-labeling kernel's algorithm (csrc/minimax_relabel.cu) in plain
+    torch: each pixel's four neighbour tests reduced once to bits of a byte
+    (none past the edge, none for a pixel that cannot take a label), then
+    synchronous rounds that read only those bits and the labels, stopping at
+    the first round that changes nothing or after 16 * n_blocks rounds, and
+    the block rule. Returns (labels, converged, blocks, rounds)."""
+    sent = TW._LAB_SENTINEL
+    h, w = lab0.shape[1:]
+    near = ((slice(None, h), slice(1, w + 1)), (slice(2, None), slice(1, w + 1)),
+            (slice(1, h + 1), slice(None, w)), (slice(1, h + 1), slice(2, None)))
+    exitv = torch.nn.functional.pad(TW._lift(pk, qs, labm) >> lb, (1, 1, 1, 1), value=-1)
+    can = claimable & (pk != sent)
+    edges = torch.zeros(lab0.shape, dtype=torch.uint8)
+    for bit, (rows, cols) in enumerate(near):
+        edges |= ((exitv[:, rows, cols] == (pk >> lb)) & can).to(torch.uint8) << bit
+    lab, rounds, converged = lab0, 0, False
+    while rounds < TW._MINIMAX_BLOCK * n_blocks and not converged:
+        lv = torch.nn.functional.pad(torch.where(lab > 0, lab, sent), (1, 1, 1, 1),
+                                     value=sent)
+        cand = torch.full_like(lab, sent)
+        for bit, (rows, cols) in enumerate(near):
+            cand = torch.minimum(cand, torch.where((edges >> bit) & 1 == 1,
+                                                   lv[:, rows, cols], sent))
+        new = torch.where((lab == 0) & (cand < sent), cand, lab)
+        rounds += 1
+        converged = torch.equal(new, lab)
+        lab = new
+    blocks, rdone = TW._relabel_blocks(rounds, converged, n_blocks)
+    return lab, rdone, blocks, rounds
+
+
+def _relabel_operands(kind, seed, monkeypatch):
+    """The re-labeling's operands as ``_flood_minimax`` hands them over
+    (after its relaxation): a relief at 256 levels, the same at 8 levels
+    (wide plateaus, ties everywhere), a batch of 3 at W % 4 != 0 with an
+    empty mask and an image without markers, or a flood from a corner of a
+    flat 32 x 32 image (seed 0 the top left, 1 the bottom right)."""
+    if kind == "corner":
+        q = np.zeros((1, 32, 32), np.int32)
+        markers = np.zeros((1, 32, 32), np.int32)
+        markers[0, -seed, -seed] = 1          # the top left or bottom right corner
+        mask, levels = np.ones((1, 32, 32), bool), 256
+    else:
+        b, w = (3, 37) if kind == "batch3" else (2, 48)
+        elev, markers, mask = _relief(40 + seed, b=b, h=40, w=w, n_markers=6)
+        if kind == "batch3":
+            mask[1] = False
+            markers[2] = 0
+        levels = 8 if kind == "plateaus" else 256
+        q = np.array(JW._quantize(jnp.asarray(elev), jnp.asarray(mask), levels))
+    got = {}
+    real = TW.minimax_relabel
+
+    def capture(*args):
+        got["args"] = args
+        return real(*args)
+
+    monkeypatch.setattr(TW, "minimax_relabel", capture)
+    h, w = q.shape[1:]
+    TW._flood_minimax(torch.from_numpy(q), torch.from_numpy(markers),
+                      torch.from_numpy(mask), levels, 2 * (h + w))
+    monkeypatch.setattr(TW, "minimax_relabel", real)
+    return got["args"]
+
+
+@pytest.mark.parametrize("kind", ["relief", "plateaus", "batch3", "corner"])
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("budget", [None, 1, 2])
+def test_relabel_kernel_algorithm_matches_refine_loop(kind, seed, budget, monkeypatch):
+    """The kernel's algorithm (edge bits once, synchronous rounds, the first
+    round that changes nothing, the block rule) == the plain loop of
+    ``_refine_round`` blocks, bitwise: labels, flag and blocks, at the
+    flood's budget and at budgets of 1 and 2 blocks, where the flag is False
+    and the partial labels are still equal."""
+    *args, n_blocks = _relabel_operands(kind, seed, monkeypatch)
+    n_blocks = n_blocks if budget is None else budget
+    want = TW._relabel_plain(*args, n_blocks)
+    got = _relabel_by_edges(*args, n_blocks)
+    assert torch.equal(got[0], want[0])
+    assert got[1:3] == want[1:3]
+    assert want[3] == TW._MINIMAX_BLOCK * want[2]
+    assert want[3] - 2 * TW._MINIMAX_BLOCK < got[3] <= want[3]
+    if kind == "corner" and budget is not None:
+        assert want[1] is False and int((want[0] > 0).sum()) < 32 * 32
+    if budget is None:
+        assert want[1] is True and want[2] > 1
+
+
+@pytest.mark.parametrize("rounds,converged,n_blocks,want", [
+    (1, True, 5, (1, True)),       # the first round changes nothing
+    (17, True, 5, (2, True)),      # the round that opens block 2
+    (5, True, 5, (2, True)),       # block 1 changed labels, block 2 did not
+    (16, True, 2, (2, True)),
+    (5, True, 1, (1, False)),      # the budget ends with a block that changed
+    (16, True, 1, (1, False)),
+    (80, False, 5, (5, False)),    # no round without a change
+    (0, False, 0, (0, False)),     # no budget
+])
+def test_relabel_block_rule(rounds, converged, n_blocks, want):
+    """The blocks and the flag the plain loop reports, from the rounds to
+    the first round that changes nothing."""
+    assert TW._relabel_blocks(rounds, converged, n_blocks) == want
+
+
+def test_minimax_relabel_counts_and_refuses(monkeypatch):
+    """On CPU tensors the wrapper is the plain loop and counts its rounds,
+    no launch; a device that is not CUDA raises before any library is
+    built."""
+    def refuse(name):
+        raise AssertionError("the library was asked for")
+
+    *args, n_blocks = _relabel_operands("relief", 0, monkeypatch)
+    monkeypatch.setattr(_kernels, "lib", refuse)
+    before = TW.minimax_relabel.launches, TW.minimax_relabel.rounds
+    got = TW.minimax_relabel(*args, n_blocks)
+    want = TW._relabel_plain(*args, n_blocks)
+    assert torch.equal(got[0], want[0]) and got[1:] == want[1:]
+    assert (TW.minimax_relabel.launches, TW.minimax_relabel.rounds) == (
+        before[0], before[1] + want[3])
+    meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
+    with pytest.raises(ValueError, match="CUDA"):
+        TW.minimax_relabel(*meta, n_blocks)
+
+
 @pytest.mark.parametrize("engine", ["minimax", "levels"])
 def test_masked_gap_blocks_the_flood(engine, monkeypatch):
     """A corridor with a full-height masked gap: the far side stays 0 under
