@@ -13,6 +13,11 @@ box over 128 take the host path (scipy ``ConvexHull`` and a half-plane test,
 ``scipy.ndimage`` labeling. The JAX package pads each chunk of cells to one
 size so that XLA compiles one executable per tile; eager torch needs no
 padding, and the port drops it.
+
+``COUNTS`` holds cumulative counters, read as differences around a call:
+``device_cells`` and ``host_cells``, the cells ``convex_features`` rastered
+on the device and on the host (a box over 128, or ``impl='host'``), and
+``crops``, the hull-minus-mask crops ``count_concavities_batch`` labeled.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+
+COUNTS = {"device_cells": 0, "host_cells": 0, "crops": 0}
 
 
 def group_coords_by_label(labels: np.ndarray) -> Dict[int, np.ndarray]:
@@ -123,7 +130,16 @@ def convex_features(labels: np.ndarray, cell_ids: np.ndarray,
     'host' takes the per-cell scipy path for every cell. `with_masks=False`
     skips the per-cell crop assembly and returns masks=[None]*n."""
     if impl == "host":
+        COUNTS["host_cells"] += len(cell_ids)
         return _convex_features_host(labels, cell_ids)
+    uniq_ids, inverse = np.unique(cell_ids, return_inverse=True)
+    if len(uniq_ids) < len(cell_ids):
+        # an id asked for twice (a nucleus that is two cells' best match):
+        # rastered once, its outputs repeated
+        out = convex_features(labels, uniq_ids, impl, with_masks, device=device)
+        return {"convex_area": out["convex_area"][inverse],
+                "convex_centroid": out["convex_centroid"][inverse],
+                "masks": [out["masks"][i] for i in inverse]}
 
     n = len(cell_ids)
     convex_area = np.zeros(n)
@@ -186,6 +202,7 @@ def convex_features(labels: np.ndarray, cell_ids: np.ndarray,
         mask, hull, _ = convex_image(cell_coords(d_idx))
         _fill_outputs(i, mask, hull, (int(ymin[d_idx]), int(xmin[d_idx])),
                       convex_area, conv_cent, masks)
+        COUNTS["host_cells"] += 1
 
     tile_of = np.full(len(uniq), 0)
     for t in _TILE_GRADES[::-1]:
@@ -198,6 +215,7 @@ def convex_features(labels: np.ndarray, cell_ids: np.ndarray,
         if members.size == 0:
             continue
         b = len(members)
+        COUNTS["device_cells"] += b
         bpos = np.full(len(uniq), -1)          # bucket-local position
         bpos[members] = np.arange(b)
         xlo = np.full((b, tile), np.inf, np.float32)
@@ -283,6 +301,7 @@ def count_concavities_batch(masks: List, small_concavity_minimum: float = 10,
     out = np.zeros(len(masks))
     crops = [(i, m[1] ^ m[0]) for i, m in enumerate(masks) if m is not None]
     crops = [(i, d) for i, d in crops if d.any()]
+    COUNTS["crops"] += len(crops)
     if not crops:
         return out
     maxw = max(d.shape[1] for _, d in crops)

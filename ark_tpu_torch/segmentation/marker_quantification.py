@@ -10,17 +10,29 @@ column order of ``ark_tpu_torch.settings`` (the JAX package's) in the port's
 ``DataArray``. Files go through ``ark_tpu_torch.io`` and its own TIFF
 codec.
 
-``timings``, where a function takes it, is a dict that collects seconds per
-phase: ``device_reductions_s`` (uploads, segment reductions and their
-readback), ``convex_s`` (hull rasters and concavity counts) and
-``assembly_s`` (the rest of the table).
+Each step is a span (``ark_tpu_torch.utils.profiling``): a
+``generate_cell_table`` call is one ``quant.cell_table`` tree (attributes
+``fovs``, ``nuclear_counts`` and, once a FOV's tree is read, ``channels``)
+with a ``quant.fov`` span a FOV (``fov``; ``resumed`` when its checkpoint
+part was loaded), whose children are ``quant.load`` (the channel tree and
+the masks, or the part), ``quant.match_nuclei`` (``segmentation_utils``), a
+``quant.reduce`` a compartment (``comp``; the uploads, both segment sums and
+their readback, with device events and the ``segment_sum`` and ``plan``
+launches it made), ``quant.convex`` (``comp``, ``cells``, ``device_cells``,
+``host_cells``), ``quant.concavities`` (``comp``, ``crops``),
+``quant.assemble`` (the derived columns, the transforms and the DataFrames)
+and ``quant.checkpoint`` (``bytes`` of the part written). ``timings``,
+where a function takes it, is a dict that collects the spans' seconds:
+``device_reductions_s`` (the ``quant.reduce`` spans), ``convex_s``
+(``quant.convex`` and ``quant.concavities``) and ``assembly_s``
+(``quant.assemble``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
-import time
 import warnings
 from typing import List
 
@@ -38,6 +50,7 @@ from ark_tpu_torch.segmentation.regionprops_extraction import (CONVEX_PROPS,
                                                                RegionProp)
 from ark_tpu_torch.segmentation.signal_extraction import (EXTRACTION_FUNCTION,
                                                           EXTRACTION_FUNCTION_BATCH)
+from ark_tpu_torch.utils import profiling
 from ark_tpu_torch.utils.labeled_array import DataArray
 from ark_tpu_torch.utils.misc_utils import verify_in_list, verify_same_elements
 
@@ -48,24 +61,35 @@ _VECTOR_SINGLE_COMP = {"major_minor_axis_ratio", "perim_square_over_area",
                        "centroid_dif"}
 
 
-def _add_time(timings, key, t0):
+@contextlib.contextmanager
+def _phase(timings, key, name, **attrs):
+    """The step's span (its attributes as `span` takes them); its seconds
+    are added into ``timings[key]``."""
+    with profiling.span(name, **attrs) as sp:
+        yield sp
     if timings is not None:
-        timings[key] = timings.get(key, 0.0) + time.perf_counter() - t0
+        timings[key] = timings.get(key, 0.0) + sp.seconds
 
 
-def _compartment_features(labels: np.ndarray, images: torch.Tensor,
-                          cell_ids: np.ndarray, regionprops_names: List[str],
-                          regionprops_single_comp: List[str],
-                          extraction: str, sig_kwargs, reg_kwargs, *, device,
-                          timings=None):
-    """(len(cell_ids), n_features) matrix for one compartment's label image;
-    `images` is the FOV's (H, W, C) f32 tensor on `device`.
+@contextlib.contextmanager
+def _reduce_span(timings, device, comp):
+    """One compartment's ``quant.reduce``: the uploads, segment sums and
+    readback done inside, with the ``segment_sum`` and ``plan`` launches
+    they made."""
+    sums0 = segment_reduce.segment_sum.launches
+    plans0 = segment_reduce.segment_plan.launches
+    with _phase(timings, "device_reductions_s", "quant.reduce", device=device,
+                comp=comp) as sp:
+        yield sp
+        sp.attrs["segment_sum"] = segment_reduce.segment_sum.launches - sums0
+        sp.attrs["plan"] = segment_reduce.segment_plan.launches - plans0
 
-    Column order: [cell_size] + channels + regionprops_names. The reductions
-    are read at `cell_ids` only, so their row 0 (the background) is not
-    computed."""
-    t0 = time.perf_counter()
-    n_cells = len(cell_ids)
+
+def _reductions(labels: np.ndarray, images: torch.Tensor, extraction: str,
+                sig_kwargs, device):
+    """(moment features, channel sums) of one compartment's label image over
+    the FOV's (H, W, C) f32 `images` on `device`, read back to the host and
+    indexed by raw label value; row 0 (the background) is not computed."""
     n_seg = int(labels.max()) + 1 if labels.size else 1
     lab_t = torch.as_tensor(labels, device=device)
     if extraction == "total_intensity" and not sig_kwargs:
@@ -76,13 +100,22 @@ def _compartment_features(labels: np.ndarray, images: torch.Tensor,
         feats_t = segment_reduce.moment_features(lab_t, n_seg, background=False)
         counts_t = EXTRACTION_FUNCTION_BATCH[extraction](
             images, lab_t, n_seg, **sig_kwargs)
-    feats = {k: v.cpu().numpy() for k, v in feats_t.items()}
-    counts = counts_t.cpu().numpy()
-    del lab_t, feats_t, counts_t
-    sizes = feats["area"]
-    _add_time(timings, "device_reductions_s", t0)
+    return ({k: v.cpu().numpy() for k, v in feats_t.items()},
+            counts_t.cpu().numpy())
 
-    t0 = time.perf_counter()
+
+def _compartment_features(labels: np.ndarray, reduced, cell_ids: np.ndarray,
+                          regionprops_names: List[str],
+                          regionprops_single_comp: List[str], reg_kwargs, *,
+                          device, comp: str = "whole_cell", timings=None):
+    """(len(cell_ids), n_features) matrix for one compartment's label image,
+    given its `_reductions`.
+
+    Column order: [cell_size] + channels + regionprops_names."""
+    n_cells = len(cell_ids)
+    feats, counts = reduced
+    sizes = feats["area"]
+
     need_convex = bool(
         ({"convex_area"} & set(regionprops_names))
         or (CONVEX_PROPS & set(regionprops_single_comp)))
@@ -90,101 +123,113 @@ def _compartment_features(labels: np.ndarray, images: torch.Tensor,
     need_masks = bool(set(regionprops_single_comp) - _VECTOR_SINGLE_COMP)
     convex = None
     if need_convex:
-        convex = convex_ops.convex_features(labels, cell_ids,
-                                            with_masks=need_masks, device=device)
-    _add_time(timings, "convex_s", t0)
+        counts0 = dict(convex_ops.COUNTS)
+        with _phase(timings, "convex_s", "quant.convex", comp=comp,
+                    cells=n_cells) as sp:
+            convex = convex_ops.convex_features(labels, cell_ids,
+                                                with_masks=need_masks, device=device)
+            for key in ("device_cells", "host_cells"):
+                sp.attrs[key] = convex_ops.COUNTS[key] - counts0[key]
 
-    t0 = time.perf_counter()
-    idx = cell_ids  # the reductions are indexed by raw label value
-    columns = {}
-    columns["label"] = cell_ids.astype(float)
-    for name in ["area", "eccentricity", "major_axis_length",
-                 "minor_axis_length", "perimeter", "equivalent_diameter",
-                 "centroid-0", "centroid-1"]:
-        columns[name] = feats[name][idx]
-    if convex is not None:
-        columns["convex_area"] = convex["convex_area"]
-
-    with np.errstate(divide="ignore", invalid="ignore"):
-        columns["major_minor_axis_ratio"] = np.where(
-            columns["minor_axis_length"] == 0, np.nan,
-            columns["major_axis_length"] / columns["minor_axis_length"])
-        columns["perim_square_over_area"] = (
-            columns["perimeter"] ** 2 / columns["area"])
-        columns["major_axis_equiv_diam_ratio"] = (
-            columns["major_axis_length"] / columns["equivalent_diameter"])
+    with _phase(timings, "assembly_s", "quant.assemble"):
+        idx = cell_ids  # the reductions are indexed by raw label value
+        columns = {}
+        columns["label"] = cell_ids.astype(float)
+        for name in ["area", "eccentricity", "major_axis_length",
+                     "minor_axis_length", "perimeter", "equivalent_diameter",
+                     "centroid-0", "centroid-1"]:
+            columns[name] = feats[name][idx]
         if convex is not None:
-            columns["convex_hull_resid"] = np.where(
-                columns["convex_area"] > 0,
-                (columns["convex_area"] - columns["area"])
-                / np.maximum(columns["convex_area"], 1), 0.0)
-            # mask centroid to hull centroid, over sqrt(area)
-            columns["centroid_dif"] = np.where(
-                columns["convex_area"] > 0,
-                np.hypot(
-                    columns["centroid-0"] - convex["convex_centroid"][:, 0],
-                    columns["centroid-1"] - convex["convex_centroid"][:, 1])
-                / np.sqrt(np.maximum(columns["area"], 1e-12)), 0.0)
-    _add_time(timings, "assembly_s", t0)
+            columns["convex_area"] = convex["convex_area"]
 
-    t0 = time.perf_counter()
+        with np.errstate(divide="ignore", invalid="ignore"):
+            columns["major_minor_axis_ratio"] = np.where(
+                columns["minor_axis_length"] == 0, np.nan,
+                columns["major_axis_length"] / columns["minor_axis_length"])
+            columns["perim_square_over_area"] = (
+                columns["perimeter"] ** 2 / columns["area"])
+            columns["major_axis_equiv_diam_ratio"] = (
+                columns["major_axis_length"] / columns["equivalent_diameter"])
+            if convex is not None:
+                columns["convex_hull_resid"] = np.where(
+                    columns["convex_area"] > 0,
+                    (columns["convex_area"] - columns["area"])
+                    / np.maximum(columns["convex_area"], 1), 0.0)
+                # mask centroid to hull centroid, over sqrt(area)
+                columns["centroid_dif"] = np.where(
+                    columns["convex_area"] > 0,
+                    np.hypot(
+                        columns["centroid-0"] - convex["convex_centroid"][:, 0],
+                        columns["centroid-1"] - convex["convex_centroid"][:, 1])
+                    / np.sqrt(np.maximum(columns["area"], 1e-12)), 0.0)
+
     host_props = [p for p in regionprops_single_comp
                   if p not in _VECTOR_SINGLE_COMP]
-    if "num_concavities" in host_props and convex is not None:
-        # batched: one component-labeling pass over all crops
-        columns["num_concavities"] = convex_ops.count_concavities_batch(
-            convex["masks"],
-            small_concavity_minimum=reg_kwargs.get("small_concavity_minimum", 10),
-            max_compactness=reg_kwargs.get("max_compactness", 60),
-            large_concavity_minimum=reg_kwargs.get("large_concavity_minimum", 150))
-        host_props = [p for p in host_props if p != "num_concavities"]
     if host_props:
-        for p in host_props:
-            columns[p] = np.zeros(n_cells)
-        for i, cid in enumerate(cell_ids):
-            mask_info = convex["masks"][i] if convex is not None else None
-            if mask_info is None:
-                coords = np.argwhere(labels == cid)
-                if coords.size == 0:
-                    continue
-                mask, hull, origin = convex_ops.convex_image(coords)
-            else:
-                mask, hull, origin = mask_info
-            prop = RegionProp(
-                label=int(cid), area=float(columns["area"][i]),
-                centroid=(float(columns["centroid-0"][i]),
-                          float(columns["centroid-1"][i])),
-                major_axis_length=float(columns["major_axis_length"][i]),
-                minor_axis_length=float(columns["minor_axis_length"][i]),
-                perimeter=float(columns["perimeter"][i]),
-                equivalent_diameter=float(columns["equivalent_diameter"][i]),
-                eccentricity=float(columns["eccentricity"][i]),
-                convex_area=float(columns.get("convex_area",
-                                              np.zeros(n_cells))[i]),
-                image=mask, convex_image=hull, bbox_origin=origin)
-            for p in host_props:
-                columns[p][i] = REGIONPROPS_FUNCTION[p](prop, **reg_kwargs)
-    _add_time(timings, "convex_s", t0)
+        crops0 = convex_ops.COUNTS["crops"]
+        with _phase(timings, "convex_s", "quant.concavities", comp=comp) as sp:
+            _host_props(columns, host_props, labels, cell_ids, convex, reg_kwargs)
+            sp.attrs["crops"] = convex_ops.COUNTS["crops"] - crops0
 
-    t0 = time.perf_counter()
-    n_channels = counts.shape[1]
-    out = np.zeros((n_cells, 1 + n_channels + len(regionprops_names)))
-    out[:, 0] = sizes[idx]
-    out[:, 1:1 + n_channels] = counts[idx]
-    unsupported = []
-    for j, name in enumerate(regionprops_names):
-        if name in columns:
-            out[:, 1 + n_channels + j] = columns[name]
-        else:
-            unsupported.append(name)
+    with _phase(timings, "assembly_s", "quant.assemble"):
+        n_channels = counts.shape[1]
+        out = np.zeros((n_cells, 1 + n_channels + len(regionprops_names)))
+        out[:, 0] = sizes[idx]
+        out[:, 1:1 + n_channels] = counts[idx]
+        unsupported = []
+        for j, name in enumerate(regionprops_names):
+            if name in columns:
+                out[:, 1 + n_channels + j] = columns[name]
+            else:
+                unsupported.append(name)
     if unsupported:
         warnings.warn(
             f"regionprops features {unsupported} are not implemented by the "
             f"quantification engine; their columns are zero-filled "
             f"(supported: moments-derived and convex-hull features, see "
             f"ark_tpu_torch.ops.segment_reduce / ark_tpu_torch.ops.convex)")
-    _add_time(timings, "assembly_s", t0)
     return out
+
+
+def _host_props(columns, host_props, labels, cell_ids, convex, reg_kwargs):
+    """The per-cell raster props into `columns`: ``num_concavities`` for all
+    cells in one batched labeling pass, any other through its
+    ``REGIONPROPS_FUNCTION`` cell by cell."""
+    n_cells = len(cell_ids)
+    if "num_concavities" in host_props and convex is not None:
+        columns["num_concavities"] = convex_ops.count_concavities_batch(
+            convex["masks"],
+            small_concavity_minimum=reg_kwargs.get("small_concavity_minimum", 10),
+            max_compactness=reg_kwargs.get("max_compactness", 60),
+            large_concavity_minimum=reg_kwargs.get("large_concavity_minimum", 150))
+        host_props = [p for p in host_props if p != "num_concavities"]
+    if not host_props:
+        return
+    for p in host_props:
+        columns[p] = np.zeros(n_cells)
+    for i, cid in enumerate(cell_ids):
+        mask_info = convex["masks"][i] if convex is not None else None
+        if mask_info is None:
+            coords = np.argwhere(labels == cid)
+            if coords.size == 0:
+                continue
+            mask, hull, origin = convex_ops.convex_image(coords)
+        else:
+            mask, hull, origin = mask_info
+        prop = RegionProp(
+            label=int(cid), area=float(columns["area"][i]),
+            centroid=(float(columns["centroid-0"][i]),
+                      float(columns["centroid-1"][i])),
+            major_axis_length=float(columns["major_axis_length"][i]),
+            minor_axis_length=float(columns["minor_axis_length"][i]),
+            perimeter=float(columns["perimeter"][i]),
+            equivalent_diameter=float(columns["equivalent_diameter"][i]),
+            eccentricity=float(columns["eccentricity"][i]),
+            convex_area=float(columns.get("convex_area",
+                                          np.zeros(n_cells))[i]),
+            image=mask, convex_image=hull, bbox_origin=origin)
+        for p in host_props:
+            columns[p][i] = REGIONPROPS_FUNCTION[p](prop, **reg_kwargs)
 
 
 def _upload_images(images, device) -> torch.Tensor:
@@ -217,10 +262,11 @@ def get_single_compartment_props(segmentation_labels, regionprops_base=None,
     cell_ids = np.unique(labels)
     cell_ids = cell_ids[cell_ids != 0]
     dummy = torch.zeros(labels.shape + (1,), dtype=torch.float32, device=device)
+    with _reduce_span(None, device, "whole_cell"):
+        reduced = _reductions(labels, dummy, "total_intensity", {}, device)
     feats = _compartment_features(
-        labels, dummy, cell_ids, names, regionprops_single_comp,
-        "total_intensity", {}, kwargs.get("regionprops_kwargs", {}),
-        device=device)
+        labels, reduced, cell_ids, names, regionprops_single_comp,
+        kwargs.get("regionprops_kwargs", {}), device=device)
     # drop the leading [cell_size, dummy_channel] schema columns
     return pd.DataFrame(feats[:, 2:], columns=names)
 
@@ -239,11 +285,13 @@ def assign_single_compartment_features(marker_counts, compartment,
     if cell_ids is None:
         cell_ids = np.unique(labels)
         cell_ids = cell_ids[cell_ids != 0]
+    with _reduce_span(None, device, compartment):
+        reduced = _reductions(labels, _upload_images(input_images, device),
+                              extraction, kwargs.get("signal_kwargs", {}), device)
     feats = _compartment_features(
-        labels, _upload_images(input_images, device), cell_ids,
-        list(regionprops_names), list(regionprops_single_comp), extraction,
-        kwargs.get("signal_kwargs", {}), kwargs.get("regionprops_kwargs", {}),
-        device=device)
+        labels, reduced, cell_ids, list(regionprops_names),
+        list(regionprops_single_comp), kwargs.get("regionprops_kwargs", {}),
+        device=device, comp=compartment)
     compartments = list(marker_counts.coords["compartments"])
     rows_of = {int(c): i for i, c in
                enumerate(np.asarray(marker_counts.coords["cell_id"]))}
@@ -341,17 +389,15 @@ def compute_marker_counts(input_images, segmentation_labels,
     if len(unique_cell_ids) == 0:
         return marker_counts
 
-    t0 = time.perf_counter()
-    images = _upload_images(input_images.values, device)
-    _add_time(timings, "device_reductions_s", t0)
+    with _reduce_span(timings, device, "whole_cell"):
+        images = _upload_images(input_images.values, device)
+        reduced = _reductions(cell_labels, images, extraction, sig_kwargs, device)
     wc = _compartment_features(
-        cell_labels, images, unique_cell_ids, single_names,
-        regionprops_single_comp, extraction, sig_kwargs, reg_kwargs,
-        device=device, timings=timings)
+        cell_labels, reduced, unique_cell_ids, single_names,
+        regionprops_single_comp, reg_kwargs, device=device, timings=timings)
     marker_counts.values[compartments.index("whole_cell"), :, :wc.shape[1]] = wc
 
     if nuclear_counts:
-        t0 = time.perf_counter()
         nuc_labels = np.asarray(
             segmentation_labels.sel(compartments="nuclear").values
         ).astype(np.int32)
@@ -362,7 +408,6 @@ def compute_marker_counts(input_images, segmentation_labels,
                 cell_ids=unique_cell_ids)
         nuc_of_cell = segmentation_utils.match_nuclei_to_cells(cell_labels,
                                                                nuc_labels)
-        _add_time(timings, "assembly_s", t0)
         if not nuc_of_cell:
             warnings.warn("No nuclei found in the provided image")
         else:
@@ -370,21 +415,23 @@ def compute_marker_counts(input_images, segmentation_labels,
                 [c for c in unique_cell_ids if int(c) in nuc_of_cell])
             matched_nucs = np.array(
                 [nuc_of_cell[int(c)] for c in matched_cells])
+            with _reduce_span(timings, device, "nuclear"):
+                reduced = _reductions(nuc_labels, images, extraction, sig_kwargs,
+                                      device)
             nuc_feats = _compartment_features(
-                nuc_labels, images, matched_nucs, single_names,
-                regionprops_single_comp, extraction, sig_kwargs, reg_kwargs,
-                device=device, timings=timings)
-            t0 = time.perf_counter()
-            comp_idx = compartments.index("nuclear")
-            row_of_cell = {int(c): i for i, c in enumerate(unique_cell_ids)}
-            rows = np.array([row_of_cell[int(c)] for c in matched_cells])
-            # nuclear rows carry the NUCLEUS id in the label column; the row
-            # position ties a nucleus to its cell
-            marker_counts.values[comp_idx, rows, :nuc_feats.shape[1]] = nuc_feats
-            for rn in regionprops_multi_comp:
-                marker_counts = REGIONPROPS_FUNCTION[rn](marker_counts,
-                                                         **reg_kwargs)
-            _add_time(timings, "assembly_s", t0)
+                nuc_labels, reduced, matched_nucs, single_names,
+                regionprops_single_comp, reg_kwargs, device=device,
+                comp="nuclear", timings=timings)
+            with _phase(timings, "assembly_s", "quant.assemble"):
+                comp_idx = compartments.index("nuclear")
+                row_of_cell = {int(c): i for i, c in enumerate(unique_cell_ids)}
+                rows = np.array([row_of_cell[int(c)] for c in matched_cells])
+                # nuclear rows carry the NUCLEUS id in the label column; the
+                # row position ties a nucleus to its cell
+                marker_counts.values[comp_idx, rows, :nuc_feats.shape[1]] = nuc_feats
+                for rn in regionprops_multi_comp:
+                    marker_counts = REGIONPROPS_FUNCTION[rn](marker_counts,
+                                                             **reg_kwargs)
     return marker_counts
 
 
@@ -420,7 +467,15 @@ def create_marker_count_matrices(segmentation_labels, image_data,
         fast_extraction=fast_extraction, device=device, timings=timings,
         **kwargs)
 
-    t0 = time.perf_counter()
+    with _phase(timings, "assembly_s", "quant.assemble"):
+        normalized, arcsinh = _tables(marker_counts, fov, nuclear_counts)
+    return normalized, arcsinh
+
+
+def _tables(marker_counts, fov, nuclear_counts):
+    """The (size-normalized, arcsinh-transformed) DataFrames of one FOV's
+    marker counts: the whole-cell columns, then with `nuclear_counts` the
+    nuclear ones suffixed ``_nuclear``, then ``fov``."""
     marker_counts_norm = segmentation_utils.transform_expression_matrix(
         marker_counts, transform="size_norm")
     marker_counts_arcsinh = segmentation_utils.transform_expression_matrix(
@@ -449,7 +504,6 @@ def create_marker_count_matrices(segmentation_labels, image_data,
 
     normalized["fov"] = fov
     arcsinh["fov"] = fov
-    _add_time(timings, "assembly_s", t0)
     return normalized, arcsinh
 
 
@@ -466,7 +520,8 @@ def generate_cell_table(segmentation_dir, tiff_dir, img_sub_folder="TIFs",
     there atomically with the identity of the inputs they came from, and a
     rerun loads finished FOVs instead of extracting them again; a parameter
     manifest invalidates parts written under other settings. The result of
-    a resumed run equals a straight run bit for bit."""
+    a resumed run equals a straight run bit for bit. The call is one
+    ``quant.cell_table`` span tree (module docstring)."""
     mask_types = ["whole_cell"] if mask_types is None else mask_types
     if fovs is None:
         fovs = io_utils.list_folders(tiff_dir)
@@ -485,75 +540,111 @@ def generate_cell_table(segmentation_dir, tiff_dir, img_sub_folder="TIFs",
                  kwargs=sorted((k, repr(v)) for k, v in kwargs.items())))
 
     normalized_tables, arcsinh_tables = [], []
-    for fov_name in fovs:
-        part_path = os.path.join(checkpoint_dir, fov_name + ".quant.pkl") \
-            if checkpoint_dir is not None else None
-        ident = None if part_path is None else _fov_input_identity(
-            fov_name, segmentation_dir, tiff_dir, img_sub_folder,
-            mask_types, add_underscore, nuclear_counts)
-        if part_path is not None and os.path.exists(part_path):
+    with profiling.span("quant.cell_table", fovs=len(fovs),
+                        nuclear_counts=bool(nuclear_counts)) as root:
+        for fov_name in fovs:
+            with profiling.span("quant.fov", fov=fov_name) as fov_span:
+                norm, arcsinh, channels = _fov_tables(
+                    fov_name, segmentation_dir, tiff_dir, img_sub_folder,
+                    extraction, nuclear_counts, fast_extraction, mask_types,
+                    add_underscore, checkpoint_dir, device=device, **kwargs)
+            if channels is None:
+                fov_span.attrs["resumed"] = True
+            else:
+                root.attrs["channels"] = channels
+            normalized_tables.extend(norm)
+            arcsinh_tables.extend(arcsinh)
+        with profiling.span("quant.assemble"):
+            return (pd.concat(normalized_tables),
+                    pd.concat(arcsinh_tables))
+
+
+def _fov_tables(fov_name, segmentation_dir, tiff_dir, img_sub_folder,
+                extraction, nuclear_counts, fast_extraction, mask_types,
+                add_underscore, checkpoint_dir, *, device, **kwargs):
+    """One FOV's (size-normalized, arcsinh) tables, two lists with one
+    DataFrame a mask type, and the number of channels read: loaded from its
+    checkpoint part when that part is of these inputs (channels None), else
+    extracted (and the part written)."""
+    part_path = os.path.join(checkpoint_dir, fov_name + ".quant.pkl") \
+        if checkpoint_dir is not None else None
+    ident = None if part_path is None else _fov_input_identity(
+        fov_name, segmentation_dir, tiff_dir, img_sub_folder,
+        mask_types, add_underscore, nuclear_counts)
+    if part_path is not None and os.path.exists(part_path):
+        with profiling.span("quant.load"):
             loaded = _load_part(part_path)
-            # a part from other inputs (or without an identity) is stale
-            if loaded is not None and len(loaded) == 3 and loaded[2] == ident:
-                normalized_tables.extend(loaded[0])
-                arcsinh_tables.extend(loaded[1])
-                continue
-        fov_norm_parts, fov_arcsinh_parts = [], []
+        # a part from other inputs (or without an identity) is stale
+        if loaded is not None and len(loaded) == 3 and loaded[2] == ident:
+            return loaded[0], loaded[1], None
+
+    with profiling.span("quant.load"):
         image_data = load_utils.load_imgs_from_tree(
             data_dir=tiff_dir, img_sub_folder=img_sub_folder, fovs=[fov_name])
-        for mask_type in mask_types:
-            if mask_type is None:
-                mask_type, mask_suff = "cell_mask", None
-            else:
-                mask_suff = "_" + mask_type if add_underscore else mask_type
-            fov_mask_name = (fov_name + mask_suff + ".tiff") if mask_suff \
-                else fov_name + ".tiff"
-            current_labels_cell = load_utils.load_imgs_from_dir(
-                data_dir=segmentation_dir, files=[fov_mask_name],
-                xr_dim_name="compartments", xr_channel_names=[mask_type],
-                trim_suffix=mask_suff)
-            compartments = ["whole_cell"]
-            seg_vals = current_labels_cell.values
-            if nuclear_counts and mask_type == "whole_cell":
-                current_labels_nuc = load_utils.load_imgs_from_dir(
-                    data_dir=segmentation_dir,
-                    files=[fov_name + "_nuclear.tiff"],
-                    xr_dim_name="compartments", xr_channel_names=["nuclear"],
-                    trim_suffix="_nuclear")
-                compartments = ["whole_cell", "nuclear"]
-                seg_vals = np.concatenate(
-                    (current_labels_cell.values, current_labels_nuc.values),
-                    axis=-1)
+        labels_of = [_mask_labels(segmentation_dir, fov_name, mask_type,
+                                  add_underscore, nuclear_counts)
+                     for mask_type in mask_types]
 
-            current_labels = DataArray(
-                seg_vals,
-                coords={"fovs": list(current_labels_cell.coords["fovs"]),
-                        "rows": current_labels_cell.coords["rows"],
-                        "cols": current_labels_cell.coords["cols"],
-                        "compartments": compartments})
-            # the nuclear compartment exists only for the whole_cell mask type
-            normalized, arcsinh = create_marker_count_matrices(
-                segmentation_labels=current_labels, image_data=image_data,
-                extraction=extraction,
-                nuclear_counts=nuclear_counts and "nuclear" in compartments,
-                fast_extraction=fast_extraction, device=device, **kwargs)
+    fov_norm_parts, fov_arcsinh_parts = [], []
+    for mask_type, current_labels in labels_of:
+        # the nuclear compartment exists only for the whole_cell mask type
+        compartments = list(current_labels.coords["compartments"])
+        normalized, arcsinh = create_marker_count_matrices(
+            segmentation_labels=current_labels, image_data=image_data,
+            extraction=extraction,
+            nuclear_counts=nuclear_counts and "nuclear" in compartments,
+            fast_extraction=fast_extraction, device=device, **kwargs)
+        with profiling.span("quant.assemble"):
             mask_type_str = "whole_cell" \
                 if mask_type == "final_cells_remaining" else mask_type
             normalized["mask_type"] = mask_type_str
             arcsinh["mask_type"] = mask_type_str
-            fov_norm_parts.append(normalized)
-            fov_arcsinh_parts.append(arcsinh)
+        fov_norm_parts.append(normalized)
+        fov_arcsinh_parts.append(arcsinh)
 
-        normalized_tables.extend(fov_norm_parts)
-        arcsinh_tables.extend(fov_arcsinh_parts)
-        if part_path is not None:
+    if part_path is not None:
+        with profiling.span("quant.checkpoint") as sp:
             # atomic commit: a kill mid-write leaves a .tmp the rerun ignores
             tmp = part_path + ".tmp"
             pd.to_pickle((fov_norm_parts, fov_arcsinh_parts, ident), tmp)
+            sp.attrs["bytes"] = os.path.getsize(tmp)
             os.replace(tmp, part_path)
+    return fov_norm_parts, fov_arcsinh_parts, int(image_data.shape[-1])
 
-    return (pd.concat(normalized_tables),
-            pd.concat(arcsinh_tables))
+
+def _mask_labels(segmentation_dir, fov_name, mask_type, add_underscore,
+                 nuclear_counts):
+    """(mask type as named, its (1, H, W, compartments) label DataArray):
+    the mask of `mask_type`, and for the whole-cell mask with
+    `nuclear_counts` the nuclear one beside it."""
+    if mask_type is None:
+        mask_type, mask_suff = "cell_mask", None
+    else:
+        mask_suff = "_" + mask_type if add_underscore else mask_type
+    fov_mask_name = (fov_name + mask_suff + ".tiff") if mask_suff \
+        else fov_name + ".tiff"
+    current_labels_cell = load_utils.load_imgs_from_dir(
+        data_dir=segmentation_dir, files=[fov_mask_name],
+        xr_dim_name="compartments", xr_channel_names=[mask_type],
+        trim_suffix=mask_suff)
+    compartments = ["whole_cell"]
+    seg_vals = current_labels_cell.values
+    if nuclear_counts and mask_type == "whole_cell":
+        current_labels_nuc = load_utils.load_imgs_from_dir(
+            data_dir=segmentation_dir,
+            files=[fov_name + "_nuclear.tiff"],
+            xr_dim_name="compartments", xr_channel_names=["nuclear"],
+            trim_suffix="_nuclear")
+        compartments = ["whole_cell", "nuclear"]
+        seg_vals = np.concatenate(
+            (current_labels_cell.values, current_labels_nuc.values),
+            axis=-1)
+    return mask_type, DataArray(
+        seg_vals,
+        coords={"fovs": list(current_labels_cell.coords["fovs"]),
+                "rows": current_labels_cell.coords["rows"],
+                "cols": current_labels_cell.coords["cols"],
+                "compartments": compartments})
 
 
 def _load_part(part_path):

@@ -23,6 +23,7 @@ from ark_tpu_torch.io import load_utils
 from ark_tpu_torch.io.image_utils import save_image
 from ark_tpu_torch.ops import convex as convex_ops
 from ark_tpu_torch.ops import morphology
+from ark_tpu_torch.utils import profiling
 from ark_tpu_torch.utils.misc_utils import verify_in_list
 
 
@@ -40,7 +41,15 @@ def match_nuclei_to_cells(cell_labels: np.ndarray,
                           nuc_labels: np.ndarray) -> Dict[int, int]:
     """Max-overlap nucleus per cell, all cells in one pass (a joint
     histogram over (cell, nucleus) pixel pairs); an overlap tie goes to the
-    lowest nucleus id, as the reference's per-cell argmax gives it."""
+    lowest nucleus id, as the reference's per-cell argmax gives it. The
+    call is a ``quant.match_nuclei`` span with the ``matched`` count."""
+    with profiling.span("quant.match_nuclei") as sp:
+        matched = _match_nuclei(cell_labels, nuc_labels)
+        sp.attrs["matched"] = len(matched)
+    return matched
+
+
+def _match_nuclei(cell_labels: np.ndarray, nuc_labels: np.ndarray) -> Dict[int, int]:
     cells = cell_labels.reshape(-1)
     nucs = nuc_labels.reshape(-1)
     both = (cells > 0) & (nucs > 0)

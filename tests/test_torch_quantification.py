@@ -172,14 +172,41 @@ def cohort(tmp_path):
                 img_sub_folder=None), tmp_path
 
 
+# the nuclear columns the hull gives
+HULL_NUCLEAR = [c + "_nuclear" for c in ("convex_area", "convex_hull_resid", "centroid_dif",
+                                         "num_concavities")]
+
+
+def _hull_of_shared_nuclei(table):
+    """`table` with a nucleus that is several cells' best match given, in
+    every one of its rows, the hull columns of its last row. The JAX
+    package's ``convex_features`` fills only the last row of an id asked
+    for twice and leaves the others 0; the port rasters the nucleus once and
+    repeats it."""
+    table = table.copy()
+    for fov, rows in table.groupby("fov").groups.items():
+        nuc = table.loc[rows, "label_nuclear"]
+        for nid in nuc[nuc.duplicated(keep=False) & (nuc > 0)].unique():
+            same = nuc.index[nuc == nid]
+            table.loc[same, HULL_NUCLEAR] = table.loc[same[-1], HULL_NUCLEAR].to_numpy()
+    return table
+
+
 @pytest.mark.parametrize("extraction,kwargs", EXTRACTIONS[:4])
 def test_generate_cell_table_matches_jax(cohort, extraction, kwargs):
+    """Equal but for the hull columns of a nucleus shared by two cells,
+    which the port gives in each of their rows (``_hull_of_shared_nuclei``);
+    the cohort has such nuclei."""
     dirs, _ = cohort
     kw = dict(dirs, extraction=extraction, nuclear_counts=True, **kwargs)
     got = TQ.generate_cell_table(device="cpu", **kw)
     want = JQ.generate_cell_table(**kw)
+    shared = want[0]["label_nuclear"].groupby(want[0]["fov"]).apply(
+        lambda n: bool((n[n > 0].duplicated()).any()))
+    assert shared.any()
     for g, w in zip(got, want):
-        assert_tables_equal(g, w)
+        assert_tables_equal(g, _hull_of_shared_nuclei(w.reset_index(drop=True))
+                            .set_axis(w.index))
 
 
 def test_generate_cell_table_fast_and_extra_mask_types_match_jax(cohort):

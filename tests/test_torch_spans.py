@@ -8,6 +8,11 @@ the `feather.write` bytes equal to the files left on disk. Template 1's
 `mesmer.<phase>` span for each phase with its device (here the host's)
 milliseconds, and a `watershed.flood` whose `blocks` count the loops run
 (the minimax engine's two loops are its children, each with its count).
+Template 1's `generate_cell_table` on tests/test_torch_cell_table_reference.py's
+tree: one `quant.cell_table` root, a `quant.fov` a FOV with its steps as
+children, `create_marker_count_matrices`'s `timings` filled from its steps,
+and the benchmark's `table.*` readers reading the tree (None from a program
+without spans).
 """
 
 import os
@@ -21,6 +26,7 @@ from ark_tpu_torch.phenotyping import pixie_fused
 from ark_tpu_torch.segmentation import mesmer as TM
 from ark_tpu_torch.segmentation import synthetic as TS
 from ark_tpu_torch.utils import profiling
+from tests import test_torch_cell_table_reference as cell_table
 from tests.phenotyping.test_pixie_fused import CHANNELS, FOVS, MAX_K, _build_cohort
 
 torch.set_num_threads(2)
@@ -198,3 +204,99 @@ def test_host_postprocess_hands_its_span_to_the_pool(app, fovs):
     assert post["parent"] == root["id"]
     assert sorted(s["attrs"]["fov"] for s in floods) == [0, 0, 1, 1]
     assert all(s["parent"] == post["id"] and s["root"] == root["id"] for s in floods)
+
+
+QUANT_STEPS = {"quant.load": 1, "quant.match_nuclei": 1, "quant.reduce": 2,
+               "quant.convex": 2, "quant.concavities": 2, "quant.checkpoint": 1}
+QUANT_TIMINGS = {"device_reductions_s": ("quant.reduce",),
+                 "convex_s": ("quant.convex", "quant.concavities"),
+                 "assembly_s": ("quant.assemble",)}
+
+
+@pytest.fixture(scope="module")
+def quant_run(tmp_path_factory):
+    base = str(tmp_path_factory.mktemp("quant_spans"))
+    tree = cell_table.write_tree(base, *cell_table._cohort())
+    out, spans = _recorded(lambda: cell_table.run_job(base, *tree))
+    return out, tree, spans
+
+
+def test_cell_table_is_one_tree_with_a_fov_span_a_fov(quant_run):
+    _, _, spans = quant_run
+    (root,) = [s for s in spans if s["parent"] is None]
+    assert root["name"] == "quant.cell_table"
+    assert root["attrs"] == {"fovs": 2, "channels": len(cell_table.CHANNELS),
+                             "nuclear_counts": True}
+    assert {s["root"] for s in spans} == {root["id"]}
+    fovs = [s for s in spans if s["name"] == "quant.fov"]
+    assert sorted(s["attrs"]["fov"] for s in fovs) == cell_table.FOVS
+    assert all(s["parent"] == root["id"] for s in fovs)
+    by_id = {s["id"]: s for s in spans}
+    for fov in fovs:
+        kids = [s for s in spans if s["parent"] == fov["id"]]
+        counts = {n: sum(s["name"] == n for s in kids) for n in QUANT_STEPS}
+        assert counts == QUANT_STEPS, fov["attrs"]["fov"]
+        assert any(s["name"] == "quant.assemble" for s in kids)
+        assert {s["name"] for s in kids} <= set(QUANT_STEPS) | {"quant.assemble"}
+    # the codec's reads sit inside the loads: 6 channels and 2 masks a FOV
+    reads = [s for s in spans if s["name"] == "tiff.read"]
+    assert len(reads) == 2 * (len(cell_table.CHANNELS) + 2)
+    assert all(by_id[s["parent"]]["name"] == "quant.load" for s in reads)
+
+
+def test_cell_table_step_attributes(quant_run):
+    out, _, spans = quant_run
+    reduces = [s for s in spans if s["name"] == "quant.reduce"]
+    assert sorted(s["attrs"]["comp"] for s in reduces) == ["nuclear"] * 2 + ["whole_cell"] * 2
+    # CPU tensors launch no kernel; the host's clock stands for the device's
+    assert all(s["attrs"]["segment_sum"] == 0 and s["attrs"]["plan"] == 0
+               and s["device_ms"] is not None for s in reduces)
+    for s in (s for s in spans if s["name"] == "quant.convex"):
+        a = s["attrs"]
+        assert a["comp"] in ("whole_cell", "nuclear")
+        assert a["device_cells"] + a["host_cells"] <= a["cells"] and a["cells"] > 0
+    assert sum(s["attrs"]["host_cells"] for s in spans if s["name"] == "quant.convex") == 2
+    crops = [s["attrs"]["crops"] for s in spans if s["name"] == "quant.concavities"]
+    assert len(crops) == 4 and sum(crops) > 0
+    matched = [s["attrs"]["matched"] for s in spans if s["name"] == "quant.match_nuclei"]
+    assert len(matched) == 2 and min(matched) > 0
+    parts = [os.path.join(out, "parts", f"{f}.quant.pkl") for f in cell_table.FOVS]
+    written = [s["attrs"]["bytes"] for s in spans if s["name"] == "quant.checkpoint"]
+    assert written == [os.path.getsize(p) for p in parts]
+
+
+def test_cell_table_timings_are_the_step_spans(quant_run):
+    from ark_tpu_torch.io import load_utils
+    from ark_tpu_torch.segmentation import marker_quantification as TQ
+
+    _, (tiff_dir, seg_dir), _ = quant_run
+    images = load_utils.load_imgs_from_tree(tiff_dir, img_sub_folder=None, fovs=["fov0"])
+    _, labels = TQ._mask_labels(seg_dir, "fov0", "whole_cell", True, True)
+    timings = {}
+    _, spans = _recorded(lambda: TQ.create_marker_count_matrices(
+        labels, images, nuclear_counts=True, device="cpu", timings=timings))
+    assert set(timings) == set(QUANT_TIMINGS)
+    for key, names in QUANT_TIMINGS.items():
+        mine = [_seconds(s) for s in spans if s["name"] in names]
+        assert mine, key
+        assert timings[key] == pytest.approx(sum(mine), rel=1e-6, abs=1e-6)
+
+
+def test_cell_table_readers_read_the_tree(quant_run, monkeypatch):
+    from portbench import run as harness
+
+    _, _, spans = quant_run
+    monkeypatch.setattr(profiling, "spans", lambda: [dict(s) for s in spans])
+    rec = {"attempted": 1, "fovs": 2}
+
+    def total(*names):
+        return sum(_seconds(s) for s in spans if s["name"] in names)
+    want = {"table.load_s_per_fov": total("quant.load") / 2,
+            "table.reduce_ms_per_fov": 1e3 * total("quant.reduce") / 2,
+            "table.convex_s_per_fov": total("quant.convex", "quant.concavities") / 2,
+            "table.assemble_s_per_fov": total("quant.assemble") / 2}
+    for name, value in want.items():
+        assert harness.read_metric(name, rec) == pytest.approx(value) and value > 0
+    monkeypatch.delattr(profiling, "spans")                      # a program without spans
+    for name in want:
+        assert harness.read_metric(name, rec) is None
