@@ -292,6 +292,7 @@ def _dryrun_rank(r: int, ws: int, inputs, mini: bool, device, out_dir) -> None:
     counters = {"bmu": som.bmu, "claim_round": watershed.claim_round,
                 "claim_levels": watershed.claim_levels,
                 "minimax_relabel": watershed.minimax_relabel,
+                "minimax_relax": watershed.minimax_relax,
                 "segment_sum": segment_reduce.segment_sum,
                 "segment_plan": segment_reduce.segment_plan}
     for fn in counters.values():

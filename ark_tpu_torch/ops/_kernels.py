@@ -47,6 +47,13 @@ _SIGNATURES = {
                                         _i, _i, _i, _p, _p, _p, _p, _p, _p], _i),
         "ark_minimax_relabel_error_string": ([_i], ctypes.c_char_p),
     },
+    "minimax_relax": {
+        "ark_minimax_relax_plan": ([_i, ctypes.c_int32, ctypes.c_int32, _i, _i, _i, _p], _i),
+        "ark_minimax_relax_launch": ([_p, _p, _p, _i, ctypes.c_int32, ctypes.c_int32,
+                                      ctypes.c_int32, _i, _i, _i, _p, _p, ctypes.c_longlong,
+                                      _p, _p, _p, _p, _p], _i),
+        "ark_minimax_relax_error_string": ([_i], ctypes.c_char_p),
+    },
     "segment_sum": {
         "ark_segment_plan_launch": ([_p, ctypes.c_longlong, _i, _i, _p, _p], _i),
         "ark_segment_sum_launch": ([_p, _p, _i, _p, _i, _i, _i, _i, _p, _p], _i),

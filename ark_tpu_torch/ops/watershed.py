@@ -9,14 +9,18 @@ Two engines, chosen by the module global ``_ENGINE`` as in the reference:
 
 - ``"minimax"`` (the default): packed (value, label) relaxation of the
   minimax recurrence, accelerated by four directional scans per block, then a
-  breadth-first re-labeling over optimal edges (``_flood_minimax``). The
-  re-labeling is ``minimax_relabel``: on a CUDA tensor one launch of the
-  hand-written cooperative kernel in ``ark_tpu_torch/csrc/minimax_relabel.cu``
-  runs all its rounds on the card (where the plain loop made ~20 launches a
-  round and a synchronising comparison every 16) and is read back once; it
-  keeps the reference's rule of blocks of 16 rounds, and its rounds stay
-  synchronous, so labels, flag and block count are the plain loop's. On a
-  CPU tensor the plain loop of ``_refine_round`` blocks runs.
+  breadth-first re-labeling over optimal edges (``_flood_minimax``). Both
+  halves are one launch each of a hand-written cooperative kernel on a CUDA
+  tensor, read back once, and their plain loops on a CPU tensor. The
+  relaxation is ``minimax_relax`` (``ark_tpu_torch/csrc/minimax_relax.cu``):
+  every block's sweep, replaying ``_associative_scan``'s tree line by line,
+  its 16 rounds and its probe run on the card, where the plain loop
+  ``_relax_plain`` dispatched ~1,700 torch ops a block and a synchronising
+  comparison. The re-labeling is ``minimax_relabel``
+  (``ark_tpu_torch/csrc/minimax_relabel.cu``), where the plain loop of
+  ``_refine_round`` blocks made ~20 launches a round. Each keeps the
+  reference's blocks and stopping rule, and its rounds stay synchronous, so
+  keys, labels, flags and block counts are the plain loops'.
 - ``"levels"``: the level scan (``_flood``). For each of `levels` levels,
   claim rounds until a round changes nothing, at most `bfs_rounds` of them
   (phase A); if phase A did not converge, the level is finished exactly with
@@ -36,8 +40,8 @@ owns a tie.
 
 ``flood`` runs in a ``watershed.flood`` span: its ``engine``, and its
 ``blocks``: the minimax engine's relaxation and re-labeling blocks (each
-loop a child span with its own count; the re-labeling's also with its
-``rounds`` and its ``engine``, "kernel" or "plain"), the level engine's
+loop a child span with its own count and its ``engine``, "kernel" or
+"plain"; the re-labeling's also with its ``rounds``), the level engine's
 claim rounds.
 """
 
@@ -435,6 +439,117 @@ def _minimax_sweep(pk, qs, labm: int, claimable, absorb: int):
     return pk
 
 
+def _relax_plain(pk, qs, labm: int, claimable, absorb: int, n_blocks: int):
+    """The relaxation's plain loop on any device: blocks of one sweep,
+    ``_MINIMAX_BLOCK`` rounds and a probe round, until a probe changes
+    nothing, at most `n_blocks` blocks. Returns (keys, converged, blocks)."""
+    done = False
+    block = 0
+    for block in range(1, n_blocks + 1):
+        pk = _minimax_sweep(pk, qs, labm, claimable, absorb)
+        for _ in range(_MINIMAX_BLOCK):
+            pk = _minimax_round(pk, qs, labm, claimable)
+        # certificate: one more NEIGHBOUR round changes nothing
+        probe = _minimax_round(pk, qs, labm, claimable)
+        done = torch.equal(probe, pk)
+        pk = probe
+        if done:
+            break
+    return pk, done, block
+
+
+def minimax_relax(pk, qs, labm: int, claimable, absorb: int, n_blocks: int):
+    """The minimax flood's relaxation from first keys `pk` over shifted
+    heights `qs` ((B, H, W) int32, each a multiple of ``labm + 1`` below
+    `absorb`; `claimable` bool): the CUDA kernel for CUDA tensors,
+    ``_relax_plain`` for CPU ones, in a ``watershed.relax`` span with the
+    `blocks` run and the `engine` that ran them ("kernel" or "plain").
+    Returns (keys, converged, blocks), those of ``_relax_plain`` bit for bit.
+    On CUDA tensors it makes one cooperative launch of
+    ``ark_minimax_relax_launch`` on the current stream, never writes into
+    its operands, reads its status back once and raises if the launch is
+    refused or a height is out of range; it never falls back.
+    ``minimax_relax.launches`` counts kernel launches,
+    ``minimax_relax.blocks`` the blocks run on either device."""
+    with profiling.span("watershed.relax") as span:
+        if pk.device.type == "cpu":
+            out, engine = _relax_plain(pk, qs, labm, claimable, absorb, n_blocks), "plain"
+        else:
+            _check_relax_operands(pk, qs, labm, claimable, absorb)
+            pk, qs, claimable = (t.contiguous() for t in (pk, qs, claimable))
+            bufs, status = _launch_relax(pk, qs, labm, claimable, absorb, n_blocks)
+            blocks, which, done, bad = status.tolist()
+            if bad:
+                raise ValueError(f"minimax_relax: a height is not a multiple of "
+                                 f"{labm + 1} in [0, {absorb})")
+            out, engine = (bufs[which], bool(done), blocks), "kernel"
+        span.attrs.update(engine=engine, blocks=out[2])
+    _relax_counts.blocks += out[2]
+    return out
+
+
+def _check_relax_operands(pk, qs, labm: int, claimable, absorb: int):
+    """Refuse what the relaxation kernel does not take: a label mask that is
+    not 2^lb - 1 (1 <= lb <= 30) or an absorbing gate that is not a positive
+    multiple of 2^lb, operands off one CUDA device, dtypes other than int32
+    keys and heights and a bool mask, shapes that are not one (B, H, W)."""
+    lb = int(labm).bit_length()
+    if not (1 <= lb <= 30 and labm == (1 << lb) - 1 and absorb > 0 and absorb & labm == 0):
+        raise ValueError(f"minimax_relax: label mask {labm} and absorbing gate {absorb}: "
+                         f"the kernel takes 2^lb - 1 (1 <= lb <= 30) and a positive "
+                         f"multiple of 2^lb")
+    if pk.device.type != "cuda" or any(t.device != pk.device for t in (qs, claimable)):
+        raise ValueError(f"minimax_relax: keys on {pk.device}, heights on {qs.device}, "
+                         f"claimable on {claimable.device}; the kernel takes all on one "
+                         f"CUDA device")
+    if pk.dtype != torch.int32 or qs.dtype != torch.int32 or claimable.dtype != torch.bool:
+        raise TypeError(f"minimax_relax: the kernel takes int32 keys and heights and a "
+                        f"bool mask, got {pk.dtype}, {qs.dtype}, {claimable.dtype}")
+    if pk.ndim != 3 or not qs.shape == claimable.shape == pk.shape:
+        raise ValueError(f"minimax_relax: (B, H, W) operands of one shape expected, got "
+                         f"{[tuple(t.shape) for t in (pk, qs, claimable)]}")
+
+
+def _launch_relax(pk, qs, labm: int, claimable, absorb: int, n_blocks: int):
+    """One launch of the relaxation kernel on checked, contiguous CUDA
+    operands, on the current stream, without synchronising: returns (its two
+    key buffers, its status: the blocks run, which buffer holds the keys, 1
+    if the last probe changed nothing, 1 if a height was refused), and
+    counts the launch in ``minimax_relax.launches``."""
+    b, h, w = pk.shape
+    lb = int(labm).bit_length()
+    lib = _kernels.lib("minimax_relax")
+    plan = (ctypes.c_longlong * 5)()
+    with torch.cuda.device(pk.device):
+        err = lib.ark_minimax_relax_plan(lb, int(labm), int(absorb), b, h, w, plan)
+        if err == 0:
+            tree_bytes, packed_bytes = plan[3], plan[4]
+            packed = torch.empty(b * h * w * packed_bytes, dtype=torch.uint8,
+                                 device=pk.device)
+            tree = torch.empty(max(tree_bytes, 16), dtype=torch.uint8, device=pk.device)
+            bufs = (torch.empty_like(pk), torch.empty_like(pk))
+            # four flags, then the status
+            scratch = torch.zeros(8, dtype=torch.int32, device=pk.device)
+            stream = torch.cuda.current_stream(pk.device).cuda_stream
+            err = lib.ark_minimax_relax_launch(
+                pk.data_ptr(), qs.data_ptr(), claimable.data_ptr(), lb, int(labm),
+                int(absorb), int(n_blocks), b, h, w, packed.data_ptr(), tree.data_ptr(),
+                tree_bytes, bufs[0].data_ptr(), bufs[1].data_ptr(), scratch.data_ptr(),
+                scratch[4:].data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"relaxation kernel launch failed: "
+                           f"{lib.ark_minimax_relax_error_string(err).decode()} ({err})")
+    _relax_counts.launches += 1
+    return bufs, scratch[4:]
+
+
+minimax_relax.launches = 0
+minimax_relax.blocks = 0
+# the counters' owner under a name of its own, as `_relabel_counts`: a stand-in
+# patched over `minimax_relax` keeps its own counts
+_relax_counts = minimax_relax
+
+
 def _refine_round(newlab, pk, qs, lb: int, labm: int, claimable):
     """One synchronous breadth-first re-labeling round over OPTIMAL edges:
     an unclaimed pixel p takes the min label among relabeled 4-neighbours u
@@ -577,15 +692,17 @@ _relabel_counts = minimax_relabel
 
 def _flood_minimax(q, markers, mask, levels: int, rounds: int, stats=None):
     """Minimax flood on pre-quantized q; returns (labels, converged). The
-    relaxation's blocks run in a ``watershed.relax`` span with its `blocks`;
-    the re-labeling (``minimax_relabel``: one kernel launch on CUDA tensors,
-    the plain loop of ``_refine_round`` blocks on CPU ones) in its
+    relaxation (``minimax_relax``: one kernel launch on CUDA tensors, the
+    plain loop of sweep-and-round blocks on CPU ones) runs in its
+    ``watershed.relax`` span with the `blocks` run and the `engine`; the
+    re-labeling (``minimax_relabel``: one kernel launch on CUDA tensors, the
+    plain loop of ``_refine_round`` blocks on CPU ones) in its
     ``watershed.relabel`` span with the plain loop's `blocks`, the `rounds`
-    run and the `engine` that ran them; `stats`, a dict, gets the
-    two block counts' sum as `blocks`. The kernel keeps the plain loop's
-    rule of blocks of ``_MINIMAX_BLOCK`` rounds (see
-    ``csrc/minimax_relabel.cu``), and its rounds stay synchronous, so the
-    labels, flag and blocks are the plain loop's."""
+    run and the `engine` that ran them; `stats`, a dict, gets the two block
+    counts' sum as `blocks`. Both kernels keep their plain loop's blocks and
+    stopping rule, and their rounds stay synchronous (see
+    ``csrc/minimax_relax.cu`` and ``csrc/minimax_relabel.cu``), so keys,
+    labels, flags and blocks are the plain loops'."""
     lb = _label_bits(levels)
     labm = (1 << lb) - 1
     lab0 = torch.where((markers > 0) & mask, markers.to(torch.int32), 0)
@@ -595,25 +712,11 @@ def _flood_minimax(q, markers, mask, levels: int, rounds: int, stats=None):
     absorb = levels << lb
     n_blocks = -(-rounds // _MINIMAX_BLOCK)
 
-    done = False
-    block = 0
-    with profiling.span("watershed.relax") as relax:
-        for block in range(1, n_blocks + 1):
-            pk = _minimax_sweep(pk, qs, labm, claimable, absorb)
-            for _ in range(_MINIMAX_BLOCK):
-                pk = _minimax_round(pk, qs, labm, claimable)
-            # certificate: one more NEIGHBOUR round changes nothing
-            probe = _minimax_round(pk, qs, labm, claimable)
-            done = torch.equal(probe, pk)
-            pk = probe
-            if done:
-                break
-        relax.attrs["blocks"] = block
-
+    pk, done, relax_blocks = minimax_relax(pk, qs, labm, claimable, absorb, n_blocks)
     newlab, rdone, relabel_blocks, _ = minimax_relabel(lab0, pk, qs, lb, labm, claimable,
                                                        n_blocks)
     if stats is not None:
-        stats["blocks"] = relax.attrs["blocks"] + relabel_blocks
+        stats["blocks"] = relax_blocks + relabel_blocks
     lab = torch.where(pk == _LAB_SENTINEL, 0, newlab)
     # labels must fit the packed key's label field; an overflow folds into
     # the flag so callers take their certified fallback

@@ -25,7 +25,9 @@ started together) and drives these paths on the card:
   plain loop on the operands of the 3 x 1024^2 cohort's floods and of two
   4 x 1024^2 cell-like reliefs, one crossing a plateau in as many rounds as
   the benchmark's floods (at the flood's budget and at 1 and 3 blocks;
-  timed with its bound), and a small cohort's CPU and CUDA runs;
+  timed with its bound), the relaxation kernel against its plain loop on
+  the same floods' operands (bitwise, at the same budgets; untimed), and a
+  small cohort's CPU and CUDA runs;
 - template 1's cell table and template 3's cell clustering: the segment
   plan and segment-sum kernels against their plain versions (the sums
   against index_add_ on a CPU copy) and against themselves, on dense
@@ -1046,10 +1048,12 @@ def run_device_postprocess(cohorts):
     checkpoint on the benchmark's cohorts, under each flood engine, with the
     level engine's launches of the level-scan kernel, its rounds and phase
     B's one-round launches per flood, and the minimax engine's launches of
-    the re-labeling kernel (one a flood) and its rounds. Returns the level
+    the re-labeling kernel and of the relaxation kernel (one each a flood),
+    the re-labeling's rounds and the relaxation's blocks. Returns the level
     engine's counts ({"launches", "rounds", "round_launches"}) in its run
-    of the first cohort, the minimax engine's ({cohort: {"launches",
-    "rounds", "floods"}}), the Mesmer, and each cohort's masks under the
+    of the first cohort, the minimax engine's ({cohort: {"floods",
+    "relabel_launches", "relabel_rounds", "relax_launches",
+    "relax_blocks"}}), the Mesmer, and each cohort's masks under the
     default (minimax) engine."""
     import torch
 
@@ -1061,7 +1065,7 @@ def run_device_postprocess(cohorts):
     mesmer.segment_fovs(cohorts[first][0][:1], app=app, device=DEVICE,
                         postprocess="device")                        # warm-up
     claim_counts = None
-    relabel_counts = {}
+    minimax_counts = {}
     masks = {}
     for name, (fovs, batch) in cohorts.items():
         labels = {}
@@ -1073,6 +1077,7 @@ def run_device_postprocess(cohorts):
             watershed.claim_levels.launches = watershed.claim_levels.rounds = 0
             watershed.claim_round.launches = 0
             watershed.minimax_relabel.launches = watershed.minimax_relabel.rounds = 0
+            watershed.minimax_relax.launches = watershed.minimax_relax.blocks = 0
             t0 = time.perf_counter()
             out = mesmer.segment_fovs(fovs, app=app, batch_size=batch,
                                       device=DEVICE, postprocess="device")
@@ -1081,14 +1086,20 @@ def run_device_postprocess(cohorts):
             counts = {"launches": watershed.claim_levels.launches,
                       "rounds": watershed.claim_levels.rounds,
                       "round_launches": watershed.claim_round.launches}
-            relabel = {"launches": watershed.minimax_relabel.launches,
-                       "rounds": watershed.minimax_relabel.rounds, "floods": floods}
-            check(relabel["launches"] == (floods if engine == "minimax" else 0)
-                  and (relabel["rounds"] > 0) == (engine == "minimax"),
-                  f"{name} {engine}: re-labeling kernel launches and rounds {relabel}, "
-                  f"{floods} floods")
-            if engine == "minimax":
-                relabel_counts[name] = relabel
+            flood_kernels = {"floods": floods,
+                             "relabel_launches": watershed.minimax_relabel.launches,
+                             "relabel_rounds": watershed.minimax_relabel.rounds,
+                             "relax_launches": watershed.minimax_relax.launches,
+                             "relax_blocks": watershed.minimax_relax.blocks}
+            minimax = engine == "minimax"
+            check(flood_kernels["relabel_launches"] == flood_kernels["relax_launches"]
+                  == (floods if minimax else 0)
+                  and (flood_kernels["relabel_rounds"] > 0)
+                  == (flood_kernels["relax_blocks"] > 0) == minimax,
+                  f"{name} {engine}: re-labeling and relaxation kernel launches, rounds "
+                  f"and blocks {flood_kernels}, {floods} floods")
+            if minimax:
+                minimax_counts[name] = flood_kernels
             check(app.host_fallbacks == 0,
                   f"{name} {engine}: {app.host_fallbacks} host fallbacks")
             check((counts["launches"] > 0) == (engine == "levels")
@@ -1114,9 +1125,12 @@ def run_device_postprocess(cohorts):
                   f"{counts['round_launches']}, instances per FOV {per_fov}; "
                   f"phases (synchronised run, s): "
                   + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
-            if engine == "minimax":
-                print(f"e2e {name} minimax: {floods} floods, {relabel['launches']} "
-                      f"re-labeling launches of {relabel['rounds']} rounds in all")
+            if minimax:
+                print(f"e2e {name} minimax: {floods} floods, "
+                      f"{flood_kernels['relabel_launches']} re-labeling launches of "
+                      f"{flood_kernels['relabel_rounds']} rounds in all, "
+                      f"{flood_kernels['relax_launches']} relaxation launches of "
+                      f"{flood_kernels['relax_blocks']} blocks")
             if engine == "levels":
                 print(f"e2e {name} levels: {floods} floods, per flood "
                       f"{counts['rounds'] / floods:.1f} phase-A rounds in "
@@ -1139,7 +1153,7 @@ def run_device_postprocess(cohorts):
                   f"a share {differ:.3g} of pixels (filtered tie cells)")
         masks[name] = labels["minimax"]
     watershed._ENGINE = "minimax"
-    return claim_counts, relabel_counts, app, masks
+    return claim_counts, minimax_counts, app, masks
 
 
 # round budgets of phase 9's level floods: the main path's, then budgets
@@ -1215,6 +1229,10 @@ def compare_level_flood(relief):
 # every flood's re-labeling converges (flag False, the partial labels
 # compared), 3 before the cell-like reliefs'
 RELABEL_BUDGETS = (1, 3)
+# relaxation budgets of phase 9c beside the flood's own: 1 and 3 blocks end
+# before the crossing relief's relaxation converges (flag False, the partial
+# keys compared), 1 before the cell-like relief's
+RELAX_BUDGETS = (1, 3)
 # phase 9b's cell-like reliefs at the segmentation cell's batch shape; the
 # crossing one runs as many rounds as that cell's floods, and its timings go
 # into the kernels line
@@ -1244,6 +1262,58 @@ def relabel_operands(q, markers, fgmask):
     finally:
         watershed.minimax_relabel = real
     return got[0], flood
+
+
+def relax_operands(q, markers, fgmask, levels=256):
+    """The relaxation's operands as ``_flood_minimax`` hands them to
+    ``minimax_relax`` on `q`'s device (256 levels by default, the main
+    path's budget of 2 (H + W) rounds): (first keys, shifted heights, label
+    mask, claimable, absorbing gate, blocks)."""
+    from ark_tpu_torch.ops import watershed
+
+    got = []
+    real = watershed.minimax_relax
+
+    def capture(*args):
+        got.append(args)
+        return real(*args)
+
+    watershed.minimax_relax = capture
+    try:
+        h, w = q.shape[1:]
+        watershed._flood_minimax(q, markers, fgmask, levels, 2 * (h + w))
+    finally:
+        watershed.minimax_relax = real
+    return got[0]
+
+
+def relax_chunks(claimable):
+    """Chunks of 4 consecutive pixels of the flat stack (a round's unit of
+    work in the relaxation kernel) that hold a claimable pixel. Only those
+    are written in a round."""
+    import torch
+
+    bits = claimable.reshape(-1)
+    pad = -bits.numel() % 4
+    bits = torch.cat([bits, bits.new_zeros(pad)]) if pad else bits
+    return int(bits.reshape(-1, 4).any(1).sum())
+
+
+def relax_bound_ms(n, blocks, chunks, packed_bytes=2):
+    """(ms, the binding term) of the relaxation kernel's own traffic over
+    `n` pixels in `blocks` blocks, `chunks` of its 4-pixel chunks holding a
+    claimable pixel, with a packed word of `packed_bytes` a pixel (2, or 4
+    above 2^14 levels): the first phase's reads (keys, heights, mask: 9 B a
+    pixel) and writes (the packed word and both key buffers) once at HBM
+    speed; in each of a block's four scan passes and 17 rounds, every
+    pixel's key and packed word read, and in each round every chunk with a
+    claimable pixel written (16 B), at the L2 rate; 21 grid barriers a
+    block. This is a lower bound of the design's traffic, not the
+    relaxation's need: a scan pass's writes (only the keys that fall) and
+    the re-reads of a neighbour's key are not counted."""
+    passes = 21 * blocks
+    l2 = passes * (4.0 + packed_bytes) * n + 17 * blocks * 16.0 * chunks
+    return bound_ms(nbytes=(17.0 + packed_bytes) * n, l2_bytes=l2, barriers=passes)
 
 
 def relabel_chunks(pk, qs, lb, labm, claimable):
@@ -1350,6 +1420,45 @@ def check_relabel_kernel(floods):
               f"{share(bound, t['ms']):.2f} of the call, "
               f"{share(bound, t['device_ms']):.2f} of the launch [{CARD}]")
     return max_err, checked, timing
+
+
+def check_relax_kernel(floods):
+    """Phase 9c: the minimax flood's relaxation kernel against its plain
+    loop on the card, on the operands each minimax flood of `floods` (phase
+    9b's) hands it: ``minimax_relax`` against ``_relax_plain`` bitwise in
+    keys, flag and blocks at the flood's budget and at RELAX_BUDGETS blocks,
+    one launch a call, its operands unwritten. Untimed: the relaxation's
+    timer is ``scripts/port_kernel_ab.py --kernel relax``. Returns (max |key
+    difference|, the launches it checked)."""
+    import torch
+
+    from ark_tpu_torch.ops import watershed
+
+    max_err, checked = 0, 0
+    for comp, (q, markers, fgmask) in floods.items():
+        *ops, n_blocks = relax_operands(q, markers, fgmask)
+        tensors = [t for t in ops if isinstance(t, torch.Tensor)]
+        saved = [t.clone() for t in tensors]
+        runs = []
+        for budget in (n_blocks, *RELAX_BUDGETS):
+            before = watershed.minimax_relax.launches
+            got = watershed.minimax_relax(*ops, budget)
+            check(watershed.minimax_relax.launches == before + 1,
+                  f"relaxation {comp}, {budget} blocks: not one launch a call")
+            checked += 1
+            want = watershed._relax_plain(*ops, budget)
+            max_err = max(max_err, int((got[0].to(torch.int64)
+                                        - want[0].to(torch.int64)).abs().max()))
+            check(torch.equal(got[0], want[0]) and got[1:] == want[1:],
+                  f"relaxation {comp}, {budget} blocks: the kernel (flag {got[1]}, "
+                  f"{got[2]} blocks) and the plain loop ({want[1]}, {want[2]}) disagree, "
+                  f"{int((got[0] != want[0]).sum())} keys differ")
+            check(all(torch.equal(a, b) for a, b in zip(tensors, saved)),
+                  f"relaxation {comp}: the kernel wrote into its operands")
+            runs.append(f"{budget}: flag {got[1]}, {got[2]} blocks")
+        print(f"relaxation {comp} {tuple(q.shape)}: keys, flag and blocks equal to the "
+              f"plain loop, operands unwritten (budget in blocks: " + "; ".join(runs) + ")")
+    return max_err, checked
 
 
 def compare_segmentation_cpu_cuda():
@@ -2189,8 +2298,8 @@ def run_spatial_stage(table, name, target, reference, replay_fovs=None):
     from ark_tpu_torch.ops import segment_reduce, som, watershed
 
     counters = (som.bmu, watershed.claim_round, watershed.claim_levels,
-                watershed.minimax_relabel, segment_reduce.segment_sum,
-                segment_reduce.segment_plan)
+                watershed.minimax_relabel, watershed.minimax_relax,
+                segment_reduce.segment_sum, segment_reduce.segment_plan)
     fovs = list(table["fov"].unique())
     with tempfile.TemporaryDirectory() as base:
         for fn in counters:
@@ -2228,7 +2337,7 @@ def run_spatial_stage(table, name, target, reference, replay_fovs=None):
           f"waiting for distances {split['distances_s']:.4f} s; every step equal to "
           f"the CPU port's on {len(held_fovs)} FOVs, {len(held)} cells (CPU run "
           f"{cpu_s:.3f} s); kernel launches (bmu, claim round, level scan, "
-          f"re-labeling, segment_sum, segment_plan) {launches}")
+          f"re-labeling, relaxation, segment_sum, segment_plan) {launches}")
     print(f"spatial stage {name}: device busy {busy_s:.4f} s of the {total:.3f} s "
           f"stage ({busy_s / total:.1%}, profiled run); most device time: "
           + "; ".join(f"{k} {v:.4f} s" for k, v in top))
@@ -3908,13 +4017,13 @@ def check_trace(pool):
 def run_single_card_modules():
     """Phase (m), which launches none of the port's kernels (checked).
     Returns the timings of (m1)-(m3), (m4)'s kernel events and the kernel
-    counts it read: [bmu, claim round, level scan, re-labeling, segment
-    sum, segment plan]."""
+    counts it read: [bmu, claim round, level scan, re-labeling, relaxation,
+    segment sum, segment plan]."""
     from ark_tpu_torch.ops import segment_reduce, som, watershed
 
     counters = (som.bmu, watershed.claim_round, watershed.claim_levels,
-                watershed.minimax_relabel, segment_reduce.segment_sum,
-                segment_reduce.segment_plan)
+                watershed.minimax_relabel, watershed.minimax_relax,
+                segment_reduce.segment_sum, segment_reduce.segment_plan)
     for fn in counters:
         fn.launches = 0
     parts = {}
@@ -4232,8 +4341,8 @@ UMAP_F64_ULPS = 64
 # hold the split exactly (equal halves on 2 ranks, bitwise 1 rank on one)
 MESMER_GRAD_RTOL = 1e-3
 BITWISE_STAGES = ("pixel", "quant", "enrichment", "flood", "fiber")
-COUNTED_KERNELS = ("bmu", "claim_round", "claim_levels", "minimax_relabel", "segment_sum",
-                   "segment_plan")
+COUNTED_KERNELS = ("bmu", "claim_round", "claim_levels", "minimax_relabel", "minimax_relax",
+                   "segment_sum", "segment_plan")
 
 
 def multi_gpu_inputs(pixel, app, flood_fovs, dense, quant, spatial, lda_out, fiber_fov,
@@ -4584,11 +4693,11 @@ def run_multi_gpu(inp):
     # the one-round kernel runs only in phase B, which 32 rounds a level may
     # never need; each FOV's level flood is one level-scan launch, and one
     # more after each phase B short of the last level; each FOV's minimax
-    # flood is one re-labeling launch
+    # flood is one re-labeling launch and one relaxation launch
     floods = len(runs) * len(inp["flood_elev"])
     check(all(v > 0 for k, v in totals.items() if k != "claim_round")
           and floods <= totals["claim_levels"] <= floods + totals["claim_round"]
-          and totals["minimax_relabel"] == floods,
+          and totals["minimax_relabel"] == totals["minimax_relax"] == floods,
           f"multi-GPU: a kernel of the sharded paths never launched, or the "
           f"floods' launches ({floods} floods an engine) do not add up: {totals}")
     return totals
@@ -4645,13 +4754,14 @@ def main() -> int:
     claim_err, claim_timing, scan_err, scan_timing = check_claim_kernel(
         np.random.default_rng(43), reliefs)
     run_full_width_template()
-    claim_counts, relabel_counts, app, masks = run_device_postprocess(cohorts)
+    claim_counts, minimax_counts, app, masks = run_device_postprocess(cohorts)
     flood_round_launches = compare_level_flood(reliefs["8x512"])
-    relabel_floods = {f"3x1024 {comp}": r for comp, r in reliefs["3x1024"].items()}
-    relabel_floods["4x1024 cell-like"] = cell_relief(*RELABEL_CELL_LIKE, seed=7)
-    relabel_floods[RELABEL_TIMED] = cell_relief(*RELABEL_CELL_LIKE, seed=7, crossing=True)
-    relabel_err, relabel_checked, relabel_timing = check_relabel_kernel(relabel_floods)
-    del relabel_floods
+    minimax_floods = {f"3x1024 {comp}": r for comp, r in reliefs["3x1024"].items()}
+    minimax_floods["4x1024 cell-like"] = cell_relief(*RELABEL_CELL_LIKE, seed=7)
+    minimax_floods[RELABEL_TIMED] = cell_relief(*RELABEL_CELL_LIKE, seed=7, crossing=True)
+    relabel_err, relabel_checked, relabel_timing = check_relabel_kernel(minimax_floods)
+    relax_err, relax_checked = check_relax_kernel(minimax_floods)
+    del minimax_floods
     del relief_app, reliefs
     compare_segmentation_cpu_cuda()
 
@@ -4715,7 +4825,7 @@ def main() -> int:
     # the last single-card modules: single-image labeling, the bisection
     # quantiles, the prefetch loader and the profiler's trace
     (bmu_m_launches, claim_m_launches, claim_levels_m_launches, relabel_m_launches,
-     seg_m_launches, plan_m_launches) = run_single_card_modules()[-1]
+     relax_m_launches, seg_m_launches, plan_m_launches) = run_single_card_modules()[-1]
     section_done("single-card modules")
 
     # the templates' file entry points: templates 1 -> 3 -> spatial, fiber and
@@ -4736,7 +4846,7 @@ def main() -> int:
     scan_ms = scan_timing["8x512"]
     seg_ms = seg_timing[4 + N_QUANT_CHANNELS]
     relabel_ms = relabel_timing[RELABEL_TIMED]
-    relabel_main = relabel_counts["3x1024"]
+    minimax_main = minimax_counts["3x1024"]
     print(json.dumps({"kernels": [{
         "name": "bmu", "route": "cuda", "source": "ark_tpu_torch/csrc/bmu.cu",
         "replaces": "ark_tpu/ops/som.py:132", "launches": bmu_launches,
@@ -4782,13 +4892,13 @@ def main() -> int:
         "name": "relabel_kernel", "route": "cuda",
         "source": "ark_tpu_torch/csrc/minimax_relabel.cu",
         "replaces": "ark_tpu/ops/watershed.py:482-500",
-        "launches": relabel_main["launches"],
-        "launches_by_path": {"segmentation": sum(c["launches"]
-                                                 for c in relabel_counts.values()),
+        "launches": minimax_main["relabel_launches"],
+        "launches_by_path": {"segmentation": sum(c["relabel_launches"]
+                                                 for c in minimax_counts.values()),
                              "relabel_check": relabel_checked,
                              "single_card_modules": relabel_m_launches,
                              "multi_gpu": multi["minimax_relabel"]},
-        "rounds": relabel_main["rounds"],
+        "rounds": minimax_main["relabel_rounds"],
         "max_abs_err": relabel_err, "ms": relabel_ms["ms"],
         "device_ms": relabel_ms["device_ms"], "plain_ms": relabel_ms["plain_ms"],
         "bound_ms": relabel_ms["bound_ms"],
@@ -4799,6 +4909,17 @@ def main() -> int:
             "shape", "blocks", "rounds", "chunks_with_bits", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "bound_terms")}
             for comp, t in relabel_timing.items()}}, {
+        "name": "relax_kernel", "route": "cuda",
+        "source": "ark_tpu_torch/csrc/minimax_relax.cu",
+        "replaces": "ark_tpu/ops/watershed.py:_flood_minimax (lax.scan; no Pallas)",
+        "launches": minimax_main["relax_launches"],
+        "launches_by_path": {"segmentation": sum(c["relax_launches"]
+                                                 for c in minimax_counts.values()),
+                             "relax_check": relax_checked,
+                             "single_card_modules": relax_m_launches,
+                             "multi_gpu": multi["minimax_relax"]},
+        "blocks": minimax_main["relax_blocks"], "max_abs_err": relax_err,
+        "timed_by": "scripts/port_kernel_ab.py --kernel relax"}, {
         "name": "segment_sum", "route": "cuda",
         "source": "ark_tpu_torch/csrc/segment_sum.cu",
         "replaces": "ark_tpu/ops/segment_reduce.py:44", "launches": seg_launches,

@@ -4,6 +4,7 @@ same kernel on one CUDA card, with the card constants its bound rests on.
     python3 scripts/port_kernel_ab.py --old-csrc DIR [--kernel segment_sum] [--out FILE]
     python3 scripts/port_kernel_ab.py --old-csrc DIR --kernel claim [--out FILE]
     python3 scripts/port_kernel_ab.py --kernel relabel [--out FILE]
+    python3 scripts/port_kernel_ab.py --kernel relax [--out FILE]
 
 ``--kernel relabel``: the minimax flood's re-labeling as one launch of the
 kernel in ``csrc/minimax_relabel.cu`` against the loop of ``_refine_round``
@@ -22,6 +23,20 @@ time, with the bound of the kernel's own per-round traffic
 host clock with a synchronise) with each, beside the level engine's flood
 (``_flood``, 32 rounds a level) on the same relief. Both are checked bitwise
 against the plain loop: labels, flag and blocks.
+
+``--kernel relax``: the minimax flood's relaxation as one launch of the
+kernel in ``csrc/minimax_relax.cu`` against the loop of sweep-and-round
+blocks that ran before it (``watershed._relax_plain`` on the same CUDA
+tensors: ~1,700 dispatched ops a block and a synchronising comparison), at
+the segmentation cell's shape: 4 x 1024^2 cell-like reliefs
+(``chip_smoke.cell_relief``, plain and crossing) and phase 8's planted
+3 x 1024^2 cohort's floods (``cohort_relief``), each captured as
+``_flood_minimax`` hands them over (``relax_operands``). Each is timed in
+turns (plain, kernel, kernel, plain) by events around a call and by the
+profiler's device time, beside the bound of ``chip_smoke.relax_bound_ms``
+and the kernel's share of it; and the whole flood (host clock with a
+synchronise) with each. Both are checked bitwise against the plain loop:
+keys, flag and blocks.
 
 ``--kernel claim``: DIR holds the earlier ``watershed_claim.cu`` (for example
 ``git archive c792996 ark_tpu_torch/csrc | tar -x -C D`` and DIR =
@@ -673,6 +688,74 @@ def relabel_ab(args):
     return card, rows
 
 
+def relax_ab(args):
+    import torch
+
+    from ark_tpu_torch.ops import _kernels, watershed
+    from ark_tpu_torch.segmentation import mesmer
+    from chip_smoke import (CKPT, RELABEL_CELL_LIKE, cell_relief, cohort_relief, device_ms,
+                            gpu_name_and_power, planted_cohorts, relax_bound_ms,
+                            relax_chunks, relax_operands, time_ms, wall_ms)
+
+    card = gpu_name_and_power()
+    print(card)
+    _kernels.build_all()
+    app = mesmer.Mesmer(weights_path=CKPT, device="cuda")
+    floods = {f"3x1024 {comp}": r for comp, r in
+              cohort_relief(app, planted_cohorts()["3x1024"][0]).items()}
+    for crossing in (False, True):
+        floods[f"4x1024 {'crossing' if crossing else 'cell-like'}"] = cell_relief(
+            *RELABEL_CELL_LIKE, seed=7, device="cuda", crossing=crossing)
+    del app
+    rows = []
+    for name, (q, markers, mask) in floods.items():
+        *ops, n_blocks = relax_operands(q, markers, mask)
+        want = watershed._relax_plain(*ops, n_blocks)
+        got = watershed.minimax_relax(*ops, n_blocks)
+        if not (torch.equal(got[0], want[0]) and got[1:] == want[1:]):
+            raise SystemExit(f"relaxation {name}: the kernel differs from the plain loop "
+                             f"(flag, blocks {got[1:]} against {want[1:]})")
+        new = lambda: watershed.minimax_relax(*ops, n_blocks)        # noqa: E731
+        old = lambda: watershed._relax_plain(*ops, n_blocks)         # noqa: E731
+        old_ev, new_ev, turns_ev = in_turns(old, new, lambda fn: time_ms(fn, reps=3))
+        old_dev, new_dev = device_ms(old, reps=2), device_ms(new)
+        n, blocks = q.numel(), got[2]
+        chunks = relax_chunks(ops[3])
+        bound, bound_by = relax_bound_ms(n, blocks, chunks)
+        real = watershed.minimax_relax
+        h, w = q.shape[1:]
+
+        def old_flood():
+            watershed.minimax_relax = watershed._relax_plain
+            try:
+                return watershed._flood_minimax(q, markers, mask, 256, 2 * (h + w))
+            finally:
+                watershed.minimax_relax = real
+
+        new_flood = lambda: watershed._flood_minimax(q, markers, mask, 256,  # noqa: E731
+                                                     2 * (h + w))
+        a, b = old_flood(), new_flood()
+        if not (torch.equal(a[0], b[0]) and a[1] == b[1]):
+            raise SystemExit(f"flood {name}: the kernel's flood differs from the plain one")
+        old_w, new_w, turns_w = in_turns(old_flood, new_flood, lambda fn: wall_ms(fn, reps=3))
+        row = {"shape": f"relax_{name}", "pixels": n, "blocks": blocks, "converged": got[1],
+               "claimable_chunks": chunks,
+               "old_ms": old_ev, "new_ms": new_ev, "turns_ms": turns_ev,
+               "old_device_ms": old_dev, "new_device_ms": new_dev, "bound_ms": bound,
+               "bound_by": bound_by, "share_of_device": bound / new_dev if new_dev else None,
+               "share_of_event": bound / new_ev, "flood_old_wall_ms": old_w,
+               "flood_new_wall_ms": new_w, "flood_turns_wall_ms": turns_w}
+        rows.append(row)
+        share = f"{bound / new_dev:.2f}" if new_dev else "not measured"
+        print(f"relaxation {name} {tuple(q.shape)} ({blocks} blocks, converged {got[1]}): "
+              f"plain loop ev {old_ev:.4f} ms, dev {old_dev}; kernel ev {new_ev:.4f} ms, dev "
+              f"{new_dev} (turns ev {[round(t, 4) for t in turns_ev]}); bound {bound:.4f} ms "
+              f"({bound_by}), share of dev {share}, of ev {bound / new_ev:.2f}; whole flood "
+              f"(host clock) plain {old_w:.2f} ms, kernel {new_w:.2f} ms (turns "
+              f"{[round(t, 2) for t in turns_w]}); equal to the plain loop")
+    return card, rows
+
+
 def segment_sum_ab(args):
     import torch
 
@@ -722,11 +805,11 @@ def segment_sum_ab(args):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-csrc", default=None)
-    ap.add_argument("--kernel", choices=("segment_sum", "claim", "relabel"),
+    ap.add_argument("--kernel", choices=("segment_sum", "claim", "relabel", "relax"),
                     default="segment_sum")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    if args.kernel != "relabel" and not args.old_csrc:
+    if args.kernel not in ("relabel", "relax") and not args.old_csrc:
         ap.error(f"--kernel {args.kernel} needs --old-csrc")
 
     import torch
@@ -734,7 +817,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card, rows = {"claim": claim_ab, "segment_sum": segment_sum_ab,
-                  "relabel": relabel_ab}[args.kernel](args)
+                  "relabel": relabel_ab, "relax": relax_ab}[args.kernel](args)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -6,8 +6,8 @@ tests/conftest.py (which imports jax):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda -q
 
-Tolerances: the claim kernels, the re-labeling kernel and the floods are
-integer work, bitwise; BMU indices may differ only where the plain
+Tolerances: the claim kernels, the relaxation and re-labeling kernels and
+the floods are integer work, bitwise; BMU indices may differ only where the plain
 version's two best nodes are closer than 1e-6 * max(|d|, 1), and distances
 carry the f32 summation-order tolerance of tests/test_torch_som.py; a
 duplicated node's tie goes to the lowest index. The segment-sum kernel is
@@ -270,11 +270,85 @@ def test_relabel_kernel_matches_plain_loop_on_cuda(card, budget):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("budget", [None, 1, 3])
+def test_relax_kernel_matches_plain_loop_on_cuda(card, budget):
+    """The relaxation kernel == the plain loop of sweep-and-round blocks on
+    the same CUDA tensors, bitwise: keys, flag and blocks, at 4 x 1024^2 on
+    a cell-like relief and on one whose keys cross a plateau, at odd shapes
+    (3 x 37 x 53, 1 x 1023 x 1025, a single pixel, W % 4 != 0), on rows too
+    long for a tile's tree in shared memory (its levels in global scratch)
+    and at 40,000 levels (heights packed in 32 bits), at the flood's budget
+    and at budgets of 1 and 3 blocks; one launch a call in a
+    ``watershed.relax`` span whose engine is "kernel", the operands
+    unwritten. The reliefs and the operands are the smoke's
+    (``chip_smoke.cell_relief``, ``relax_operands``)."""
+    import ctypes
+
+    from ark_tpu_torch.ops import _kernels
+    from ark_tpu_torch.utils import profiling
+    from chip_smoke import cell_relief, relax_operands
+
+    cases = [((4, 1024, 1024), False, 256), ((4, 1024, 1024), True, 256),
+             ((3, 37, 53), False, 256), ((1, 1023, 1025), False, 256),
+             ((1, 1, 1), False, 256), ((2, 7, 129), True, 256), ((1, 3, 9000), False, 256),
+             ((2, 200, 131), False, 40_000)]
+    for shape, crossing, levels in cases:
+        q, markers, mask = cell_relief(*shape, seed=7, device=card, crossing=crossing)
+        *args, n_blocks = relax_operands(q * (levels // 256), markers, mask, levels)
+        n_blocks = n_blocks if budget is None else budget
+        plan = (ctypes.c_longlong * 5)()
+        pk, qs, labm, claimable, absorb = args
+        assert _kernels.lib("minimax_relax").ark_minimax_relax_plan(
+            labm.bit_length(), labm, absorb, *shape, plan) == 0
+        assert (plan[3] > 0) is (shape[2] == 9000) and plan[4] == (4 if levels > 16384 else 2)
+        saved = [a.clone() for a in (pk, qs, claimable)]
+        before = TW.minimax_relax.launches, TW.minimax_relax.blocks
+        profiling.reset()
+        try:
+            with profiling.recording():
+                got = TW.minimax_relax(*args, n_blocks)
+            (span,) = [s for s in profiling.spans() if s["name"] == "watershed.relax"]
+        finally:
+            profiling.reset()
+        assert TW.minimax_relax.launches == before[0] + 1
+        assert TW.minimax_relax.blocks == before[1] + got[2]
+        assert span["attrs"] == {"engine": "kernel", "blocks": got[2]}
+        want = TW._relax_plain(*args, n_blocks)
+        assert torch.equal(got[0], want[0]) and got[1:] == want[1:], shape
+        assert all(torch.equal(a, b) for a, b in zip((pk, qs, claimable), saved))
+        if shape[0] == 4 and budget == 1:      # 3 and 27 blocks at the flood's budget
+            assert got[1] is False
+
+
+@pytest.mark.cuda
+def test_minimax_relax_refuses_on_cuda(card):
+    """On CUDA tensors the relaxation kernel refuses int64 keys, shapes that
+    differ and heights off the value bits (after its launch, from its
+    status); it never runs the plain loop."""
+    from chip_smoke import cell_relief, relax_operands
+
+    pk, qs, labm, claimable, absorb, n_blocks = relax_operands(
+        *cell_relief(1, 64, 48, seed=3, device=card))
+    with pytest.raises(TypeError, match="int32"):
+        TW.minimax_relax(pk.long(), qs, labm, claimable, absorb, n_blocks)
+    with pytest.raises(ValueError, match="one shape"):
+        TW.minimax_relax(pk, qs[:, :-1], labm, claimable, absorb, n_blocks)
+    before = TW.minimax_relax.launches
+    with pytest.raises(ValueError, match="height"):
+        TW.minimax_relax(pk, qs | 1, labm, claimable, absorb, n_blocks)
+    with pytest.raises(ValueError, match="height"):
+        TW.minimax_relax(pk, torch.full_like(qs, absorb), labm, claimable, absorb, n_blocks)
+    assert TW.minimax_relax.launches == before + 2
+
+
+@pytest.mark.cuda
 def test_minimax_flood_on_cuda_matches_cpu(card):
-    """The minimax flood on the card (the re-labeling kernel) == the same
-    flood on the CPU (the plain loop), labels and flag, on whole tensors and
-    on views at an offset; one re-labeling launch a flood, and the
-    ``watershed.relabel`` span's engine, blocks (the CPU's) and rounds."""
+    """The minimax flood on the card (the relaxation and re-labeling
+    kernels) == the same flood on the CPU (the plain loops), labels and
+    flag, on whole tensors and on views at an offset; one relaxation and one
+    re-labeling launch a flood, the ``watershed.relax`` span's engine and
+    blocks (the CPU's), and the ``watershed.relabel`` span's engine, blocks
+    (the CPU's) and rounds."""
     from ark_tpu_torch.utils import profiling
     from chip_smoke import cell_relief
 
@@ -284,18 +358,23 @@ def test_minimax_flood_on_cuda_matches_cpu(card):
         runs = {}
         for device in (card, "cpu"):
             profiling.reset()
-            before = TW.minimax_relabel.launches
+            before = TW.minimax_relabel.launches, TW.minimax_relax.launches
             try:
                 with profiling.recording():
                     out = TW.flood(*[a.to(device) for a in args], 256, 32)
                 (relabel,) = [s for s in profiling.spans()
                               if s["name"] == "watershed.relabel"]
+                (relax,) = [s for s in profiling.spans() if s["name"] == "watershed.relax"]
             finally:
                 profiling.reset()
-            runs[device] = out, relabel["attrs"], TW.minimax_relabel.launches - before
-        (got, attrs, launches), (want, plain, plain_launches) = runs[card], runs["cpu"]
+            runs[device] = out, relabel["attrs"], relax["attrs"], (
+                TW.minimax_relabel.launches - before[0], TW.minimax_relax.launches - before[1])
+        (got, attrs, rattrs, launches), (want, plain, rplain, plain_launches) = (
+            runs[card], runs["cpu"])
         assert torch.equal(got[0].cpu(), want[0]) and got[1] is want[1] is True
-        assert (launches, plain_launches) == (1, 0)
+        assert (launches, plain_launches) == ((1, 1), (0, 0))
+        assert rattrs == {"engine": "kernel", "blocks": rplain["blocks"]}
+        assert rplain["engine"] == "plain" and rplain["blocks"] >= 1
         assert attrs["engine"] == "kernel" and plain["engine"] == "plain"
         assert attrs["blocks"] == plain["blocks"] > 1
         assert plain["rounds"] - 2 * TW._MINIMAX_BLOCK < attrs["rounds"] <= plain["rounds"]

@@ -201,7 +201,8 @@ def test_smoke_segmentation_phases_rehearse_on_cpu(monkeypatch):
     """chip_smoke.py's segmentation phases, driven on the CPU at a tiny size
     (the card's run is the same code at full size): every check they make
     holds, the level engine's level scans, their rounds and phase B's
-    rounds are counted, and so are the minimax engine's re-labelings."""
+    rounds are counted, and so are the minimax engine's re-labelings and
+    relaxations."""
     import chip_smoke
 
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
@@ -226,26 +227,36 @@ def test_smoke_segmentation_phases_rehearse_on_cpu(monkeypatch):
         counted_relabel.rounds += out[3]
         return out
 
-    real_relabel = TW.minimax_relabel
+    def counted_relax(*args):
+        out = real_relax(*args)
+        counted_relax.launches += 1
+        counted_relax.blocks += out[2]
+        return out
+
+    real_relabel, real_relax = TW.minimax_relabel, TW.minimax_relax
     counted.launches = counted.rounds = counted_round.launches = 0
     counted_relabel.launches = counted_relabel.rounds = 0
+    counted_relax.launches = counted_relax.blocks = 0
     monkeypatch.setattr(TW, "claim_levels", counted)
     monkeypatch.setattr(TW, "claim_round", counted_round)
     monkeypatch.setattr(TW, "minimax_relabel", counted_relabel)
+    monkeypatch.setattr(TW, "minimax_relax", counted_relax)
     monkeypatch.setattr(TW, "_ENGINE", TW._ENGINE)
     fovs = TS.synthetic_cells(np.random.default_rng(0), 2, hw=64,
                               n_cells=(12, 16), crowding=0.35)[0]
-    counts, relabel, app, masks = chip_smoke.run_device_postprocess({"small": (fovs, 2)})
+    counts, minimax, app, masks = chip_smoke.run_device_postprocess({"small": (fovs, 2)})
     assert sorted(masks["small"]) == ["nuclear", "whole_cell"]
     assert masks["small"]["whole_cell"].shape == fovs.shape[:3]
     # the level engine's plain run, then its phase-timed run
     assert 2 * counts["launches"] == counted.launches > 0 and app.host_fallbacks == 0
     assert 2 * counts["rounds"] == counted.rounds >= counts["launches"]
     assert 2 * counts["round_launches"] == counted_round.launches
-    # the minimax engine's counted run: one re-labeling a flood; the level
-    # engine's runs after it, none
-    assert relabel["small"]["launches"] == relabel["small"]["floods"] == 2
-    assert relabel["small"]["rounds"] > 0 and counted_relabel.launches == 0
+    # the minimax engine's counted run: one re-labeling and one relaxation a
+    # flood; the level engine's runs after it, none
+    assert minimax["small"]["relabel_launches"] == minimax["small"]["floods"] == 2
+    assert minimax["small"]["relax_launches"] == 2 and minimax["small"]["relax_blocks"] >= 2
+    assert minimax["small"]["relabel_rounds"] > 0 and counted_relabel.launches == 0
+    assert counted_relax.launches == 0
     assert TW._ENGINE == "minimax"
     relief = chip_smoke.cohort_relief(app, fovs)
     assert chip_smoke.compare_level_flood(relief) > 0
@@ -261,3 +272,8 @@ def test_smoke_segmentation_phases_rehearse_on_cpu(monkeypatch):
     assert counted_relabel.launches - before == checked + 4     # and the captured floods
     assert sorted(timing) == ["cell-like", "crossing", "nuclear", "whole_cell"]
     assert all(t["rounds"] > 0 and t["bound_ms"] > 0 for t in timing.values())
+    # the relaxation check on the same floods, each captured once more
+    before = counted_relax.launches
+    err, checked = chip_smoke.check_relax_kernel(floods)
+    assert err == 0 and checked == 4 * (1 + len(chip_smoke.RELAX_BUDGETS))
+    assert counted_relax.launches - before == checked + 4

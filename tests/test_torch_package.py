@@ -251,7 +251,8 @@ def test_every_kernel_has_its_source():
     sources = {f[:-3] for f in os.listdir(os.path.join(PKG, "csrc"))
                if f.endswith(".cu")}
     assert set(_kernels.KERNELS) == sources == {"bmu", "watershed_claim",
-                                                "minimax_relabel", "segment_sum"}
+                                                "minimax_relabel", "minimax_relax",
+                                                "segment_sum"}
     assert all(os.path.exists(_kernels.source(k)) for k in _kernels.KERNELS)
 
 

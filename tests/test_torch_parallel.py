@@ -92,8 +92,8 @@ LOSS_RTOL, GRAD_TOL, STAT_TOL = 1e-5, 1e-4, 1e-6
 HW, MESMER_BATCH = 64, 2
 UMAP_RATE = 3
 UNREAD = ("P4", "P5", "P6", "P7")      # FPN outputs the heads never read
-COUNTERS = ["bmu", "claim_levels", "claim_round", "minimax_relabel", "segment_plan",
-            "segment_sum"]
+COUNTERS = ["bmu", "claim_levels", "claim_round", "minimax_relabel", "minimax_relax",
+            "segment_plan", "segment_sum"]
 
 
 def _chain(n):

@@ -78,7 +78,7 @@ def test_phase_m_rehearses_on_the_cpu(smoke, monkeypatch):
     traced = []
     monkeypatch.setattr(smoke, "check_trace", lambda pool: traced.append(1) or 7)
     cc_t, quant_t, prefetch_t, kernels, launches = smoke.run_single_card_modules()
-    assert traced == [1] and kernels == 7 and launches == [0] * 6
+    assert traced == [1] and kernels == 7 and launches == [0] * 7
     assert set(cc_t) == {(name, size) for size in (48, 64) for name in (
         "label (connectivity 1)", "label (connectivity 2)", "area_filter",
         "remove_small_objects", "remove_small_holes")}

@@ -176,6 +176,8 @@ def test_mesmer_call_is_one_tree_with_its_phases(app, fovs, monkeypatch):
     assert sum(s["attrs"]["blocks"] for s in loops["watershed.relabel"]) \
         == len(refines) // TW._MINIMAX_BLOCK > 0
     assert len(refines) % TW._MINIMAX_BLOCK == 0
+    # on CPU tensors the relaxation is the plain loop, a sweep a block
+    assert all(s["attrs"]["engine"] == "plain" for s in loops["watershed.relax"])
     # on CPU tensors the re-labeling is the plain loop: every block's rounds run
     assert all(s["attrs"]["engine"] == "plain"
                and s["attrs"]["rounds"] == TW._MINIMAX_BLOCK * s["attrs"]["blocks"]

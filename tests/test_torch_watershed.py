@@ -334,13 +334,22 @@ def _relabel_by_edges(lab0, pk, qs, lb, labm, claimable, n_blocks):
     return lab, rdone, blocks, rounds
 
 
-def _relabel_operands(kind, seed, monkeypatch):
+def _relabel_operands(kind, seed, monkeypatch, fn="minimax_relabel"):
     """The re-labeling's operands as ``_flood_minimax`` hands them over
-    (after its relaxation): a relief at 256 levels, the same at 8 levels
-    (wide plateaus, ties everywhere), a batch of 3 at W % 4 != 0 with an
-    empty mask and an image without markers, or a flood from a corner of a
-    flat 32 x 32 image (seed 0 the top left, 1 the bottom right)."""
-    if kind == "corner":
+    (after its relaxation), or with `fn` "minimax_relax" the relaxation's:
+    a relief at 256 levels, the same at 8 levels (wide plateaus, ties
+    everywhere), a batch of 3 at W % 4 != 0 with an empty mask and an image
+    without markers, a flood from a corner of a flat 32 x 32 image (seed 0
+    the top left, 1 the bottom right), or (a shape) 8 levels of noise with
+    sparse markers."""
+    if isinstance(kind, tuple):
+        rng = np.random.default_rng(seed)
+        q = rng.integers(0, 8, kind).astype(np.int32)
+        mask = rng.random(kind) < 0.9
+        markers = np.where(rng.random(kind) < 0.02, rng.integers(1, 9, kind), 0)
+        markers.reshape(-1)[seed % markers.size] = 3
+        markers, levels = markers.astype(np.int32), 8
+    elif kind == "corner":
         q = np.zeros((1, 32, 32), np.int32)
         markers = np.zeros((1, 32, 32), np.int32)
         markers[0, -seed, -seed] = 1          # the top left or bottom right corner
@@ -354,17 +363,17 @@ def _relabel_operands(kind, seed, monkeypatch):
         levels = 8 if kind == "plateaus" else 256
         q = np.array(JW._quantize(jnp.asarray(elev), jnp.asarray(mask), levels))
     got = {}
-    real = TW.minimax_relabel
+    real = getattr(TW, fn)
 
     def capture(*args):
         got["args"] = args
         return real(*args)
 
-    monkeypatch.setattr(TW, "minimax_relabel", capture)
+    monkeypatch.setattr(TW, fn, capture)
     h, w = q.shape[1:]
     TW._flood_minimax(torch.from_numpy(q), torch.from_numpy(markers),
                       torch.from_numpy(mask), levels, 2 * (h + w))
-    monkeypatch.setattr(TW, "minimax_relabel", real)
+    monkeypatch.setattr(TW, fn, real)
     return got["args"]
 
 
@@ -425,6 +434,205 @@ def test_minimax_relabel_counts_and_refuses(monkeypatch):
     meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
     with pytest.raises(ValueError, match="CUDA"):
         TW.minimax_relabel(*meta, n_blocks)
+
+
+def _comb(labm):
+    """The sweep's comb on (keys, gates), as ``_minimax_sweep`` has it."""
+    def comb(a, b):
+        return [torch.minimum(b[0], TW._lift(a[0], b[1], labm)), torch.maximum(a[1], b[1])]
+    return comb
+
+
+def _scan_by_levels(c, g, labm):
+    """``jax.lax.associative_scan``'s tree over the last dim of (lines, n)
+    keys `c` and gates `g`, level by level by index arithmetic, as the
+    relaxation kernel (csrc/minimax_relax.cu) runs it: up, level l + 1 holds
+    the combs of level l's pairs (2i, 2i + 1); down, S[0] = A[0], S[2k + 1]
+    = S'[k] and S[2k + 2] = comb(S'[k], A[2k + 2]) from the scan S' of the
+    level above, keeping only keys. Returns the scan's keys."""
+    def comb_key(c1, c2, g2):
+        return torch.minimum(c2, TW._lift(c1, g2, labm))
+
+    levels = [(c, g)]
+    while levels[-1][0].shape[1] >= 2:
+        a_c, a_g = levels[-1]
+        i = torch.arange(a_c.shape[1] // 2)
+        levels.append((comb_key(a_c[:, 2 * i], a_c[:, 2 * i + 1], a_g[:, 2 * i + 1]),
+                       torch.maximum(a_g[:, 2 * i], a_g[:, 2 * i + 1])))
+    s = levels[-1][0]
+    for a_c, a_g in reversed(levels[:-1]):
+        j = torch.arange(a_c.shape[1])
+        odd, even = j[1::2], j[2::2]
+        out = a_c.clone()
+        out[:, odd] = s[:, (odd - 1) // 2]
+        out[:, even] = comb_key(s[:, even // 2 - 1], a_c[:, even], a_g[:, even])
+        s = out
+    return s
+
+
+def _packed_heights(pk, qs, labm, claimable):
+    """The kernel's first phase: a pixel's height bucket, its gate bit (open
+    where it is claimable or its key holds a bare label) and its claimable
+    bit in one integer, once a flood."""
+    lb = labm.bit_length()
+    return ((qs >> lb) << 2) | ((claimable | (pk <= labm)).to(torch.int32) << 1) \
+        | claimable.to(torch.int32)
+
+
+def _sweep_by_levels(pk, packed, labm, absorb):
+    """The kernel's sweep: four passes in the plain order, each over lines
+    whose gates come from the packed bits, the scan by ``_scan_by_levels``."""
+    lb = labm.bit_length()
+    claim = (packed & 1) == 1
+    gate = torch.where((packed & 2) == 2, (packed >> 2) << lb, absorb)
+    for along_w, reverse in ((True, False), (True, True), (False, False), (False, True)):
+        k, g = (pk, gate) if along_w else (pk.transpose(1, 2), gate.transpose(1, 2))
+        shape = k.shape
+        k, g = k.reshape(-1, shape[2]), g.reshape(-1, shape[2])
+        if reverse:
+            k, g = k.flip(1), g.flip(1)
+        g_in = torch.cat([torch.full_like(g[:, :1], absorb), g[:, :-1]], 1)
+        c = _scan_by_levels(k, g_in, labm)
+        cand = torch.where(c >= absorb, TW._LAB_SENTINEL, c)
+        cand = (cand.flip(1) if reverse else cand).reshape(shape)
+        cand = cand if along_w else cand.transpose(1, 2)
+        pk = torch.where(claim, torch.minimum(pk, cand), pk)
+    return pk
+
+
+def _round_by_packed(pk, packed, labm):
+    """One synchronous round as the kernel runs it, from the packed heights:
+    a claimable pixel takes min(key, lifted neighbour keys), INF past the
+    edges."""
+    lb = labm.bit_length()
+    sent = TW._LAB_SENTINEL
+    lifted = torch.nn.functional.pad(TW._lift(pk, (packed >> 2) << lb, labm),
+                                     (1, 1, 1, 1), value=sent)
+    h, w = pk.shape[1:]
+    cand = torch.minimum(torch.minimum(lifted[:, :h, 1:w + 1], lifted[:, 2:, 1:w + 1]),
+                         torch.minimum(lifted[:, 1:h + 1, :w], lifted[:, 1:h + 1, 2:]))
+    return torch.where((packed & 1) == 1, torch.minimum(pk, cand), pk)
+
+
+def _relax_by_levels(pk, qs, labm, claimable, absorb, n_blocks):
+    """The relaxation kernel's algorithm in plain torch: heights packed once,
+    then blocks of a sweep (``_sweep_by_levels``), 16 rounds and a probe
+    round, the keys the probe's, stopping at the first block whose probe
+    changed nothing or after `n_blocks`. Returns (keys, converged, blocks)."""
+    packed = _packed_heights(pk, qs, labm, claimable)
+    blocks = 0
+    while blocks < n_blocks:
+        blocks += 1
+        pk = _sweep_by_levels(pk, packed, labm, absorb)
+        for _ in range(TW._MINIMAX_BLOCK):
+            pk = _round_by_packed(pk, packed, labm)
+        probe = _round_by_packed(pk, packed, labm)
+        changed = not torch.equal(probe, pk)
+        pk = probe
+        if not changed:
+            return pk, True, blocks
+    return pk, False, blocks
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 37, 1023, 1024])
+@pytest.mark.parametrize("dim", [1, 2])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_by_levels_is_the_associative_scan(n, dim, reverse):
+    """The kernel's level-by-level tree == ``_associative_scan``'s recursion,
+    bitwise, on lines of odd and even lengths along either image dimension
+    and in either direction, over 8-level keys whose values tie everywhere
+    (labels 1-5, some INF) and gates that include the absorbing one."""
+    rng = np.random.default_rng(n * 4 + dim * 2 + reverse)
+    lb = TW._label_bits(8)
+    labm, absorb = (1 << lb) - 1, 8 << lb
+    shape = (2, n, 3) if dim == 1 else (2, 3, n)
+    c = torch.from_numpy((rng.integers(0, 8, shape) << lb | rng.integers(1, 6, shape))
+                         .astype(np.int32))
+    c = torch.where(torch.from_numpy(rng.random(shape) < 0.1), TW._LAB_SENTINEL, c)
+    g = torch.from_numpy((rng.integers(0, 9, shape) << lb).astype(np.int32))
+    if reverse:
+        c, g = c.flip(dim), g.flip(dim)
+    want = TW._associative_scan(_comb(labm), [c, g], dim)[0]
+    lines = [x.movedim(dim, -1) for x in (c, g)]
+    got = _scan_by_levels(*(x.reshape(-1, n) for x in lines), labm)
+    assert torch.equal(got.reshape(lines[0].shape).movedim(-1, dim), want)
+    assert n < 3 or not torch.equal(want, c)          # the scan moved keys
+
+
+RELAX_KINDS = ["relief", "plateaus", "batch3", "corner", (1, 1, 1024), (1, 1023, 2),
+               (2, 3, 37), (3, 2, 1), (1, 37, 1024)]
+
+
+@pytest.mark.parametrize("kind", RELAX_KINDS)
+def test_sweep_by_levels_matches_minimax_sweep(kind, monkeypatch):
+    """The kernel's sweep (gates from bits packed once a flood, the tree
+    level by level) == ``_minimax_sweep`` (gates from the keys entering each
+    sweep, the recursion), bitwise, at every block of the flood's
+    relaxation: the gate never changes within a flood."""
+    pk, qs, labm, claimable, absorb, n_blocks = _relabel_operands(
+        kind, 1, monkeypatch, fn="minimax_relax")
+    packed = _packed_heights(pk, qs, labm, claimable)
+    for _ in range(min(n_blocks, 3)):
+        want = TW._minimax_sweep(pk, qs, labm, claimable, absorb)
+        assert torch.equal(_sweep_by_levels(pk, packed, labm, absorb), want)
+        assert torch.equal(_round_by_packed(want, packed, labm),
+                           TW._minimax_round(want, qs, labm, claimable))
+        pk = TW._minimax_round(want, qs, labm, claimable)
+
+
+@pytest.mark.parametrize("kind", RELAX_KINDS)
+@pytest.mark.parametrize("budget", [None, 1, 2])
+def test_relax_kernel_algorithm_matches_plain_loop(kind, budget, monkeypatch):
+    """The kernel's algorithm (heights packed once, the tree level by level,
+    Jacobi rounds, the probe's keys, the first probe that changes nothing)
+    == ``_relax_plain``, bitwise: keys, flag and blocks, at the flood's
+    budget and at budgets of 1 and 2 blocks."""
+    *args, n_blocks = _relabel_operands(kind, 0, monkeypatch, fn="minimax_relax")
+    n_blocks = n_blocks if budget is None else budget
+    want = TW._relax_plain(*args, n_blocks)
+    got = _relax_by_levels(*args, n_blocks)
+    assert torch.equal(got[0], want[0]) and got[1:] == want[1:]
+    if budget is None:
+        assert want[1] is True and want[2] >= 1
+    if kind in ("relief", "plateaus", (1, 37, 1024)) and budget is not None:
+        assert want[1] is False                       # 3 to 5 blocks at the full budget
+
+
+def test_minimax_relax_counts_and_refuses(monkeypatch):
+    """On CPU tensors the wrapper is the plain loop and counts its blocks, no
+    launch, in a ``watershed.relax`` span whose engine is "plain"; a device
+    that is not CUDA, a label mask that is not 2^lb - 1 and an absorbing
+    gate off the value bits raise before any library is built."""
+    from ark_tpu_torch.utils import profiling
+
+    def refuse(name):
+        raise AssertionError("the library was asked for")
+
+    *args, n_blocks = _relabel_operands("relief", 0, monkeypatch, fn="minimax_relax")
+    monkeypatch.setattr(_kernels, "lib", refuse)
+    before = TW.minimax_relax.launches, TW.minimax_relax.blocks
+    profiling.reset()
+    try:
+        with profiling.recording():
+            got = TW.minimax_relax(*args, n_blocks)
+        (span,) = [s for s in profiling.spans() if s["name"] == "watershed.relax"]
+    finally:
+        profiling.reset()
+    want = TW._relax_plain(*args, n_blocks)
+    assert torch.equal(got[0], want[0]) and got[1:] == want[1:]
+    assert span["attrs"] == {"engine": "plain", "blocks": want[2]}
+    assert (TW.minimax_relax.launches, TW.minimax_relax.blocks) == (
+        before[0], before[1] + want[2])
+    pk, qs, labm, claimable, absorb = args
+    meta = [a.to("meta") for a in (pk, qs, claimable)]
+    with pytest.raises(ValueError, match="CUDA"):
+        TW.minimax_relax(meta[0], meta[1], labm, meta[2], absorb, n_blocks)
+    with pytest.raises(ValueError, match="label mask"):
+        TW._check_relax_operands(*[a.to("meta") for a in (pk, qs)], labm - 1,
+                                 claimable.to("meta"), absorb)
+    with pytest.raises(ValueError, match="label mask"):
+        TW._check_relax_operands(*[a.to("meta") for a in (pk, qs)], labm,
+                                 claimable.to("meta"), absorb + 1)
 
 
 @pytest.mark.parametrize("engine", ["minimax", "levels"])
