@@ -5,7 +5,9 @@ Run from the repository root on a machine with an NVIDIA H100 and nvcc:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels (ark_tpu_torch/csrc/*.cu, one nvcc each,
-started together) and drives these paths on the card:
+started together) and drives these paths on the card. It checks each kernel
+against its plain version and times none alone: scripts/port_kernel_ab.py
+--kernel K is the kernels' one timer.
 
 - the Pixie pixel clustering stage (template 2): the BMU kernel against its
   plain torch version at the stage's shapes, run_pixel_clustering (consensus
@@ -15,7 +17,7 @@ started together) and drives these paths on the card:
 - Mesmer segmentation (template 1): the watershed claim kernels against
   their plain versions (one round; the level scan, one cooperative launch a
   run of levels, at budgets 0, 1, 2 and 32, and one whole phase A of each
-  cohort's relief timed beside the loop of one-round launches), the
+  cohort's relief beside the loop of one-round launches), the
   published full-width network with seeded weights (forward in bf16 and in
   f32, then the host postprocess), the trained mini checkpoint with the
   device postprocess under both flood engines on the benchmark's 8 x 512^2
@@ -24,19 +26,17 @@ started together) and drives these paths on the card:
   0 rounds a level, the minimax flood's re-labeling kernel against its
   plain loop on the operands of the 3 x 1024^2 cohort's floods and of two
   4 x 1024^2 cell-like reliefs, one crossing a plateau in as many rounds as
-  the benchmark's floods (at the flood's budget and at 1 and 3 blocks;
-  timed with its bound), the relaxation kernel against its plain loop on
-  the same floods' operands (bitwise, at the same budgets; untimed), and a
-  small cohort's CPU and CUDA runs;
+  the benchmark's floods (at the flood's budget and at 1 and 3 blocks),
+  the relaxation kernel against its plain loop on the same floods'
+  operands (bitwise, at the same budgets), and a small cohort's CPU and
+  CUDA runs;
 - template 1's cell table and template 3's cell clustering: the segment
   plan and segment-sum kernels against their plain versions (the sums
   against index_add_ on a CPU copy) and against themselves, on dense
   3 x 1024^2 masks (~1000 cells a FOV) and on the planted cohort's
   segmented masks, the background row's kernel at K = 3 and K = 44 on both
-  (timed beside index_add_ and its byte and chain bounds) and at K = 1, 9
-  and 130, with NaN, +-inf and -0.0 values, on an all-background and a
-  no-background image, and one FOV's four sums as the cell table makes them;
-  the cell tables of the planted
+  and at K = 1, 9 and 130, with NaN, +-inf and -0.0 values, on an
+  all-background and a no-background image; the cell tables of the planted
   cohort's segmented masks and of the dense masks with 40 seeded channels
   through create_marker_count_matrices (nuclear counts, split nuclei, every
   default regionprop, and fast_extraction), held against the CPU port; and
@@ -72,7 +72,7 @@ started together) and drives these paths on the card:
   _optimize, the t-SNE affinities and a few descent steps); and the
   segment-sum kernel's flat path bitwise against its plain version at
   UMAP's edge shape (heads, sorted tails, unsorted tails, ids out of
-  range), timed beside index_add_ and its byte and chain bounds;
+  range);
 - spatial LDA (the LDA_Preprocessing and LDA_Training_and_Inference
   templates), which launches no kernel of its own: (k) on phase (c)'s
   10 x 3000 cells, featurization (radius 100), the MST difference matrices,
@@ -128,9 +128,9 @@ started together) and drives these paths on the card:
 
 It exits non-zero, without the final result line, when there is no CUDA
 device or any phase fails. Its last line is one JSON object naming the
-device; the line before it lists every kernel of the paths with its
-launches in its path's run, its measured error and times, and the least
-time the card could take for the same work.
+device; the line before it lists every kernel of the paths (KERNELS) with
+its launches on its own main path, on the kernel checks and in each
+section's other work, its measured error and its timer.
 """
 
 from __future__ import annotations
@@ -163,7 +163,6 @@ KERNEL_SHAPES = [(4_194_304, 16, 100), (1, 3, 7), (1000, 7, 100),
 # ragged shapes (one pixel, a W just past a warp multiple, a wide one)
 CLAIM_SHAPES = [(8, 512, 512), (3, 1024, 1024), (1, 1, 1), (2, 7, 129),
                 (4, 33, 1000)]
-CLAIM_TIMED = CLAIM_SHAPES[:2]
 # round budgets of the level-scan kernel's checks: phase B at every level (0),
 # at most levels (1, 2), and the main path's (32)
 CLAIM_BUDGETS = (0, 1, 2, 32)
@@ -202,6 +201,47 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+# the port's kernels, each under the name of the wrapper whose `.launches`
+# counts its launches (read from whatever stands under that name, so a
+# counting stand-in counts for the kernel): (the wrapper's module in
+# ark_tpu_torch.ops, the kernel's name in the kernels line, its source in
+# ark_tpu_torch/csrc, what it replaces, its timer's --kernel in
+# scripts/port_kernel_ab.py, the main path whose launches are its record's
+# `launches`)
+PIXEL_PATH = "main path: pixel stage (phase 4)"
+SEGMENTATION_PATH = "main path: device postprocess (phase 8)"
+CELL_TABLE_PATH = "main path: cell tables (phase 12)"
+KERNEL_CHECKS = "kernel checks (phases 3, 6, 9, 9b, 9c, 11, edge sums)"
+KERNELS = {
+    "bmu": ("som", "bmu", "bmu.cu", "ark_tpu/ops/som.py:132", "bmu", PIXEL_PATH),
+    "claim_round": ("watershed", "watershed_claim", "watershed_claim.cu",
+                    "ark_tpu/ops/watershed.py:173", "claim", SEGMENTATION_PATH),
+    "claim_levels": ("watershed", "watershed_claim_levels", "watershed_claim.cu",
+                     "ark_tpu/ops/watershed.py:173, driving :556-576", "claim",
+                     SEGMENTATION_PATH),
+    "minimax_relabel": ("watershed", "relabel_kernel", "minimax_relabel.cu",
+                        "ark_tpu/ops/watershed.py:482-500", "relabel", SEGMENTATION_PATH),
+    "minimax_relax": ("watershed", "relax_kernel", "minimax_relax.cu",
+                      "ark_tpu/ops/watershed.py:_flood_minimax (lax.scan; no Pallas)",
+                      "relax", SEGMENTATION_PATH),
+    "segment_sum": ("segment_reduce", "segment_sum", "segment_sum.cu",
+                    "ark_tpu/ops/segment_reduce.py:44", "segment_sum", CELL_TABLE_PATH),
+    "segment_plan": ("segment_reduce", "segment_plan", "segment_sum.cu",
+                     "ark_tpu/ops/segment_reduce.py:44", "segment_sum", CELL_TABLE_PATH),
+}
+
+
+def launch_counts():
+    """{wrapper: its kernel's launches so far} for every kernel of KERNELS."""
+    return {name: getattr(importlib.import_module(f"ark_tpu_torch.ops.{entry[0]}"),
+                          name).launches for name, entry in KERNELS.items()}
+
+
+def launches_since(before):
+    """{wrapper: its kernel's launches since ``launch_counts`` read `before`}."""
+    return {name: n - before[name] for name, n in launch_counts().items()}
 
 
 def gpu_name_and_power() -> str:
@@ -256,37 +296,6 @@ def bound_ms(nbytes=0.0, flop=0.0, chain=0, mhz=None, l2_bytes=0.0, barriers=0):
     return max(times, key=lambda t: t[0])
 
 
-def claim_bytes(n, labelled):
-    """Bytes a claim round over `n` pixels must move when `labelled` of
-    them carry a label > 0: every label read and written (8 B a pixel), and
-    the level of a labelled pixel only (4 B), since no other pixel can be a
-    source."""
-    return 8.0 * n + 4.0 * labelled
-
-
-def scan_bound_ms(n, labelled, rounds):
-    """(ms, the binding term) of a level scan of `rounds` claim rounds over
-    `n` pixels, `labelled` of them labelled when it ends (labels only
-    spread, so no round has more): the state read and written once at HBM
-    speed, every round's ``claim_bytes`` at the L2 rate, and a grid barrier
-    a round."""
-    nbytes = claim_bytes(n, labelled)
-    return bound_ms(nbytes=nbytes, l2_bytes=nbytes * rounds, barriers=rounds)
-
-
-def sm_clock_mhz(fn, calls):
-    """The SM clock (MHz) nvidia-smi reads while the card works through
-    `calls` queued calls of `fn`: the clock a chain bound is reckoned at."""
-    import torch
-
-    for _ in range(calls):
-        fn()
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout
-    torch.cuda.synchronize()
-    return float(out.strip().splitlines()[0].split()[0])
-
-
 def same_bits(got, want):
     """Bitwise equal, NaN where the other has NaN (a NaN's payload is not
     compared: the card's adds give the canonical NaN)."""
@@ -296,13 +305,6 @@ def same_bits(got, want):
     nan = torch.isnan(want)
     return (got.shape == want.shape and torch.equal(torch.isnan(got), nan)
             and torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
-
-
-def share(bound, ms):
-    """The bound's share of a measured time (NaN for a time of 0 or None,
-    which only a rehearsal without a card, or a profiler that sees no device
-    time, gives)."""
-    return bound / ms if ms else float("nan")
 
 
 def fmt_ms(ms):
@@ -327,24 +329,6 @@ def time_ms(fn, reps=10):
     return float(np.median(times))
 
 
-def batch_ms(fn, reps=20):
-    """ms per call from one pair of CUDA events around `reps` back-to-back
-    calls after a warm-up: the launches queue up, so this is the kernels'
-    own time without the host's gaps between single calls."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def pixel_rows(rng, n, c):
     """Rows like the pixel stage's BMU input: nonnegative, row-normalized
     (|x|^2 <= 1, as after the rownorm step). At |x|^2 >> 1 the f32
@@ -354,13 +338,14 @@ def pixel_rows(rng, n, c):
 
 
 def check_kernel(rng):
-    """Phase 3: the BMU kernel against bmu_plain on the card."""
+    """Phase 3: the BMU kernel against bmu_plain on the card, on every shape
+    of KERNEL_SHAPES and on duplicated nodes. Returns (max |distance
+    difference|, the shapes it checked)."""
     import torch
 
     from ark_tpu_torch.ops import som
 
     max_err = 0.0
-    timing = {}
     for n, c, k in KERNEL_SHAPES:
         x = torch.as_tensor(pixel_rows(rng, n, c), device="cuda")
         # nodes drawn from the data rows, as the SOM's initial nodes are
@@ -384,16 +369,6 @@ def check_kernel(rng):
         max_err = max(max_err, err)
         print(f"bmu N={n} C={c} K={k}: index mismatches {int(differ.sum())}, "
               f"near-ties {int(ties.sum())}, max |dist err| {err:.3g}")
-        if (n, c, k) == KERNEL_SHAPES[0]:
-            timing["bound_ms"], timing["bound_by"] = bound_ms(
-                nbytes=4.0 * (n * c + k * c + n), flop=2.0 * n * k * c)
-            timing["ms"] = time_ms(lambda: som.bmu(w, x, return_dist=False))
-            timing["device_ms"] = device_ms(lambda: som.bmu(w, x, return_dist=False))
-            timing["plain_ms"] = time_ms(
-                lambda: som.bmu_plain(w, x, return_dist=False))
-            timing["dist_ms"] = time_ms(lambda: som.bmu(w, x, return_dist=True))
-            timing["plain_dist_ms"] = time_ms(
-                lambda: som.bmu_plain(w, x, return_dist=True))
         del x, w, idx_k, dist_k, idx_p, dist_p, ties, differ
 
     # duplicated nodes: the lowest index of an exact tie wins
@@ -407,15 +382,7 @@ def check_kernel(rng):
     check(not bool(((idx_dup != idx_ref) & ~ties).any()),
           "bmu: duplicated-node table disagrees with the plain version")
     print(f"bmu duplicated nodes: lowest index wins on all {x.shape[0]} rows")
-    print(f"bmu at N={KERNEL_SHAPES[0][0]} C=16 K=100 (median of 10): kernel "
-          f"{timing['ms']:.4f} ms, plain {timing['plain_ms']:.4f} ms; with "
-          f"distances: kernel {timing['dist_ms']:.4f} ms, plain "
-          f"{timing['plain_dist_ms']:.4f} ms; kernel device time "
-          f"{fmt_ms(timing['device_ms'])}; bound {timing['bound_ms']:.4f} ms (f32 "
-          f"FMA), share {share(timing['bound_ms'], timing['ms']):.2f} of the kernel's "
-          f"time, {share(timing['bound_ms'], timing['device_ms']):.2f} of its device "
-          f"time")
-    return max_err, timing
+    return max_err, len(KERNEL_SHAPES) + 1
 
 
 def claim_inputs(rng, shape, levels=256):
@@ -528,22 +495,21 @@ def same_scan(got, want):
 
 def check_claim_kernel(rng, reliefs, levels=256):
     """Phase 6: the one-round claim kernel against its plain round on the
-    card, bitwise, and one round of each timed at the e2e cohorts' batch
-    shapes; the level-scan kernel against its plain scan, bitwise (labels,
-    stop level, rounds) at the same shapes from level 0 and mid-way under
-    each of CLAIM_BUDGETS; then one whole phase A (levels 0 on, 32 rounds a
-    level) of each cohort's whole-cell relief in `reliefs` ({cohort: the
-    relief of ``cohort_relief``}) timed beside the loop of one-round
-    launches and the plain scan. Returns (max |label difference| over the
-    round checks, {shape: one round's timings}, max |label difference| over
-    the scan checks, {cohort: phase A's timings})."""
+    card, bitwise, at CLAIM_SHAPES; the level-scan kernel against its plain
+    scan, bitwise (labels, stop level, rounds) at the same shapes from level
+    0 and mid-way under each of CLAIM_BUDGETS, one launch a call; then one
+    whole phase A (levels 0 on, 32 rounds a level) of each cohort's
+    whole-cell relief in `reliefs` ({cohort: the relief of
+    ``cohort_relief``}) against the loop of one-round launches and the plain
+    scan. Returns (max |label difference| over the round checks, max |label
+    difference| over the scan checks, the level-scan launches it checked)."""
     import torch
 
     from ark_tpu_torch.ops import watershed
 
-    timing = {}
     max_err = 0
     scan_err = 0
+    checked = 0
     for shape in CLAIM_SHAPES:
         lab_np, q_np = claim_inputs(rng, shape, levels)
         lab = torch.as_tensor(lab_np, device="cuda")
@@ -571,6 +537,7 @@ def check_claim_kernel(rng, reliefs, levels=256):
                 got = watershed.claim_levels(lab, q, start, levels, bfs)
                 check(watershed.claim_levels.launches == before + 1,
                       f"claim_levels {shape}: not one launch a call")
+                checked += 1
                 want = watershed._claim_levels(lab, q, start, levels, bfs)
                 scan_err = max(scan_err, int((got[0].to(torch.int64)
                                               - want[0].to(torch.int64)).abs().max()))
@@ -583,67 +550,23 @@ def check_claim_kernel(rng, reliefs, levels=256):
                 scans.append(f"{bfs}/{start}: stop {got[1]}, {got[2]} rounds")
         print(f"claim_levels {shape}: labels, stop level and rounds equal to the "
               f"plain scan (budget/start level: " + "; ".join(scans) + ")")
-        if shape in CLAIM_TIMED:
-            mid = levels // 2
-            kernel = lambda: watershed.claim_round(lab, q, mid)   # noqa: E731
-            base = lambda: watershed._claim_round_plain(lab, q, mid)   # noqa: E731
-            # each pixel's label read and written once, a labelled one's level
-            # read once
-            nbytes = claim_bytes(lab.numel(), int((lab > 0).sum()))
-            timing[shape] = {"ms": time_ms(kernel), "plain_ms": time_ms(base),
-                             "device_ms": device_ms(kernel),
-                             "plain_device_ms": device_ms(base),
-                             "bound_ms": bound_ms(nbytes=nbytes)[0]}
-            print(f"claim {shape} one round: per call (CUDA events, median of "
-                  f"10) kernel {timing[shape]['ms']:.4f} ms, plain "
-                  f"{timing[shape]['plain_ms']:.4f} ms; device time per call "
-                  f"(profiler, 10 calls) kernel {timing[shape]['device_ms']} ms, "
-                  f"plain {timing[shape]['plain_device_ms']} ms")
-    scan_timing = {}
     for name, relief in reliefs.items():
         q, markers, fgmask = relief["whole_cell"]
         lab = watershed._start_labels(markers, fgmask)
         q = q.contiguous()
-        kernel = lambda: watershed.claim_levels(lab, q, 0, levels, 32)   # noqa: E731
-        loop = lambda: watershed._claim_levels(                            # noqa: E731
-            lab, q, 0, levels, 32, watershed.claim_round)
-        plain = lambda: watershed._claim_levels(lab, q, 0, levels, 32)   # noqa: E731
-        got, by_loop, want = kernel(), loop(), plain()
+        got = watershed.claim_levels(lab, q, 0, levels, 32)
+        checked += 1
+        by_loop = watershed._claim_levels(lab, q, 0, levels, 32, watershed.claim_round)
+        want = watershed._claim_levels(lab, q, 0, levels, 32)
         check(same_scan(got, want) and same_scan(by_loop, want),
               f"phase A of {name}: the kernel (stop {got[1]}, {got[2]} rounds), the "
               f"loop of rounds ({by_loop[1]}, {by_loop[2]}) and the plain scan "
               f"({want[1]}, {want[2]}) disagree")
-        labelled = int((got[0] > 0).sum())
-        bound, bound_by = scan_bound_ms(lab.numel(), labelled, got[2])
-        nbytes = claim_bytes(lab.numel(), labelled)
-        # events around the launch alone (no host read): the kernel's device
-        # time with its memset; the profiler loses this kernel after the
-        # smoke's earlier profiled phases
-        launch = lambda: watershed._launch_levels(lab, q, 0, levels, 32)  # noqa: E731
-        t = {"shape": tuple(lab.shape), "stop_level": got[1], "rounds": got[2],
-             "labelled": labelled,
-             "ms": time_ms(kernel, reps=5), "device_ms": time_ms(launch, reps=5),
-             "loop_ms": time_ms(loop, reps=5), "plain_ms": time_ms(plain, reps=3),
-             "bound_ms": bound, "bound_by": bound_by,
-             "bound_terms": {
-                 "hbm_ms": bound_ms(nbytes=nbytes)[0],
-                 "l2_ms": bound_ms(l2_bytes=nbytes * got[2])[0],
-                 "barrier_ms": bound_ms(barriers=got[2])[0]}}
-        scan_timing[name] = t
-        print(f"phase A of {name} whole_cell {t['shape']} (levels 0-{levels - 1}, 32 "
-              f"rounds a level): stop level {t['stop_level']}, {t['rounds']} rounds, "
-              f"{labelled} of {lab.numel()} pixels labelled at the end, equal "
-              f"to the loop of rounds and the plain scan; kernel (1 launch) "
-              f"{t['ms']:.4f} ms (events around the call, median of 5), "
-              f"{t['device_ms']:.4f} ms (events around the launch alone); loop of "
-              f"one-round launches {t['loop_ms']:.4f} ms; plain scan "
-              f"{t['plain_ms']:.4f} ms; bound "
-              f"{bound:.4f} ms ({bound_by}; HBM {t['bound_terms']['hbm_ms']:.4f}, L2 "
-              f"{t['bound_terms']['l2_ms']:.4f}, barriers "
-              f"{t['bound_terms']['barrier_ms']:.4f}), share "
-              f"{share(bound, t['ms']):.2f} of the call, "
-              f"{share(bound, t['device_ms']):.2f} of the launch [{CARD}]")
-    return max_err, timing, scan_err, scan_timing
+        print(f"phase A of {name} whole_cell {tuple(lab.shape)} (levels 0-{levels - 1}, "
+              f"32 rounds a level): stop level {got[1]}, {got[2]} rounds, "
+              f"{int((got[0] > 0).sum())} of {lab.numel()} pixels labelled at the end, "
+              f"equal to the loop of rounds and the plain scan")
+    return max_err, scan_err, checked
 
 
 def make_cohort(rng, n_fovs, size):
@@ -927,20 +850,17 @@ def run_pixel_stage():
     """Phase 4: template 2 at real size from TIFFs through the port's entry
     point (run_pixel_clustering with consensus, then the pixel masks), held
     bitwise to ``drive_slice``'s device phases on the same cohort. Returns
-    the BMU kernel's launches in the entry point's run, FOV 0's assignments
-    (the flat indices of its clustered pixels, their 1-indexed SOM clusters)
-    and ``drive_slice``'s outputs."""
+    FOV 0's assignments (the flat indices of its clustered pixels, their
+    1-indexed SOM clusters) and ``drive_slice``'s outputs."""
     import torch
-
-    from ark_tpu_torch.ops import som
 
     raws = make_cohort(np.random.default_rng(7), n_fovs=4, size=1024)
     with tempfile.TemporaryDirectory() as base:
-        som.bmu.launches = 0
+        before = launch_counts()
         t0 = time.perf_counter()
         timings, seconds, got = pixel_stage_from_files(raws, base, "cuda")
         total = time.perf_counter() - t0
-        launches = som.bmu.launches
+        launches = launches_since(before)["bmu"]
     check(launches > 0, "the pixel stage never launched the BMU kernel")
     out = drive_slice(raws, "cuda")
     torch.cuda.synchronize()
@@ -955,7 +875,7 @@ def run_pixel_stage():
           f"bmu kernel launches {launches}; drive_slice per phase "
           + ", ".join(f"{k} {v:.4f}" for k, v in out["seconds"].items()))
     first = got["fovs"]["fov0"]
-    return launches, (first["flat"], first["som"]), out
+    return (first["flat"], first["som"]), out
 
 
 def compare_pixel_cpu_cuda():
@@ -1049,23 +969,26 @@ def run_device_postprocess(cohorts):
     level engine's launches of the level-scan kernel, its rounds and phase
     B's one-round launches per flood, and the minimax engine's launches of
     the re-labeling kernel and of the relaxation kernel (one each a flood),
-    the re-labeling's rounds and the relaxation's blocks. Returns the level
-    engine's counts ({"launches", "rounds", "round_launches"}) in its run
-    of the first cohort, the minimax engine's ({cohort: {"floods",
-    "relabel_launches", "relabel_rounds", "relax_launches",
-    "relax_blocks"}}), the Mesmer, and each cohort's masks under the
-    default (minimax) engine."""
+    the re-labeling's rounds and the relaxation's blocks. Returns the Mesmer
+    and each cohort's masks under the default (minimax) engine."""
     import torch
 
-    from ark_tpu_torch.ops import som, watershed
+    from ark_tpu_torch.ops import watershed
     from ark_tpu_torch.segmentation import mesmer
+
+    def flood_counts():
+        w = watershed
+        return {"launches": w.claim_levels.launches, "rounds": w.claim_levels.rounds,
+                "round_launches": w.claim_round.launches,
+                "relabel_launches": w.minimax_relabel.launches,
+                "relabel_rounds": w.minimax_relabel.rounds,
+                "relax_launches": w.minimax_relax.launches,
+                "relax_blocks": w.minimax_relax.blocks}
 
     app = mesmer.Mesmer(weights_path=CKPT, device=DEVICE)
     first = next(iter(cohorts))
     mesmer.segment_fovs(cohorts[first][0][:1], app=app, device=DEVICE,
                         postprocess="device")                        # warm-up
-    claim_counts = None
-    minimax_counts = {}
     masks = {}
     for name, (fovs, batch) in cohorts.items():
         labels = {}
@@ -1073,40 +996,25 @@ def run_device_postprocess(cohorts):
         for engine in ENGINES:
             watershed._ENGINE = engine
             app.host_fallbacks = 0
-            som.bmu.launches = 0
-            watershed.claim_levels.launches = watershed.claim_levels.rounds = 0
-            watershed.claim_round.launches = 0
-            watershed.minimax_relabel.launches = watershed.minimax_relabel.rounds = 0
-            watershed.minimax_relax.launches = watershed.minimax_relax.blocks = 0
+            before = flood_counts()
             t0 = time.perf_counter()
             out = mesmer.segment_fovs(fovs, app=app, batch_size=batch,
                                       device=DEVICE, postprocess="device")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            counts = {"launches": watershed.claim_levels.launches,
-                      "rounds": watershed.claim_levels.rounds,
-                      "round_launches": watershed.claim_round.launches}
-            flood_kernels = {"floods": floods,
-                             "relabel_launches": watershed.minimax_relabel.launches,
-                             "relabel_rounds": watershed.minimax_relabel.rounds,
-                             "relax_launches": watershed.minimax_relax.launches,
-                             "relax_blocks": watershed.minimax_relax.blocks}
+            counts = {k: v - before[k] for k, v in flood_counts().items()}
             minimax = engine == "minimax"
-            check(flood_kernels["relabel_launches"] == flood_kernels["relax_launches"]
+            check(counts["relabel_launches"] == counts["relax_launches"]
                   == (floods if minimax else 0)
-                  and (flood_kernels["relabel_rounds"] > 0)
-                  == (flood_kernels["relax_blocks"] > 0) == minimax,
+                  and (counts["relabel_rounds"] > 0)
+                  == (counts["relax_blocks"] > 0) == minimax,
                   f"{name} {engine}: re-labeling and relaxation kernel launches, rounds "
-                  f"and blocks {flood_kernels}, {floods} floods")
-            if minimax:
-                minimax_counts[name] = flood_kernels
+                  f"and blocks {counts}, {floods} floods")
             check(app.host_fallbacks == 0,
                   f"{name} {engine}: {app.host_fallbacks} host fallbacks")
             check((counts["launches"] > 0) == (engine == "levels")
                   and (engine == "levels" or counts["round_launches"] == 0),
                   f"{name} {engine}: claim kernel launches {counts}")
-            if engine == "levels" and name == first:
-                claim_counts = counts
             for comp, lab in out.items():
                 per_fov = [len(np.unique(img)) - 1 for img in lab]
                 check(lab.dtype == np.int32 and lab.shape == fovs.shape[:3],
@@ -1127,10 +1035,10 @@ def run_device_postprocess(cohorts):
                   + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
             if minimax:
                 print(f"e2e {name} minimax: {floods} floods, "
-                      f"{flood_kernels['relabel_launches']} re-labeling launches of "
-                      f"{flood_kernels['relabel_rounds']} rounds in all, "
-                      f"{flood_kernels['relax_launches']} relaxation launches of "
-                      f"{flood_kernels['relax_blocks']} blocks")
+                      f"{counts['relabel_launches']} re-labeling launches of "
+                      f"{counts['relabel_rounds']} rounds in all, "
+                      f"{counts['relax_launches']} relaxation launches of "
+                      f"{counts['relax_blocks']} blocks")
             if engine == "levels":
                 print(f"e2e {name} levels: {floods} floods, per flood "
                       f"{counts['rounds'] / floods:.1f} phase-A rounds in "
@@ -1153,7 +1061,7 @@ def run_device_postprocess(cohorts):
                   f"a share {differ:.3g} of pixels (filtered tie cells)")
         masks[name] = labels["minimax"]
     watershed._ENGINE = "minimax"
-    return claim_counts, minimax_counts, app, masks
+    return app, masks
 
 
 # round budgets of phase 9's level floods: the main path's, then budgets
@@ -1167,8 +1075,8 @@ def compare_level_flood(relief):
     versions swapped in (``claim_levels`` and ``claim_round``, counted, so
     the swap is seen to reach every round), bitwise in labels and flag: both
     compartments under the main path's 32 rounds a level, the whole-cell
-    compartment under 1 and 0 too; and its claim set equal to the minimax
-    flood's. Returns the one-round kernel's launches in the kernel floods."""
+    compartment under 1 and 0 too, the one-round kernel launched in them;
+    and its claim set equal to the minimax flood's."""
     import torch
 
     from ark_tpu_torch.ops import watershed
@@ -1222,7 +1130,6 @@ def compare_level_flood(relief):
                       f"{comp}: the minimax and level floods cover different pixels")
                 print(f"level flood {comp}: coverage == the minimax flood's")
     check(round_launches > 0, "level floods: phase B's one-round kernel never launched")
-    return round_launches
 
 
 # re-labeling budgets of phase 9b beside the flood's own: 1 block ends before
@@ -1234,10 +1141,8 @@ RELABEL_BUDGETS = (1, 3)
 # keys compared), 1 before the cell-like relief's
 RELAX_BUDGETS = (1, 3)
 # phase 9b's cell-like reliefs at the segmentation cell's batch shape; the
-# crossing one runs as many rounds as that cell's floods, and its timings go
-# into the kernels line
+# crossing one runs as many rounds as that cell's floods
 RELABEL_CELL_LIKE = (4, 1024, 1024)
-RELABEL_TIMED = "4x1024 crossing"
 
 
 def relabel_operands(q, markers, fgmask):
@@ -1287,69 +1192,6 @@ def relax_operands(q, markers, fgmask, levels=256):
     return got[0]
 
 
-def relax_chunks(claimable):
-    """Chunks of 4 consecutive pixels of the flat stack (a round's unit of
-    work in the relaxation kernel) that hold a claimable pixel. Only those
-    are written in a round."""
-    import torch
-
-    bits = claimable.reshape(-1)
-    pad = -bits.numel() % 4
-    bits = torch.cat([bits, bits.new_zeros(pad)]) if pad else bits
-    return int(bits.reshape(-1, 4).any(1).sum())
-
-
-def relax_bound_ms(n, blocks, chunks, packed_bytes=2):
-    """(ms, the binding term) of the relaxation kernel's own traffic over
-    `n` pixels in `blocks` blocks, `chunks` of its 4-pixel chunks holding a
-    claimable pixel, with a packed word of `packed_bytes` a pixel (2, or 4
-    above 2^14 levels): the first phase's reads (keys, heights, mask: 9 B a
-    pixel) and writes (the packed word and both key buffers) once at HBM
-    speed; in each of a block's four scan passes and 17 rounds, every
-    pixel's key and packed word read, and in each round every chunk with a
-    claimable pixel written (16 B), at the L2 rate; 21 grid barriers a
-    block. This is a lower bound of the design's traffic, not the
-    relaxation's need: a scan pass's writes (only the keys that fall) and
-    the re-reads of a neighbour's key are not counted."""
-    passes = 21 * blocks
-    l2 = passes * (4.0 + packed_bytes) * n + 17 * blocks * 16.0 * chunks
-    return bound_ms(nbytes=(17.0 + packed_bytes) * n, l2_bytes=l2, barriers=passes)
-
-
-def relabel_chunks(pk, qs, lb, labm, claimable):
-    """Chunks of 4 consecutive pixels of the flat stack (the kernel's unit
-    of work) that hold a pixel with a bit: a claimable pixel with a key and
-    a neighbour whose exit value equals its value. Only those chunks are
-    written in a round."""
-    import torch
-    import torch.nn.functional as F
-
-    from ark_tpu_torch.ops import watershed
-
-    h, w = pk.shape[1:]
-    v = pk >> lb
-    exitv = F.pad(watershed._lift(pk, qs, labm) >> lb, (1, 1, 1, 1), value=-1)
-    hit = ((exitv[:, :h, 1:w + 1] == v) | (exitv[:, 2:, 1:w + 1] == v)
-           | (exitv[:, 1:h + 1, :w] == v) | (exitv[:, 1:h + 1, 2:] == v))
-    bits = (hit & claimable & (pk != watershed._LAB_SENTINEL)).reshape(-1)
-    pad = -bits.numel() % 4
-    bits = torch.cat([bits, bits.new_zeros(pad)]) if pad else bits
-    return int(bits.reshape(-1, 4).any(1).sum())
-
-
-def relabel_bound_ms(n, chunks, rounds):
-    """(ms, the binding term) of the re-labeling kernel's own traffic over
-    `n` pixels in `rounds` rounds, `chunks` of its 4-pixel chunks holding
-    bits: the first phase's reads (labels, keys, heights, mask: 13 B a
-    pixel) and writes (bits and both label buffers: 9 B) once at HBM speed;
-    every round's reads of every pixel's bits and labels (5 B) and writes
-    of every chunk with bits (16 B) at the L2 rate; a grid barrier a round.
-    This is the design's traffic, not what the re-labeling needs: after the
-    first rounds only a thin frontier still waits for a label."""
-    return bound_ms(nbytes=22.0 * n, l2_bytes=rounds * (5.0 * n + 16.0 * chunks),
-                    barriers=rounds)
-
-
 def check_relabel_kernel(floods):
     """Phase 9b: the minimax flood's re-labeling kernel against its plain
     loop on the card, on the operands each minimax flood of `floods`
@@ -1357,16 +1199,13 @@ def check_relabel_kernel(floods):
     ``cohort_relief``, ``cell_relief``s) hands it after its relaxation:
     ``minimax_relabel`` against ``_relabel_plain`` bitwise in labels, flag
     and blocks at the flood's budget and at RELABEL_BUDGETS blocks, one
-    launch a call, its operands unwritten; then at the flood's budget
-    timed: events around a call (its status read back), events around the
-    launch alone, the plain loop, and the bound of ``relabel_bound_ms``.
-    Returns (max |label difference|, the launches it checked, {name:
-    timings})."""
+    launch a call, its operands unwritten. Returns (max |label difference|,
+    the launches it checked)."""
     import torch
 
     from ark_tpu_torch.ops import watershed
 
-    max_err, checked, timing = 0, 0, {}
+    max_err, checked = 0, 0
     for comp, (q, markers, fgmask) in floods.items():
         (*ops, n_blocks), flood = relabel_operands(q, markers, fgmask)
         check(flood[1], f"re-labeling {comp}: the minimax flood did not converge")
@@ -1389,37 +1228,9 @@ def check_relabel_kernel(floods):
             check(all(torch.equal(a, b) for a, b in zip(tensors, saved)),
                   f"re-labeling {comp}: the kernel wrote into its operands")
             runs.append(f"{budget}: flag {got[1]}, {got[2]} blocks, {got[3]} rounds")
-            if budget == n_blocks:
-                main = got
         print(f"re-labeling {comp} {tuple(q.shape)}: labels, flag and blocks equal to the "
               f"plain loop, operands unwritten (budget in blocks: " + "; ".join(runs) + ")")
-        launch_ops = [t.contiguous() if isinstance(t, torch.Tensor) else t for t in ops]
-        kernel = lambda: watershed.minimax_relabel(*ops, n_blocks)           # noqa: E731
-        launch = lambda: watershed._launch_relabel(*launch_ops, n_blocks)    # noqa: E731
-        plain = lambda: watershed._relabel_plain(*ops, n_blocks)             # noqa: E731
-        n, rounds = main[0].numel(), main[3]
-        chunks = relabel_chunks(*ops[1:6])
-        bound, bound_by = relabel_bound_ms(n, chunks, rounds)
-        t = {"shape": tuple(q.shape), "blocks": main[2], "rounds": rounds,
-             "chunks_with_bits": chunks,
-             "ms": time_ms(kernel, reps=5), "device_ms": time_ms(launch, reps=5),
-             "plain_ms": time_ms(plain, reps=3), "bound_ms": bound, "bound_by": bound_by,
-             "bound_terms": {
-                 "hbm_ms": bound_ms(nbytes=22.0 * n)[0],
-                 "l2_ms": bound_ms(l2_bytes=rounds * (5.0 * n + 16.0 * chunks))[0],
-                 "barrier_ms": bound_ms(barriers=rounds)[0]}}
-        timing[comp] = t
-        print(f"re-labeling {comp} {t['shape']} ({t['blocks']} blocks, {rounds} kernel "
-              f"rounds, {chunks} of {-(-n // 4)} chunks with bits): kernel (1 launch) "
-              f"{t['ms']:.4f} ms (events around the call, median of 5), "
-              f"{t['device_ms']:.4f} ms (events around the launch alone); plain loop "
-              f"{t['plain_ms']:.4f} ms; bound of the design's traffic {bound:.4f} ms "
-              f"({bound_by}; HBM {t['bound_terms']['hbm_ms']:.4f}, L2 "
-              f"{t['bound_terms']['l2_ms']:.4f}, barriers "
-              f"{t['bound_terms']['barrier_ms']:.4f}), share "
-              f"{share(bound, t['ms']):.2f} of the call, "
-              f"{share(bound, t['device_ms']):.2f} of the launch [{CARD}]")
-    return max_err, checked, timing
+    return max_err, checked
 
 
 def check_relax_kernel(floods):
@@ -1427,8 +1238,7 @@ def check_relax_kernel(floods):
     loop on the card, on the operands each minimax flood of `floods` (phase
     9b's) hands it: ``minimax_relax`` against ``_relax_plain`` bitwise in
     keys, flag and blocks at the flood's budget and at RELAX_BUDGETS blocks,
-    one launch a call, its operands unwritten. Untimed: the relaxation's
-    timer is ``scripts/port_kernel_ab.py --kernel relax``. Returns (max |key
+    one launch a call, its operands unwritten. Returns (max |key
     difference|, the launches it checked)."""
     import torch
 
@@ -1562,31 +1372,20 @@ def segment_inputs(rng, labels, k):
 
 def check_segment_sum(masks_by_comp, name="dense"):
     """Phase 11, on 3 x 1024^2 masks (the dense ones, then the segmented
-    ones, as `name` says): the plan kernel (each
-    segment's bounding box, the background's included) against
-    segment_boxes_plain, and the segment-sum kernel with the background row
-    against index_add_ on a CPU copy, both bitwise, against a second CUDA
-    run of itself with a fresh plan, and against itself without the
-    background (row 0 zero, rows 1: the same bits), at K = 3 and K = 44 on
-    the whole-cell masks; then, on FOV 0, per-call times of the plan, of the
-    sum given its plan without the background row (what the cell table
-    launches) and with it (events, a batch and device time), of both, of the
-    plain version and of CUDA index_add_, each beside its bound (the
-    background row's is the larger of its bytes and its chain: one
-    dependent add a background pixel, at the SM clock nvidia-smi reads under
-    its load); and one FOV's segment sums as the default cell
-    table makes them (marker_quantification's _compartment_features ->
-    moment_and_channel_features: per compartment one plan, the K = 3 and the
-    K = 44 pass). Returns (max error of the sums, max error of the boxes,
-    timings)."""
+    ones, as `name` says): the plan kernel (each segment's bounding box, the
+    background's included) against segment_boxes_plain, and the segment-sum
+    kernel with the background row against index_add_ on a CPU copy, both
+    bitwise, against a second CUDA run of itself with a fresh plan, and
+    against itself without the background (row 0 zero, rows 1: the same
+    bits), at K = 3 and K = 44 on the whole-cell masks. Returns (max error
+    of the sums, max error of the boxes, the sums it checked)."""
     import torch
 
     from ark_tpu_torch.ops import segment_reduce as sr
 
     masks = masks_by_comp["whole_cell"]
     rng = np.random.default_rng(44)
-    timing = {}
-    max_err, plan_err = 0.0, 0
+    max_err, plan_err, checked = 0.0, 0, 0
     for k in (3, 4 + N_QUANT_CHANNELS):
         for i, lab in enumerate(masks):
             n_seg = int(lab.max()) + 1
@@ -1614,109 +1413,12 @@ def check_segment_sum(masks_by_comp, name="dense"):
                   f"CUDA runs differ")
             check(not bool(cells_only[0].any()) and torch.equal(cells_only[1:], got[1:]),
                   f"segment_sum K={k} FOV {i}: background=False changes rows 1:")
-            if i == 0:
-                fg = int((lab > 0).sum())
-                flat = lab_gpu.reshape(-1).long()
-                box = sr.segment_boxes_plain(lab_gpu, n_seg).to(torch.int64)[1:]
-                box = box[box[:, 1] >= box[:, 0]]          # present cells only
-                box_px = ((box[:, 1] - box[:, 0] + 1) * (box[:, 3] - box[:, 2] + 1)).sum()
-                t = {"plan_ms": time_ms(lambda: sr.segment_plan(lab_gpu, n_seg)),
-                     "plain_plan_ms": time_ms(lambda: sr.segment_boxes_plain(lab_gpu,
-                                                                             n_seg)),
-                     "plan_device_ms": device_ms(lambda: sr.segment_plan(lab_gpu, n_seg)),
-                     "ms": time_ms(lambda: sr.segment_sum(val_gpu, lab_gpu, n_seg, plan,
-                                                          background=False)),
-                     "device_ms": device_ms(lambda: sr.segment_sum(
-                         val_gpu, lab_gpu, n_seg, plan, background=False)),
-                     "batch_ms": batch_ms(lambda: sr.segment_sum(
-                         val_gpu, lab_gpu, n_seg, plan, background=False)),
-                     "bg_ms": time_ms(lambda: sr.segment_sum(val_gpu, lab_gpu, n_seg, plan)),
-                     "bg_batch_ms": batch_ms(lambda: sr.segment_sum(val_gpu, lab_gpu, n_seg,
-                                                                    plan), reps=5),
-                     "bg_device_ms": device_ms(lambda: sr.segment_sum(val_gpu, lab_gpu,
-                                                                      n_seg, plan)),
-                     "plan_and_sum_ms": time_ms(lambda: sr.segment_sum(
-                         val_gpu, lab_gpu, n_seg, background=False)),
-                     "plain_ms": time_ms(lambda: sr.segment_sum_plain(val_gpu, lab_gpu,
-                                                                      n_seg)),
-                     "library_ms": time_ms(lambda: torch.zeros(
-                         (n_seg, k), device=DEVICE).index_add_(0, flat, val_gpu)),
-                     "library_batch_ms": batch_ms(lambda: torch.zeros(
-                         (n_seg, k), device=DEVICE).index_add_(0, flat, val_gpu), reps=5),
-                     # the foreground's values and every label read once, the
-                     # sums written once; the plan: labels in, boxes out
-                     "bound_ms": bound_ms(nbytes=4.0 * (fg * k + lab.size + n_seg * k))[0],
-                     "plan_bound_ms": bound_ms(nbytes=4.0 * lab.size + 16.0 * n_seg)[0],
-                     # the walk's label reads per foreground pixel (its cost model)
-                     "box_over_cell": float(box_px) / max(fg, 1),
-                     "bg_chain": int((lab == 0).sum()),
-                     "sm_mhz": sm_clock_mhz(lambda: sr.segment_sum(val_gpu, lab_gpu, n_seg,
-                                                                   plan), calls=200)}
-                # with the background row every pixel's values are read, and
-                # each column of row 0 is one chain of (background pixels) adds
-                bg_bytes = 4.0 * (lab.size * k + lab.size + n_seg * k)
-                t["bg_byte_bound_ms"] = bound_ms(nbytes=bg_bytes)[0]
-                t["bg_chain_bound_ms"] = bound_ms(chain=t["bg_chain"], mhz=t["sm_mhz"])[0]
-                t["bg_bound_ms"], t["bg_bound_by"] = bound_ms(
-                    nbytes=bg_bytes, chain=t["bg_chain"], mhz=t["sm_mhz"])
-                timing[k] = t
-        t = timing[k]
+            checked += 1
         print(f"segment_sum K={k} on {len(masks)} x {masks[0].shape} {name} masks "
               f"({[int(m.max()) for m in masks]} max labels): bitwise equal to "
               f"index_add_ on the CPU, the background row included, and across two "
-              f"CUDA runs, boxes equal to the plain version's; FOV 0 per call (CUDA "
-              f"events, median of 10): "
-              f"plan {t['plan_ms']:.4f} ms (device {fmt_ms(t['plan_device_ms'])}; bound "
-              f"{t['plan_bound_ms']:.4f}, share {share(t['plan_bound_ms'], t['plan_ms']):.2f},"
-              f" {share(t['plan_bound_ms'], t['plan_device_ms']):.2f} of the device time; "
-              f"plain {t['plain_plan_ms']:.4f}), sum given its plan {t['ms']:.4f} ms "
-              f"(device {fmt_ms(t['device_ms'])}, {t['batch_ms']:.4f} ms a call in a "
-              f"batch of 20; bound {t['bound_ms']:.4f}, share "
-              f"{share(t['bound_ms'], t['ms']):.2f}, "
-              f"{share(t['bound_ms'], t['device_ms']):.2f} of the device time), "
-              f"plan and sum "
-              f"{t['plan_and_sum_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, CUDA "
-              f"index_add_ {t['library_ms']:.4f} ms; box area / cell area "
-              f"{t['box_over_cell']:.3f}")
-        print(f"segment_sum K={k} with the background row, FOV 0 of the {name} masks "
-              f"({t['bg_chain']} background pixels) [{CARD}]: events {t['bg_ms']:.4f} ms, "
-              f"batch of 5 {t['bg_batch_ms']:.4f} ms, device {fmt_ms(t['bg_device_ms'])} "
-              f"(the walk's and the background kernel's launches); CUDA index_add_ "
-              f"events {t['library_ms']:.4f} ms, batch {t['library_batch_ms']:.4f} ms; "
-              f"byte bound {t['bg_byte_bound_ms']:.4f} ms, chain bound "
-              f"{t['bg_chain_bound_ms']:.4f} ms ({t['bg_chain']} adds x "
-              f"{FADD_LATENCY_CYCLES} cycles at {t['sm_mhz']:.0f} MHz), so bound "
-              f"{t['bg_bound_ms']:.4f} ms by {t['bg_bound_by']}: share "
-              f"{share(t['bg_bound_ms'], t['bg_batch_ms']):.3f} of the batch time, "
-              f"{share(t['bg_bound_ms'], t['bg_device_ms']):.3f} of the device time")
-    values = {}
-    for comp in ("whole_cell", "nuclear"):
-        lab = masks_by_comp[comp][0]
-        values[comp] = (torch.as_tensor(lab, device=DEVICE), int(lab.max()) + 1,
-                        *(segment_inputs(rng, lab, k)[1].to(DEVICE)
-                          for k in (3, 4 + N_QUANT_CHANNELS)))
-
-    def fov_sums():
-        for lab, n_seg, v3, v44 in values.values():
-            plan = sr.segment_plan(lab, n_seg)
-            sr.segment_sum(v3, lab, n_seg, plan, background=False)
-            sr.segment_sum(v44, lab, n_seg, plan, background=False)
-
-    timing["fov_ms"] = time_ms(fov_sums)
-    timing["fov_device_ms"] = device_ms(fov_sums)
-    cols = 3 + 4 + N_QUANT_CHANNELS        # both passes' columns
-    timing["fov_bound_ms"] = sum(
-        bound_ms(nbytes=4.0 * (int((lab > 0).sum()) * cols + 2 * lab.numel()
-                               + n_seg * cols) + 4.0 * lab.numel() + 16.0 * n_seg)[0]
-        for lab, n_seg, _, _ in values.values())
-    print(f"segment sums of one {name} FOV's default cell table (2 compartments x "
-          f"(plan, K=3, K={4 + N_QUANT_CHANNELS})): {timing['fov_ms']:.4f} ms (CUDA "
-          f"events, median of 10), device {fmt_ms(timing['fov_device_ms'])}, bound "
-          f"{timing['fov_bound_ms']:.4f} ms, share "
-          f"{share(timing['fov_bound_ms'], timing['fov_ms']):.2f}, "
-          f"{share(timing['fov_bound_ms'], timing['fov_device_ms']):.2f} of the device "
-          f"time")
-    return max_err, plan_err, timing
+              f"CUDA runs, boxes equal to the plain version's")
+    return max_err, plan_err, checked
 
 
 def check_background_row(masks, seed=46):
@@ -1821,22 +1523,19 @@ def run_cell_table(cohort, masks_name):
     "dense") with 40 channels, through create_marker_count_matrices on the
     card: nuclear counts and split_large_nuclei, the default regionprops
     (all convex features, num_concavities included), and fast_extraction;
-    held against the CPU port. Returns the segment-sum launches of the CUDA
-    run with the default regionprops, the plan kernel's launches in that
-    run, and the CUDA tables."""
+    held against the CPU port, with the kernels' launches in the CUDA run
+    with the default regionprops. Returns the CUDA tables."""
     import torch
 
-    from ark_tpu_torch.ops import segment_reduce
     from ark_tpu_torch.segmentation import marker_quantification as mq
 
     kw = dict(nuclear_counts=True, split_large_nuclei=True)
     mq.create_marker_count_matrices(cohort[0][0], cohort[0][1], device=DEVICE,
                                     **kw)                            # warm-up
     torch.cuda.synchronize()
-    tables, launches, plan_launches = {}, None, None
+    tables = {}
     for fast in (False, True):
-        segment_reduce.segment_sum.launches = 0
-        segment_reduce.segment_plan.launches = 0
+        before = launch_counts()
         per_fov = []
         for seg, img, _ in cohort:
             timings = {}
@@ -1846,8 +1545,8 @@ def run_cell_table(cohort, masks_name):
             torch.cuda.synchronize()
             per_fov.append((time.perf_counter() - t0, timings))
         if not fast:
-            launches = segment_reduce.segment_sum.launches
-            plan_launches = segment_reduce.segment_plan.launches
+            ran = launches_since(before)
+            launches, plan_launches = ran["segment_sum"], ran["segment_plan"]
             check(launches > 0 and plan_launches > 0, "the cell table never "
                   "launched the segment-sum and plan kernels")
         for wall, timings in per_fov:
@@ -1879,7 +1578,7 @@ def run_cell_table(cohort, masks_name):
           f"{plan_launches}, expected 2 per FOV (one per compartment)")
     print(f"cell table {masks_name} masks: segment_sum launches {launches}, "
           f"segment_plan launches {plan_launches} for {len(cohort)} FOVs")
-    return launches, plan_launches, tables
+    return tables
 
 
 def run_cell_clustering(cohort, tables, tmp_dir):
@@ -1928,12 +1627,12 @@ def run_cell_clustering(cohort, tables, tmp_dir):
     pysom.train_som()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    som.bmu.launches = 0
+    before = launch_counts()
     t0 = time.perf_counter()
     labeled = pysom.assign_som_clusters()
     torch.cuda.synchronize()
     assign_s = time.perf_counter() - t0
-    launches = som.bmu.launches
+    launches = launches_since(before)["bmu"]
     check(launches > 0, "the cell SOM's assignment never launched the BMU kernel")
     got = labeled["cell_som_cluster"].to_numpy()
     check(got.min() >= 1 and got.max() <= 100, "cell SOM labels outside 1..100")
@@ -2295,19 +1994,13 @@ def run_spatial_stage(table, name, target, reference, replay_fovs=None):
     and held to the CPU port on the table's first `replay_fovs` FOVs (one
     more card run there): the CPU's silhouette sweep is quadratic in the
     cells. Returns the card's seconds per step."""
-    from ark_tpu_torch.ops import segment_reduce, som, watershed
-
-    counters = (som.bmu, watershed.claim_round, watershed.claim_levels,
-                watershed.minimax_relabel, watershed.minimax_relax,
-                segment_reduce.segment_sum, segment_reduce.segment_plan)
     fovs = list(table["fov"].unique())
     with tempfile.TemporaryDirectory() as base:
-        for fn in counters:
-            fn.launches = 0
+        before = launch_counts()
         os.makedirs(os.path.join(base, "cuda"))
         got, seconds, split = spatial_steps(table, os.path.join(base, "cuda"), DEVICE,
                                             target, reference)
-        launches = [fn.launches for fn in counters]
+        launches = launches_since(before)
         os.makedirs(os.path.join(base, "profiled"))
         busy_s, top = device_profile(lambda: spatial_steps(
             table, os.path.join(base, "profiled"), DEVICE, target, reference))
@@ -2336,8 +2029,7 @@ def run_spatial_stage(table, name, target, reference, replay_fovs=None):
           f"({split['netcdf_write_s'] / seconds['calc_dist_matrix']:.1%} of its wall), "
           f"waiting for distances {split['distances_s']:.4f} s; every step equal to "
           f"the CPU port's on {len(held_fovs)} FOVs, {len(held)} cells (CPU run "
-          f"{cpu_s:.3f} s); kernel launches (bmu, claim round, level scan, "
-          f"re-labeling, relaxation, segment_sum, segment_plan) {launches}")
+          f"{cpu_s:.3f} s); kernel launches {launches}")
     print(f"spatial stage {name}: device busy {busy_s:.4f} s of the {total:.3f} s "
           f"stage ({busy_s / total:.1%}, profiled run); most device time: "
           + "; ".join(f"{k} {v:.4f} s" for k, v in top))
@@ -2587,12 +2279,11 @@ def run_fiber_stage(img):
     and ``calculate_fiber_alignment``: FOVs per second over 3 timed calls
     after a warm one, seconds per step of a synchronised call, the device's
     busy share under the profiler, the segment-sum launches, and the labels
-    held to the CPU port's by the near-threshold rule. Returns (segment-sum
-    launches, plan launches, timings)."""
+    held to the CPU port's by the near-threshold rule. Returns the
+    timings."""
     import torch
 
     from ark_tpu_torch import settings
-    from ark_tpu_torch.ops import segment_reduce
     from ark_tpu_torch.segmentation import fiber_segmentation as fs
 
     size = img.shape[0]
@@ -2607,8 +2298,7 @@ def run_fiber_stage(img):
 
     fov(img, keep_intermediates=False)                                 # warm-up
     torch.cuda.synchronize()
-    segment_reduce.segment_sum.launches = 0
-    segment_reduce.segment_plan.launches = 0
+    before = launch_counts()
     steps_only, walls = [], []
     for i in range(3):
         x = img * np.float32(1.0 + 1e-4 * (i + 1))
@@ -2620,8 +2310,8 @@ def run_fiber_stage(img):
         fov(x, keep_intermediates=False)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    launches = segment_reduce.segment_sum.launches
-    plan_launches = segment_reduce.segment_plan.launches
+    ran = launches_since(before)
+    launches, plan_launches = ran["segment_sum"], ran["segment_plan"]
     check(launches == 9 and plan_launches == 6, f"fiber property tables of 3 FOVs: "
           f"segment_sum launches {launches} (expected 9: two moment passes and the "
           f"Euler numbers), segment_plan launches {plan_launches} (expected 6)")
@@ -2674,7 +2364,7 @@ def run_fiber_stage(img):
           + "; ".join(f"{k} {v:.4f} s" for k, v in top))
     print(f"fiber stage, card against CPU port (CPU run {cpu_s:.3f} s): {excused}; "
           f"{table_note}")
-    return launches, plan_launches, t
+    return t
 
 
 def ez_seg_image(rng, img):
@@ -2865,12 +2555,10 @@ def run_embeddings(data, labels):
     TSNE_CELLS sample. Prints seconds per step, the segment-sum and plan
     launches of the UMAP fit, peak device memory, and the k-NN purity of
     the cell SOM's clusters in each embedding, for the card and for a CPU
-    run at a size the CPU finishes in seconds. Returns (segment_sum
-    launches, segment_plan launches) of the UMAP fit."""
+    run at a size the CPU finishes in seconds."""
     import torch
 
     from ark_tpu_torch.analysis import dimensionality_reduction as dr
-    from ark_tpu_torch.ops import segment_reduce
 
     n, c = data.shape
     rng = np.random.default_rng(55)
@@ -2878,14 +2566,13 @@ def run_embeddings(data, labels):
     dr.reduce_dimensions(data[small], "UMAP", device=DEVICE)              # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    segment_reduce.segment_sum.launches = 0
-    segment_reduce.segment_plan.launches = 0
+    before = launch_counts()
     steps = {}
     t0 = time.perf_counter()
     emb = dr.reduce_dimensions(data, "UMAP", device=DEVICE, timings=steps)
     umap_s = time.perf_counter() - t0
-    launches = segment_reduce.segment_sum.launches
-    plan_launches = segment_reduce.segment_plan.launches
+    ran = launches_since(before)
+    launches, plan_launches = ran["segment_sum"], ran["segment_plan"]
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     check(emb.shape == (n, 2) and np.isfinite(emb).all(), "UMAP: not a finite (N, 2) array")
     check(launches == 400 and plan_launches == 2, f"UMAP fit: segment_sum launches "
@@ -2944,7 +2631,6 @@ def run_embeddings(data, labels):
           f"{tsne_peak:.1f} MiB; 10-NN purity "
           f"{tsne_purity:.3f}; CPU port on {len(tiny)} cells: {tsne_cpu_s:.3f} s, purity "
           f"{tsne_purity_cpu:.3f}")
-    return launches, plan_launches
 
 
 def compare_embedding_steps(data):
@@ -3055,10 +2741,7 @@ def check_edge_sums(data, window=64):
     still short), the sorted tails with 1% of the ids set to -1 or N (out of
     range, dropped), and 20,000 ids drawn over 500 points in no order; each
     bitwise against segment_sum_plain on a CPU copy, and background=False
-    keeping rows 1:'s bits. Timed on the sorted tails (events, a batch and
-    device time) beside the plan, the plain version, CUDA index_add_, the
-    byte bound and the chain bound (the longest segment's adds). Returns
-    (max error, timings)."""
+    keeping rows 1:'s bits. Returns (max error, the cases it checked)."""
     import torch
 
     from ark_tpu_torch.analysis import dimensionality_reduction as dr
@@ -3102,40 +2785,10 @@ def check_edge_sums(data, window=64):
             check(torch.equal(plan.boxes, sr.segment_boxes_plain(ids, n_seg)),
                   f"segment_plan over UMAP's {name}: boxes differ from the plain "
                   f"version's")
-    plan = sr.segment_plan(tails, n)
-    flat = tails.long()
-    longest = int(torch.bincount(flat, minlength=n).max())
-    t = {"ms": time_ms(lambda: sr.segment_sum(vals, tails, n, plan)),
-         "device_ms": device_ms(lambda: sr.segment_sum(vals, tails, n, plan)),
-         "batch_ms": batch_ms(lambda: sr.segment_sum(vals, tails, n, plan)),
-         "library_batch_ms": batch_ms(lambda: torch.zeros((n, 2), device=DEVICE).index_add_(
-             0, flat, vals)),
-         "plan_ms": time_ms(lambda: sr.segment_plan(tails, n)),
-         "plan_device_ms": device_ms(lambda: sr.segment_plan(tails, n)),
-         "plain_ms": time_ms(lambda: sr.segment_sum_plain(vals, tails, n)),
-         "library_ms": time_ms(lambda: torch.zeros((n, 2), device=DEVICE).index_add_(
-             0, flat, vals)),
-         "longest": longest,
-         "sm_mhz": sm_clock_mhz(lambda: sr.segment_sum(vals, tails, n, plan), calls=2000),
-         # every edge's two values and its label read once, the sums written once
-         "byte_bound_ms": bound_ms(nbytes=4.0 * (3 * tails.numel() + 2 * n))[0],
-         "plan_bound_ms": bound_ms(nbytes=4.0 * tails.numel() + 16.0 * n)[0]}
-    t["chain_bound_ms"] = bound_ms(chain=longest, mhz=t["sm_mhz"])[0]
-    t["bound_ms"], t["bound_by"] = bound_ms(nbytes=4.0 * (3 * tails.numel() + 2 * n),
-                                            chain=longest, mhz=t["sm_mhz"])
     print(f"segment_sum at UMAP's edge shape ({tails.numel()} ids x 2 columns, {n} "
-          f"segments, longest {longest}) on {DEVICE} [{CARD}]: {', '.join(c[0] for c in cases)} "
-          f"bitwise equal to index_add_ on the CPU, row 0 included; sorted tails per call: "
-          f"events {t['ms']:.4f} ms, batch of 20 {t['batch_ms']:.4f} ms, device "
-          f"{fmt_ms(t['device_ms'])}; CUDA index_add_ events {t['library_ms']:.4f} ms, batch "
-          f"{t['library_batch_ms']:.4f} ms; byte bound {t['byte_bound_ms']:.4f} ms, chain "
-          f"bound {t['chain_bound_ms']:.6f} ms ({longest} adds x {FADD_LATENCY_CYCLES} cycles "
-          f"at {t['sm_mhz']:.0f} MHz), so bound {t['bound_ms']:.4f} ms by {t['bound_by']}: "
-          f"share {share(t['bound_ms'], t['batch_ms']):.3f} of the batch time, "
-          f"{share(t['bound_ms'], t['device_ms']):.3f} of the device time; plan "
-          f"{t['plan_ms']:.4f} ms (device {fmt_ms(t['plan_device_ms'])}; bound "
-          f"{t['plan_bound_ms']:.4f}), plain {t['plain_ms']:.4f} ms")
-    return max_err, t
+          f"segments) on {DEVICE} [{CARD}]: {', '.join(c[0] for c in cases)} bitwise "
+          f"equal to index_add_ on the CPU, row 0 included")
+    return max_err, [c[0] for c in cases]
 
 
 # --- spatial LDA (the LDA_Preprocessing and LDA_Training_and_Inference
@@ -3650,8 +3303,7 @@ def compare_training_step_cpu_cuda():
 def held_out_scores(app):
     """Mesmer.predict(postprocess='device') under the level engine on the
     planted test's held-out sets; returns ({set: {compartment: (recall,
-    precision, IoU)}}, the claim kernels' launches: {"levels": the level
-    scan's, "round": phase B's one-round kernel's})."""
+    precision, IoU)}}, the kernels' launches in the evaluation)."""
     from ark_tpu_torch.ops import watershed
     from ark_tpu_torch.segmentation import synthetic
 
@@ -3659,7 +3311,7 @@ def held_out_scores(app):
             "crowded": synthetic.synthetic_cells(np.random.default_rng(555), 4, hw=64,
                                                  crowding=0.35)}
     watershed._ENGINE = "levels"
-    watershed.claim_round.launches = watershed.claim_levels.launches = 0
+    before = launch_counts()
     scores = {}
     for name, (imgs, cells, nucs) in sets.items():
         out = app.predict(imgs, postprocess="device")
@@ -3668,10 +3320,8 @@ def held_out_scores(app):
             stats = [synthetic.match_instances(out[comp][i], truth[i]) for i in range(4)]
             scores[name][comp] = tuple(float(np.mean([s[k] for s in stats])) for k in
                                        ("recall", "precision", "mean_matched_iou"))
-    launches = {"levels": watershed.claim_levels.launches,
-                "round": watershed.claim_round.launches}
     watershed._ENGINE = "minimax"
-    return scores, launches
+    return scores, launches_since(before)
 
 
 def check_graphed_fit(x, targets):
@@ -3706,8 +3356,7 @@ def check_graphed_fit(x, targets):
 def run_training_e2e():
     """Phase (l3): train_on_synthetic on the card with the shipped
     checkpoint's recipe, then the planted test's floors on the held-out
-    sets. Returns the claim kernels' launches in that evaluation
-    ({"levels", "round"})."""
+    sets, the level-scan kernel launched in that evaluation."""
     import torch
 
     from ark_tpu_torch.models import unet
@@ -3730,7 +3379,7 @@ def run_training_e2e():
     check(losses.shape == (RECIPE["steps"],) and bool(np.isfinite(losses).all()),
           "train_on_synthetic: loss curve not finite")
     scores, claim_launches = held_out_scores(app)
-    check(claim_launches["levels"] > 0,
+    check(claim_launches["claim_levels"] > 0,
           "held-out evaluation: the level-scan kernel never launched")
     for comp, floor in PLANTED_FLOORS.items():
         got = scores["spaced"][comp]
@@ -3748,8 +3397,7 @@ def run_training_e2e():
         print(f"held-out {name} (recall, precision, matched IoU; level engine): "
               + ", ".join(f"{c} {tuple(round(v, 3) for v in r)}" for c, r in comps.items()))
     print(f"held-out evaluation: claim kernel launches (level scan, phase B's "
-          f"rounds) {claim_launches['levels']}, {claim_launches['round']}")
-    return claim_launches
+          f"rounds) {claim_launches['claim_levels']}, {claim_launches['claim_round']}")
 
 
 def run_conversion():
@@ -3791,16 +3439,14 @@ def run_conversion():
 
 
 def run_training_phase():
-    """Phase (l): training and conversion. Returns the claim kernels'
-    launches in the held-out evaluation of (l3) ({"levels", "round"})."""
+    """Phase (l): training and conversion."""
     x, targets = training_batch(61, TRAIN_BATCH, TRAIN_HW, DEVICE)
     run_training_steps(x, targets)
     check_deterministic_steps(x, targets)
     del x, targets
     compare_training_step_cpu_cuda()
-    claim_launches = run_training_e2e()
+    run_training_e2e()
     run_conversion()
-    return claim_launches
 
 # ---------------------------------------------------------------------------
 # Phase (m): the last single-card modules (no kernel of their own)
@@ -4016,16 +3662,8 @@ def check_trace(pool):
 
 def run_single_card_modules():
     """Phase (m), which launches none of the port's kernels (checked).
-    Returns the timings of (m1)-(m3), (m4)'s kernel events and the kernel
-    counts it read: [bmu, claim round, level scan, re-labeling, relaxation,
-    segment sum, segment plan]."""
-    from ark_tpu_torch.ops import segment_reduce, som, watershed
-
-    counters = (som.bmu, watershed.claim_round, watershed.claim_levels,
-                watershed.minimax_relabel, watershed.minimax_relax,
-                segment_reduce.segment_sum, segment_reduce.segment_plan)
-    for fn in counters:
-        fn.launches = 0
+    Returns the timings of (m1)-(m3) and (m4)'s kernel events."""
+    before = launch_counts()
     parts = {}
     t0 = time.perf_counter()
     cc_t = check_single_image_cc(np.random.default_rng(57))
@@ -4042,10 +3680,9 @@ def run_single_card_modules():
     parts["m4 trace"] = time.perf_counter() - t0
     print("phase (m) seconds by part (host clock, CPU references included): "
           + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
-    launches = [fn.launches for fn in counters]
-    check(launches == [0] * len(counters),
-          f"phase (m) launched the port's kernels: {launches}")
-    return cc_t, quant_t, prefetch_t, trace_kernels, launches
+    launches = launches_since(before)
+    check(not any(launches.values()), f"phase (m) launched the port's kernels: {launches}")
+    return cc_t, quant_t, prefetch_t, trace_kernels
 
 
 # phase (o): the templates' file entry points on the card, templates 1 -> 3
@@ -4274,23 +3911,20 @@ def run_templates_from_files(planted, quant, fiber_fov):
     """Phase (o) on the card: `planted` (3, H, W, 2) Mesmer channels and
     phase 12's 40 marker channels (`quant`) as one channel tree, phase (f)'s
     fiber FOV beside it. Prints seconds per step with the TIFF codec's
-    share; returns the launches of the BMU, segment-sum and plan kernels in
-    the entry points' run."""
-    from ark_tpu_torch.ops import segment_reduce, som
-
+    share and the launches of the BMU, segment-sum and plan kernels in the
+    entry points' run."""
     images = {}
     for i, (_, img, _) in enumerate(quant):
         fov = f"fov{i}"
         images[fov] = {"nuclear": planted[i, ..., 0], "membrane": planted[i, ..., 1]}
         images[fov].update({c: img.values[0, ..., j] for j, c in enumerate(QUANT_CHANNELS)})
-    counters = (som.bmu, segment_reduce.segment_sum, segment_reduce.segment_plan)
     with tempfile.TemporaryDirectory() as base:
-        for fn in counters:
-            fn.launches = 0
+        before = launch_counts()
         t0 = time.perf_counter()
         out, seconds = templates_from_files(base, images, fiber_fov, DEVICE)
         total = time.perf_counter() - t0
-        launches = [fn.launches for fn in counters]
+        ran = launches_since(before)
+        launches = [ran[k] for k in ("bmu", "segment_sum", "segment_plan")]
         t0 = time.perf_counter()
         n_cells, n_meta = check_templates_from_files(out, images, fiber_fov, DEVICE)
         check_s = time.perf_counter() - t0
@@ -4307,7 +3941,6 @@ def run_templates_from_files(planted, quant, fiber_fov):
           f"segment_plan {launches[2]}")
     check(all(n > 0 for n in launches), f"phase (o) launches {launches}: a kernel of the "
           f"file path never ran")
-    return launches
 
 
 # phase (n): graft_entry.dryrun_multigpu at full width. The machine has one
@@ -4341,8 +3974,6 @@ UMAP_F64_ULPS = 64
 # hold the split exactly (equal halves on 2 ranks, bitwise 1 rank on one)
 MESMER_GRAD_RTOL = 1e-3
 BITWISE_STAGES = ("pixel", "quant", "enrichment", "flood", "fiber")
-COUNTED_KERNELS = ("bmu", "claim_round", "claim_levels", "minimax_relabel", "minimax_relax",
-                   "segment_sum", "segment_plan")
 
 
 def multi_gpu_inputs(pixel, app, flood_fovs, dense, quant, spatial, lda_out, fiber_fov,
@@ -4689,7 +4320,7 @@ def run_multi_gpu(inp):
           + f"; inputs written in {write_s:.2f} s "
           f"({sum(v.nbytes for v in inp.values()) / 2 ** 30:.2f} GiB)")
     totals = {k: sum(r[k] for res in runs.values() for r in res["launches"])
-              for k in COUNTED_KERNELS}
+              for k in KERNELS}
     # the one-round kernel runs only in phase B, which 32 rounds a level may
     # never need; each FOV's level flood is one level-scan launch, and one
     # more after each phase B short of the last level; each FOV's minimax
@@ -4729,17 +4360,29 @@ def main() -> int:
     print(f"kernel builds (nvcc sm_90a, {sorted(built)}, in parallel): "
           f"{time.perf_counter() - t0:.2f} s")
     sections = {}                    # the run's wall seconds by section
-    clock = time.perf_counter()
+    launches = {}                    # {path: {wrapper: its kernel's launches}}
+    clock, counts = time.perf_counter(), launch_counts()
+
+    def counted(path):
+        """Adds the launches since the last call to `path`'s."""
+        nonlocal counts
+        by = launches.setdefault(path, dict.fromkeys(KERNELS, 0))
+        for wrapper, n in launches_since(counts).items():
+            by[wrapper] += n
+        counts = launch_counts()
 
     def section_done(name):
         nonlocal clock
         sections[name] = time.perf_counter() - clock
+        counted(name)
         clock = time.perf_counter()
 
     # the pixel stage (template 2)
     rng = np.random.default_rng(42)
-    max_err, timing = check_kernel(rng)
-    bmu_launches, pixel_assigned, pixel_out = run_pixel_stage()
+    bmu_err = check_kernel(rng)[0]
+    counted(KERNEL_CHECKS)
+    pixel_assigned, pixel_out = run_pixel_stage()
+    counted(PIXEL_PATH)
     compare_pixel_cpu_cuda()
 
     section_done("pixel stage")
@@ -4751,16 +4394,21 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     relief_app = mesmer.Mesmer(weights_path=CKPT, device=DEVICE)
     reliefs = {name: cohort_relief(relief_app, fovs) for name, (fovs, _) in cohorts.items()}
-    claim_err, claim_timing, scan_err, scan_timing = check_claim_kernel(
-        np.random.default_rng(43), reliefs)
+    counted("segmentation")
+    claim_err, scan_err, _ = check_claim_kernel(np.random.default_rng(43), reliefs)
+    counted(KERNEL_CHECKS)
     run_full_width_template()
-    claim_counts, minimax_counts, app, masks = run_device_postprocess(cohorts)
-    flood_round_launches = compare_level_flood(reliefs["8x512"])
+    counted("segmentation")
+    app, masks = run_device_postprocess(cohorts)
+    counted(SEGMENTATION_PATH)
+    compare_level_flood(reliefs["8x512"])
     minimax_floods = {f"3x1024 {comp}": r for comp, r in reliefs["3x1024"].items()}
     minimax_floods["4x1024 cell-like"] = cell_relief(*RELABEL_CELL_LIKE, seed=7)
-    minimax_floods[RELABEL_TIMED] = cell_relief(*RELABEL_CELL_LIKE, seed=7, crossing=True)
-    relabel_err, relabel_checked, relabel_timing = check_relabel_kernel(minimax_floods)
-    relax_err, relax_checked = check_relax_kernel(minimax_floods)
+    minimax_floods["4x1024 crossing"] = cell_relief(*RELABEL_CELL_LIKE, seed=7,
+                                                    crossing=True)
+    relabel_err = check_relabel_kernel(minimax_floods)[0]
+    relax_err = check_relax_kernel(minimax_floods)[0]
+    counted(KERNEL_CHECKS)
     del minimax_floods
     del relief_app, reliefs
     compare_segmentation_cpu_cuda()
@@ -4769,14 +4417,16 @@ def main() -> int:
 
     # quantification (template 1's cell table) and cell clustering (template 3)
     dense = dense_masks()
-    seg_err, plan_err, seg_timing = check_segment_sum(dense)
-    errs = check_segment_sum(masks["3x1024"], "segmented")[:2]
+    seg_err, plan_err, _ = check_segment_sum(dense)
+    errs = check_segment_sum(masks["3x1024"], "segmented")
     seg_err, plan_err = max(seg_err, errs[0]), max(plan_err, errs[1])
     check_background_row(dense["whole_cell"])
+    counted(KERNEL_CHECKS)
     segmented = quant_cohort(masks["3x1024"])
-    seg_launches, plan_launches, _ = run_cell_table(segmented, "segmented")
+    run_cell_table(segmented, "segmented")
     cohort = quant_cohort(dense)
-    _, _, tables = run_cell_table(cohort, "dense")
+    tables = run_cell_table(cohort, "dense")
+    counted(CELL_TABLE_PATH)
     with tempfile.TemporaryDirectory() as tmp_dir:
         labeled, count_cols = run_cell_clustering(cohort, tables, tmp_dir)
 
@@ -4799,7 +4449,7 @@ def main() -> int:
     # the classical image ops, fiber segmentation and ez_seg
     fiber_fov = fiber_image(np.random.default_rng(3))
     check_classical_ops(fiber_fov)
-    fiber_launches, fiber_plan_launches, _ = run_fiber_stage(fiber_fov)
+    run_fiber_stage(fiber_fov)
     run_ez_seg(fiber_fov)
 
     section_done("classical ops, fiber, ez_seg")
@@ -4808,9 +4458,10 @@ def main() -> int:
     # cohort's cells (UMAP, PCA, t-SNE)
     run_cluster_masks(dense["whole_cell"], main_table, pixel_assigned)
     cell_counts = labeled[count_cols].to_numpy(np.float32)
-    edge_err, edge_timing = check_edge_sums(cell_counts)
-    umap_launches, umap_plan_launches = run_embeddings(
-        cell_counts, labeled["cell_som_cluster"].to_numpy())
+    counted("cluster masks and embeddings")
+    edge_err = check_edge_sums(cell_counts)[0]
+    counted(KERNEL_CHECKS)
+    run_embeddings(cell_counts, labeled["cell_som_cluster"].to_numpy())
     compare_embedding_steps(cell_counts)
     section_done("cluster masks and embeddings")
 
@@ -4819,139 +4470,40 @@ def main() -> int:
     section_done("spatial LDA")
 
     # Mesmer training and weight conversion
-    claim_train_launches = run_training_phase()
+    run_training_phase()
     section_done("training and conversion")
 
     # the last single-card modules: single-image labeling, the bisection
     # quantiles, the prefetch loader and the profiler's trace
-    (bmu_m_launches, claim_m_launches, claim_levels_m_launches, relabel_m_launches,
-     relax_m_launches, seg_m_launches, plan_m_launches) = run_single_card_modules()[-1]
+    run_single_card_modules()
     section_done("single-card modules")
 
     # the templates' file entry points: templates 1 -> 3 -> spatial, fiber and
     # OME from TIFFs written by the port's codec
-    files_launches = run_templates_from_files(cohorts["3x1024"][0], segmented, fiber_fov)
+    run_templates_from_files(cohorts["3x1024"][0], segmented, fiber_fov)
     section_done("templates from files")
 
     # the multi-process layer: dryrun_multigpu at full width, 1 NCCL rank and
-    # 2 gloo ranks sharing the card
-    multi = run_multi_gpu(multi_gpu_inputs(
+    # 2 gloo ranks sharing the card; the ranks' launches are counted in their
+    # own processes and reported
+    launches["multi-GPU ranks"] = run_multi_gpu(multi_gpu_inputs(
         pixel_out, app, cohorts["8x512"][0], dense, cohort, spatial, lda_got, fiber_fov,
         cell_counts))
     section_done("multi-GPU")
     print("smoke run seconds by section (host clock, CPU replays included): "
           + ", ".join(f"{k} {v:.1f}" for k, v in sections.items()))
 
-    claim_ms = claim_timing[CLAIM_TIMED[0]]
-    scan_ms = scan_timing["8x512"]
-    seg_ms = seg_timing[4 + N_QUANT_CHANNELS]
-    relabel_ms = relabel_timing[RELABEL_TIMED]
-    minimax_main = minimax_counts["3x1024"]
+    errs = {"bmu": bmu_err, "claim_round": claim_err, "claim_levels": scan_err,
+            "minimax_relabel": relabel_err, "minimax_relax": relax_err,
+            "segment_sum": max(seg_err, edge_err), "segment_plan": plan_err}
     print(json.dumps({"kernels": [{
-        "name": "bmu", "route": "cuda", "source": "ark_tpu_torch/csrc/bmu.cu",
-        "replaces": "ark_tpu/ops/som.py:132", "launches": bmu_launches,
-        "launches_by_path": {"pixel": bmu_launches,
-                             "single_card_modules": bmu_m_launches,
-                             "files": files_launches[0],
-                             "multi_gpu": multi["bmu"]},
-        "max_abs_err": max_err, "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None}, {
-        "name": "watershed_claim", "route": "cuda",
-        "source": "ark_tpu_torch/csrc/watershed_claim.cu",
-        "replaces": "ark_tpu/ops/watershed.py:173",
-        "launches": claim_counts["round_launches"],
-        "launches_by_path": {"segmentation": claim_counts["round_launches"],
-                             "phase_b_check": flood_round_launches,
-                             "training_held_out": claim_train_launches["round"],
-                             "single_card_modules": claim_m_launches,
-                             "multi_gpu": multi["claim_round"]},
-        "max_abs_err": claim_err, "ms": claim_ms["ms"],
-        "plain_ms": claim_ms["plain_ms"], "bound_ms": claim_ms["bound_ms"],
-        "bound_by": "bytes", "library_ms": None}, {
-        "name": "watershed_claim_levels", "route": "cuda",
-        "source": "ark_tpu_torch/csrc/watershed_claim.cu",
-        "replaces": "ark_tpu/ops/watershed.py:173",
-        "drives": "ark_tpu/ops/watershed.py:556-576",
-        "launches": claim_counts["launches"],
-        "launches_by_path": {"segmentation": claim_counts["launches"],
-                             "training_held_out": claim_train_launches["levels"],
-                             "single_card_modules": claim_levels_m_launches,
-                             "multi_gpu": multi["claim_levels"]},
-        "rounds": claim_counts["rounds"],
-        "max_abs_err": scan_err, "ms": scan_ms["ms"], "device_ms": scan_ms["device_ms"],
-        "loop_ms": scan_ms["loop_ms"], "plain_ms": scan_ms["plain_ms"],
-        "bound_ms": scan_ms["bound_ms"],
-        "bound_by": "operations" if scan_ms["bound_by"] == "barriers" else "bytes",
-        "bound_term": scan_ms["bound_by"], "library_ms": None,
-        "by_shape": {name: {k: t[k] for k in (
-            "shape", "stop_level", "rounds", "labelled", "ms", "device_ms", "loop_ms",
-            "plain_ms",
-            "bound_ms", "bound_by", "bound_terms")}
-            for name, t in scan_timing.items()}}, {
-        "name": "relabel_kernel", "route": "cuda",
-        "source": "ark_tpu_torch/csrc/minimax_relabel.cu",
-        "replaces": "ark_tpu/ops/watershed.py:482-500",
-        "launches": minimax_main["relabel_launches"],
-        "launches_by_path": {"segmentation": sum(c["relabel_launches"]
-                                                 for c in minimax_counts.values()),
-                             "relabel_check": relabel_checked,
-                             "single_card_modules": relabel_m_launches,
-                             "multi_gpu": multi["minimax_relabel"]},
-        "rounds": minimax_main["relabel_rounds"],
-        "max_abs_err": relabel_err, "ms": relabel_ms["ms"],
-        "device_ms": relabel_ms["device_ms"], "plain_ms": relabel_ms["plain_ms"],
-        "bound_ms": relabel_ms["bound_ms"],
-        "bound_by": "operations" if relabel_ms["bound_by"] == "barriers" else "bytes",
-        "bound_term": f"{relabel_ms['bound_by']} of the design's own traffic",
-        "library_ms": None,
-        "by_shape": {comp: {k: t[k] for k in (
-            "shape", "blocks", "rounds", "chunks_with_bits", "ms", "device_ms", "plain_ms",
-            "bound_ms", "bound_by", "bound_terms")}
-            for comp, t in relabel_timing.items()}}, {
-        "name": "relax_kernel", "route": "cuda",
-        "source": "ark_tpu_torch/csrc/minimax_relax.cu",
-        "replaces": "ark_tpu/ops/watershed.py:_flood_minimax (lax.scan; no Pallas)",
-        "launches": minimax_main["relax_launches"],
-        "launches_by_path": {"segmentation": sum(c["relax_launches"]
-                                                 for c in minimax_counts.values()),
-                             "relax_check": relax_checked,
-                             "single_card_modules": relax_m_launches,
-                             "multi_gpu": multi["minimax_relax"]},
-        "blocks": minimax_main["relax_blocks"], "max_abs_err": relax_err,
-        "timed_by": "scripts/port_kernel_ab.py --kernel relax"}, {
-        "name": "segment_sum", "route": "cuda",
-        "source": "ark_tpu_torch/csrc/segment_sum.cu",
-        "replaces": "ark_tpu/ops/segment_reduce.py:44", "launches": seg_launches,
-        "launches_by_path": {"cell_table": seg_launches, "fiber": fiber_launches,
-                             "umap": umap_launches, "single_card_modules": seg_m_launches,
-                             "files": files_launches[1],
-                             "multi_gpu": multi["segment_sum"]},
-        "max_abs_err": max(seg_err, edge_err), "ms": seg_ms["ms"],
-        "plain_ms": seg_ms["plain_ms"], "bound_ms": seg_ms["bound_ms"],
-        "bound_by": "bytes", "library_ms": seg_ms["library_ms"],
-        "by_shape": {
-            **{f"k{k}_with_background": {
-                "ms": seg_timing[k]["bg_ms"], "batch_ms": seg_timing[k]["bg_batch_ms"],
-                "library_ms": seg_timing[k]["library_ms"],
-                "library_batch_ms": seg_timing[k]["library_batch_ms"],
-                "bound_ms": seg_timing[k]["bg_bound_ms"],
-                "bound_by": seg_timing[k]["bg_bound_by"]}
-               for k in (4 + N_QUANT_CHANNELS, 3)},
-            "umap_edges": {key: edge_timing[key] for key in
-                           ("ms", "batch_ms", "plain_ms", "bound_ms", "bound_by",
-                            "library_ms", "library_batch_ms")}}}, {
-        "name": "segment_plan", "route": "cuda",
-        "source": "ark_tpu_torch/csrc/segment_sum.cu",
-        "replaces": "ark_tpu/ops/segment_reduce.py:44", "launches": plan_launches,
-        "launches_by_path": {"cell_table": plan_launches, "fiber": fiber_plan_launches,
-                             "umap": umap_plan_launches,
-                             "single_card_modules": plan_m_launches,
-                             "files": files_launches[2],
-                             "multi_gpu": multi["segment_plan"]},
-        "max_abs_err": plan_err, "ms": seg_ms["plan_ms"],
-        "plain_ms": seg_ms["plain_plan_ms"], "bound_ms": seg_ms["plan_bound_ms"],
-        "bound_by": "bytes", "library_ms": None}]}))
+        "name": name, "route": "cuda", "source": f"ark_tpu_torch/csrc/{source}",
+        "replaces": replaces,
+        "launches": launches[main_path][wrapper],
+        "launches_by_path": {path: by[wrapper] for path, by in launches.items()},
+        "max_abs_err": errs[wrapper],
+        "timed_by": f"scripts/port_kernel_ab.py --kernel {timer}"}
+        for wrapper, (_, name, source, replaces, timer, main_path) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

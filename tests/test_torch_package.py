@@ -813,3 +813,29 @@ def test_file_entry_points_run_without_the_card_missing_packages():
     out = run_blocked(FILE_ENTRY_POINTS, timeout=240)
     assert "pixel steps ['pixel_masks', 'run_pixel_clustering', 'write_tiffs']" in out
     assert "create_deepcell_output" in out and "ome_to_fov" in out
+
+
+def _kernel_timer():
+    """scripts/port_kernel_ab.py as a module (it imports no card until a
+    timing runs)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "port_kernel_ab", os.path.join(REPO, "scripts", "port_kernel_ab.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("bound, ms, by", [
+    # phase A of the 8 x 512^2 whole-cell relief: 683 rounds, 334,006 of
+    # 2,097,152 pixels labelled at the end
+    (lambda ab: ab.scan_bound_ms(2_097_152, 334_006, 683), 1.5503, "L2 bytes"),
+    # the pixel stage's BMU call: 4,194,304 rows x 16 channels, K = 100
+    (lambda ab: ab.bmu_bound_ms(4_194_304, 16, 100), 0.2003, "operations"),
+], ids=["level_scan", "bmu"])
+def test_kernel_timer_bounds_match_the_kernel_table(bound, ms, by):
+    """The bounds scripts/port_kernel_ab.py reckons, at the shapes of the
+    kernel table in PERF.md, read as that table does (ms to 4 places)."""
+    got, got_by = bound(_kernel_timer())
+    assert (round(got, 4), got_by) == (ms, by)

@@ -393,12 +393,12 @@ def test_smoke_quantification_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "MIN_CELLS", {"segmented": 10, "dense": 10})
     monkeypatch.setattr(chip_smoke, "COHORT_COPIES", 2)
-    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, reps=10: (fn(), 0.0)[1])
-    monkeypatch.setattr(chip_smoke, "batch_ms", lambda fn, reps=20: (fn(), 0.0)[1])
-    # a profiler that sees no device time, as on a machine without a card
-    monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, reps=10: (fn(), None)[1])
-    monkeypatch.setattr(chip_smoke, "sm_clock_mhz", lambda fn, calls: (fn(), 1980.0)[1])
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    # the launch counts the phases read from the smoke's counter table
+    seen = []
+    real_since = chip_smoke.launches_since
+    monkeypatch.setattr(chip_smoke, "launches_since",
+                        lambda before: seen.append(real_since(before)) or seen[-1])
     def counting(real):
         def counted(*a, **k):
             counted.launches += 1
@@ -412,21 +412,15 @@ def test_smoke_quantification_phases_rehearse_on_cpu(monkeypatch, tmp_path):
         monkeypatch.setattr(mod, name, counting(getattr(mod, name)))
     masks = chip_smoke.dense_masks(n_fovs=2, size=96, n_cells=30, cell_radius=9,
                                    nuc_radius=3, nuc_shift=2)
-    err, plan_err, timing = chip_smoke.check_segment_sum(masks)
+    err, plan_err, checked = chip_smoke.check_segment_sum(masks)
     assert err == 0.0 and plan_err == 0
-    assert set(timing) == {3, 4 + chip_smoke.N_QUANT_CHANNELS, "fov_ms", "fov_device_ms",
-                           "fov_bound_ms"}
-    assert all(timing[k]["bound_ms"] > 0 for k in (3, 4 + chip_smoke.N_QUANT_CHANNELS))
-    # each box holds its cell: the walk reads at least one label a pixel
-    assert all(1.0 <= timing[k]["box_over_cell"] < 4.0
-               for k in (3, 4 + chip_smoke.N_QUANT_CHANNELS))
-    # the background row is bound by its chain: one add a background pixel
-    assert all(timing[k]["bg_bound_by"] == "chain"
-               and timing[k]["bg_chain"] == int((masks["whole_cell"][0] == 0).sum())
-               for k in (3, 4 + chip_smoke.N_QUANT_CHANNELS))
+    # K = 3 and K = 44 on every FOV
+    assert checked == 2 * len(masks["whole_cell"])
     assert len(chip_smoke.check_background_row(masks["whole_cell"])) == 6
     cohort = chip_smoke.quant_cohort(masks)
-    launches, plan_launches, tables = chip_smoke.run_cell_table(cohort, "dense")
+    tables = chip_smoke.run_cell_table(cohort, "dense")
+    # the run with the default regionprops
+    launches, plan_launches = seen[-1]["segment_sum"], seen[-1]["segment_plan"]
     assert launches == 4 * len(cohort) and plan_launches == 2 * len(cohort)
     assert len(tables) == 2 * len(cohort)
     chip_smoke.run_cell_clustering(cohort, tables, str(tmp_path))

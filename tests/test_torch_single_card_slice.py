@@ -10,6 +10,8 @@ launches none of the port's kernels, and its trace check refuses a trace
 that holds no CUDA kernel.
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -77,8 +79,19 @@ def smoke(monkeypatch):
 def test_phase_m_rehearses_on_the_cpu(smoke, monkeypatch):
     traced = []
     monkeypatch.setattr(smoke, "check_trace", lambda pool: traced.append(1) or 7)
-    cc_t, quant_t, prefetch_t, kernels, launches = smoke.run_single_card_modules()
+    # the phase reads differences and resets no counter: the real wrappers'
+    # counts stand at 5 before it and after
+    for name, (module, *_) in smoke.KERNELS.items():
+        monkeypatch.setattr(getattr(importlib.import_module(f"ark_tpu_torch.ops.{module}"),
+                                    name), "launches", 5)
+    seen = []
+    real_since = smoke.launches_since
+    monkeypatch.setattr(smoke, "launches_since",
+                        lambda before: seen.append(real_since(before)) or seen[-1])
+    cc_t, quant_t, prefetch_t, kernels = smoke.run_single_card_modules()
+    launches = [seen[0][name] for name in smoke.KERNELS]
     assert traced == [1] and kernels == 7 and launches == [0] * 7
+    assert smoke.launch_counts() == dict.fromkeys(smoke.KERNELS, 5)
     assert set(cc_t) == {(name, size) for size in (48, 64) for name in (
         "label (connectivity 1)", "label (connectivity 2)", "area_filter",
         "remove_small_objects", "remove_small_holes")}
