@@ -4,7 +4,8 @@ The port's copy of ``ark_tpu/io/load_utils.py``: the three loaders its
 pipelines call (``load_imgs_from_tree``, ``load_imgs_from_dir``,
 ``load_imgs_from_mibitiff``) and the tiled-grid loader of the stitcher
 (``get_tiled_fov_names``, ``load_tiled_img_data``), returning the port's
-``DataArray``. TIFFs are
+``DataArray``; and ``load_fov_planes``, one FOV of a tree as a
+channel-first stack, for callers whose next step is the card. TIFFs are
 read through the port's codec (``image_utils.read_image``; the size scan of
 ``load_imgs_from_tree`` reads headers only, ``tiff.shape_dtype``).
 
@@ -33,6 +34,30 @@ def _infer_dtype(arrs) -> np.dtype:
     return np.result_type(*[a.dtype for a in arrs])
 
 
+def _channel_files(fov_dir: str, channels: Optional[List[str]]):
+    """(file names, channel names) of a tree's FOV folder `fov_dir`: every
+    TIFF in it, natural-sorted, or `channels` in their order, each given
+    with or without its extension."""
+    io_utils.validate_paths([fov_dir])
+    all_files = io_utils.list_files(fov_dir, substrs=[".tiff", ".tif"])
+    if channels is None:
+        channel_files = all_files
+    else:
+        channel_files = []
+        for c in channels:
+            if c.endswith((".tiff", ".tif")):
+                channel_files.append(c)
+            else:
+                match = [f for f in all_files if os.path.splitext(f)[0] == c]
+                if not match:
+                    raise ValueError(f"channel {c} not found in {fov_dir}")
+                channel_files.append(match[0])
+    channel_names = io_utils.remove_file_extensions(channel_files)
+    if len(channel_files) == 0:
+        raise ValueError(f"No channel images found in {fov_dir}")
+    return channel_files, channel_names
+
+
 def load_imgs_from_tree(data_dir: str, img_sub_folder: Optional[str] = None,
                         fovs: Optional[List[str]] = None,
                         channels: Optional[List[str]] = None,
@@ -52,24 +77,8 @@ def load_imgs_from_tree(data_dir: str, img_sub_folder: Optional[str] = None,
         img_sub_folder = ""
 
     # channel file names from the first FOV
-    first_dir = os.path.join(data_dir, fovs[0], img_sub_folder)
-    io_utils.validate_paths([first_dir])
-    all_files = io_utils.list_files(first_dir, substrs=[".tiff", ".tif"])
-    if channels is None:
-        channel_files = all_files
-    else:
-        channel_files = []
-        for c in channels:
-            if c.endswith((".tiff", ".tif")):
-                channel_files.append(c)
-            else:
-                match = [f for f in all_files if os.path.splitext(f)[0] == c]
-                if not match:
-                    raise ValueError(f"channel {c} not found in {first_dir}")
-                channel_files.append(match[0])
-    channel_names = io_utils.remove_file_extensions(channel_files)
-    if len(channel_files) == 0:
-        raise ValueError(f"No channel images found in {first_dir}")
+    channel_files, channel_names = _channel_files(
+        os.path.join(data_dir, fovs[0], img_sub_folder), channels)
 
     # header-only size scan, so the output is allocated once and filled FOV
     # by FOV
@@ -107,6 +116,34 @@ def load_imgs_from_tree(data_dir: str, img_sub_folder: Optional[str] = None,
 
     return DataArray(out, coords={"fovs": fovs, "rows": np.arange(max_h),
                                   "cols": np.arange(max_w), "channels": channel_names})
+
+
+def load_fov_planes(data_dir: str, fov: str, img_sub_folder: Optional[str] = None,
+                    channels: Optional[List[str]] = None, empty=np.empty):
+    """One FOV's channel images as a channel-first (channels, rows, cols)
+    stack: ``load_imgs_from_tree(data_dir, img_sub_folder, [fov],
+    channels).values[0]`` transposed, bit for bit, without its channel-last
+    interleave. The files are resolved and ordered as there; the shape is
+    the first channel's and the dtype the channels' promoted one, both from
+    the IFDs alone (``tiff.shape_dtype``). Each file is read into its own
+    contiguous plane (``tiff.read_into``: straight from the file where its
+    layout allows). `empty(shape, dtype)` makes the stack; one of another
+    dtype than the promoted one (the cell table's pinned float32) receives
+    each value cast through the promoted dtype, as ``np.asarray`` of that
+    array to the stack's dtype would.
+
+    Returns (stack, channel names, direct, decoded): how many files went
+    straight into their planes, and how many through the decode and a
+    copy."""
+    fov_dir = os.path.join(data_dir, fov, img_sub_folder or "")
+    channel_files, channel_names = _channel_files(fov_dir, channels)
+    paths = [os.path.join(fov_dir, cf) for cf in channel_files]
+    probes = [tiff.shape_dtype(p) for p in paths]
+    h, w = probes[0][0][:2]
+    via = np.result_type(*[dt for _, dt in probes])
+    stack = empty((len(paths), h, w), via)
+    direct = sum(tiff.read_into(p, plane, via) for p, plane in zip(paths, stack))
+    return stack, channel_names, direct, len(paths) - direct
 
 
 def load_imgs_from_dir(data_dir: str, files: Optional[List[str]] = None,

@@ -18,10 +18,12 @@ TiffData elements; a shaped description's stack; else the pages that share
 the first page's shape). Anything else (multi-file or modulo OME series,
 several samples a pixel in an OME series, ImageJ and vendor series, other
 compressions) raises a ``ValueError`` naming the tag and its value.
-``shape_dtype`` reads the IFDs only.
+``shape_dtype`` reads the IFDs only. ``read_into`` reads a file into a
+plane of the caller's: an uncompressed page of the plane's layout straight
+from the file, any other through the decode and one copy.
 
-``read`` and ``write`` run in ``tiff.read`` and ``tiff.write`` spans whose
-``bytes`` is the file's size.
+``read``, ``read_into`` and ``write`` run in ``tiff.read`` and
+``tiff.write`` spans whose ``bytes`` is the file's size.
 """
 
 from __future__ import annotations
@@ -574,6 +576,66 @@ def read(path: str) -> np.ndarray:
         if sp.recorded:
             sp.attrs["bytes"] = os.fstat(fh.fileno()).st_size
         return _decode(fh)
+
+
+def read_into(path: str, plane: np.ndarray, via=None) -> bool:
+    """Read the TIFF at `path` into `plane`, a writable 2-D array, as
+    ``plane[:] = 0; plane[:h, :w] = read(path).astype(via)`` would (no cast
+    through `via` where it is None), in one ``tiff.read`` span as ``read``
+    opens. True where the pixels went straight from the file into `plane`:
+    one uncompressed page of `plane`'s shape in strips, no predictor, of
+    `plane`'s dtype and byte order (and `via`'s), `plane` C-contiguous: one
+    ``readinto`` a strip and no other copy. Any other page is decoded as
+    ``read`` decodes it and copied in (False)."""
+    with profiling.span("tiff.read") as sp, open(path, "rb") as fh:
+        if sp.recorded:
+            sp.attrs["bytes"] = os.fstat(fh.fileno()).st_size
+        strips = _direct_strips(*_series(_pages(fh)), plane, via)
+        if strips is not None:
+            flat = plane.reshape(-1).view(np.uint8)
+            at = 0
+            for offset, count in strips:
+                fh.seek(offset)
+                if fh.readinto(flat[at:at + count]) != count:
+                    raise ValueError("the TIFF file ends inside a tag or a strip")
+                at += count
+            return True
+        fh.seek(0)
+        img = _decode(fh)
+    if via is not None:
+        img = img.astype(via, copy=False)
+    if img.shape[:2] != plane.shape:
+        plane[...] = 0
+    plane[:img.shape[0], :img.shape[1]] = img
+    return False
+
+
+def _direct_strips(pages: list, shape: tuple, plane: np.ndarray,
+                   via) -> Optional[List[Tuple[int, int]]]:
+    """(offset, bytes) of each strip, in the plane's order, where
+    ``read_into`` reads the series straight into `plane`; else None."""
+    page = pages[0]
+    if (len(pages) != 1 or page is None or tuple(shape) != plane.shape
+            or not plane.flags.c_contiguous or page.axes != "YX"):
+        return None
+    page.check()
+    dtype = np.dtype(page.bo + page.dtype().char)
+    if (dtype != plane.dtype or (via is not None and np.dtype(via) != dtype)
+            or page._one(259, 1) != 1 or page._one(317, 1) != 1
+            or {322, 324} & set(page.tags)):
+        return None
+    offsets, counts = page.tags.get(273), page.tags.get(279)
+    rows = page.tags.get(278)
+    rows = rows[0] if rows is not None and len(rows) == 1 else page.length
+    if offsets is None or counts is None or rows <= 0:
+        return None
+    total = plane.nbytes
+    strip = rows * page.width * dtype.itemsize
+    want = [min(strip, total - at) for at in range(0, total, strip)]
+    if (len(offsets) != len(want) or list(counts) != want
+            or min(offsets) <= 0):
+        return None
+    return list(zip(offsets, want))
 
 
 def shape_dtype(path: str) -> Tuple[tuple, np.dtype]:

@@ -14,12 +14,16 @@ Each step is a span (``ark_tpu_torch.utils.profiling``): a
 ``generate_cell_table`` call is one ``quant.cell_table`` tree (attributes
 ``fovs``, ``nuclear_counts`` and, once a FOV's tree is read, ``channels``)
 with a ``quant.fov`` span a FOV (``fov``; ``resumed`` when its checkpoint
-part was loaded), whose children are ``quant.load`` (the channel tree and
-the masks, or the part), ``quant.match_nuclei`` (``segmentation_utils``), a
-``quant.reduce`` a compartment (``comp``; the uploads, both segment sums and
-their readback, with device events and the ``segment_sum`` and ``plan``
-launches it made), ``quant.convex`` (``comp``, ``cells``, ``device_cells``,
-``host_cells``), ``quant.concavities`` (``comp``, ``crops``),
+part was loaded), whose children are ``quant.load`` (the channel tree, read
+into the planes of one stack that crosses to `device` once and is
+interleaved channel-last there, and the masks; ``direct`` and ``decoded``
+count the channel files read straight into their planes and those decoded
+and copied; or the part), ``quant.match_nuclei`` (``segmentation_utils``),
+a ``quant.reduce`` a compartment (``comp``; the labels' upload, both
+segment sums and their readback, with device events and the
+``segment_sum`` and ``plan`` launches it made), ``quant.convex``
+(``comp``, ``cells``, ``device_cells``, ``host_cells``),
+``quant.concavities`` (``comp``, ``crops``),
 ``quant.assemble`` (the derived columns, the transforms and the DataFrames)
 and ``quant.checkpoint`` (``bytes`` of the part written). ``timings``,
 where a function takes it, is a dict that collects the spans' seconds:
@@ -326,7 +330,28 @@ def compute_marker_counts(input_images, segmentation_labels,
 
     input_images: (rows, cols, channels) DataArray; segmentation_labels:
     (rows, cols, compartments) DataArray. Returns a (compartments x cell_id x
-    features) DataArray in the reference's schema."""
+    features) DataArray in the reference's schema. The images are uploaded
+    (``_upload_images``) before the steps."""
+    return _marker_counts(
+        _upload_images(input_images.values, device),
+        list(input_images.coords["channels"]), segmentation_labels,
+        nuclear_counts=nuclear_counts, regionprops_base=regionprops_base,
+        regionprops_single_comp=regionprops_single_comp,
+        regionprops_multi_comp=regionprops_multi_comp,
+        split_large_nuclei=split_large_nuclei, extraction=extraction,
+        fast_extraction=fast_extraction, device=device, timings=timings, **kwargs)
+
+
+def _marker_counts(images, channel_names, segmentation_labels,
+                   nuclear_counts=False,
+                   regionprops_base=None, regionprops_single_comp=None,
+                   regionprops_multi_comp=None,
+                   split_large_nuclei=False,
+                   extraction="total_intensity",
+                   fast_extraction=False, *, device, timings=None,
+                   **kwargs) -> DataArray:
+    """``compute_marker_counts`` of the FOV's (rows, cols, channels) float32
+    `images` on `device`, whose channels are `channel_names`."""
     regionprops_base = copy.deepcopy(
         settings.REGIONPROPS_BASE) if regionprops_base is None \
         else copy.deepcopy(regionprops_base)
@@ -370,7 +395,6 @@ def compute_marker_counts(input_images, segmentation_labels,
     if len(unique_cell_ids) == 0:
         warnings.warn("No cells found in the provided image")
 
-    channel_names = list(input_images.coords["channels"])
     feature_names = ([settings.PRE_CHANNEL_COL] + channel_names
                      + regionprops_names)
     if nuclear_counts and regionprops_multi_comp:
@@ -390,7 +414,6 @@ def compute_marker_counts(input_images, segmentation_labels,
         return marker_counts
 
     with _reduce_span(timings, device, "whole_cell"):
-        images = _upload_images(input_images.values, device)
         reduced = _reductions(cell_labels, images, extraction, sig_kwargs, device)
     wc = _compartment_features(
         cell_labels, reduced, unique_cell_ids, single_names,
@@ -460,12 +483,27 @@ def create_marker_count_matrices(segmentation_labels, image_data,
         img_data_fovs=list(image_data.coords["fovs"]))
 
     fov = list(segmentation_labels.coords["fovs"])[0]
-    label = segmentation_labels.sel(fovs=fov)
-    marker_counts = compute_marker_counts(
-        image_data.sel(fovs=fov), label, nuclear_counts=nuclear_counts,
+    images = image_data.sel(fovs=fov)
+    return _count_tables(
+        segmentation_labels, _upload_images(images.values, device),
+        list(images.coords["channels"]), nuclear_counts=nuclear_counts,
         split_large_nuclei=split_large_nuclei, extraction=extraction,
         fast_extraction=fast_extraction, device=device, timings=timings,
         **kwargs)
+
+
+def _count_tables(segmentation_labels, images, channel_names,
+                  nuclear_counts=False, split_large_nuclei=False,
+                  extraction="total_intensity", fast_extraction=False, *,
+                  device, timings=None, **kwargs):
+    """``create_marker_count_matrices`` of one FOV's (rows, cols, channels)
+    float32 `images` on `device`, whose channels are `channel_names`."""
+    fov = list(segmentation_labels.coords["fovs"])[0]
+    marker_counts = _marker_counts(
+        images, channel_names, segmentation_labels.sel(fovs=fov),
+        nuclear_counts=nuclear_counts, split_large_nuclei=split_large_nuclei,
+        extraction=extraction, fast_extraction=fast_extraction, device=device,
+        timings=timings, **kwargs)
 
     with _phase(timings, "assembly_s", "quant.assemble"):
         normalized, arcsinh = _tables(marker_counts, fov, nuclear_counts)
@@ -578,9 +616,9 @@ def _fov_tables(fov_name, segmentation_dir, tiff_dir, img_sub_folder,
         if loaded is not None and len(loaded) == 3 and loaded[2] == ident:
             return loaded[0], loaded[1], None
 
-    with profiling.span("quant.load"):
-        image_data = load_utils.load_imgs_from_tree(
-            data_dir=tiff_dir, img_sub_folder=img_sub_folder, fovs=[fov_name])
+    with profiling.span("quant.load") as load:
+        images, channel_names, load.attrs["direct"], load.attrs["decoded"] = \
+            _fov_images(tiff_dir, fov_name, img_sub_folder, device)
         labels_of = [_mask_labels(segmentation_dir, fov_name, mask_type,
                                   add_underscore, nuclear_counts)
                      for mask_type in mask_types]
@@ -589,9 +627,8 @@ def _fov_tables(fov_name, segmentation_dir, tiff_dir, img_sub_folder,
     for mask_type, current_labels in labels_of:
         # the nuclear compartment exists only for the whole_cell mask type
         compartments = list(current_labels.coords["compartments"])
-        normalized, arcsinh = create_marker_count_matrices(
-            segmentation_labels=current_labels, image_data=image_data,
-            extraction=extraction,
+        normalized, arcsinh = _count_tables(
+            current_labels, images, channel_names, extraction=extraction,
             nuclear_counts=nuclear_counts and "nuclear" in compartments,
             fast_extraction=fast_extraction, device=device, **kwargs)
         with profiling.span("quant.assemble"):
@@ -609,7 +646,29 @@ def _fov_tables(fov_name, segmentation_dir, tiff_dir, img_sub_folder,
             pd.to_pickle((fov_norm_parts, fov_arcsinh_parts, ident), tmp)
             sp.attrs["bytes"] = os.path.getsize(tmp)
             os.replace(tmp, part_path)
-    return fov_norm_parts, fov_arcsinh_parts, int(image_data.shape[-1])
+    return fov_norm_parts, fov_arcsinh_parts, len(channel_names)
+
+
+def _fov_images(tiff_dir, fov_name, img_sub_folder, device):
+    """The FOV's channel tree as the (rows, cols, channels) float32 tensor
+    on `device` that its reductions read, bitwise ``_upload_images`` of
+    ``load_imgs_from_tree``'s array, with the channel names and the
+    loader's (direct, decoded) counts. Each file is read into its plane of
+    one channel-first float32 stack (``load_utils.load_fov_planes``),
+    pinned on CUDA (torch's caching host allocator keeps the block from
+    reuse until the copies out of it are done); the stack crosses in one
+    non-blocking copy and is interleaved channel-last on `device`."""
+    pin = torch.device(device).type == "cuda"
+    host = []
+
+    def empty(shape, _dtype):
+        host.append(torch.empty(shape, dtype=torch.float32, pin_memory=pin))
+        return host[-1].numpy()
+
+    _, channel_names, direct, decoded = load_utils.load_fov_planes(
+        tiff_dir, fov_name, img_sub_folder, empty=empty)
+    planes = host[0].to(device, non_blocking=True)
+    return planes.permute(1, 2, 0).contiguous(), channel_names, direct, decoded
 
 
 def _mask_labels(segmentation_dir, fov_name, mask_type, add_underscore,

@@ -42,7 +42,10 @@ package.
 The single-image labeling, area filter and hole filling are integer work
 and the bisection quantiles exact order statistics: bitwise the CPU port's.
 The profiler's trace holds CUDA kernel events, and the prefetch loader's
-copies on its own stream reach the consumer equal to the host arrays.
+copies on its own stream reach the consumer equal to the host arrays. The
+cell table's FOV upload (planes in pinned memory, one non-blocking copy,
+the channel-last interleave on the card) is bitwise the DataArray path's,
+and a pending copy keeps its host block from the next FOV.
 """
 
 import os
@@ -965,3 +968,55 @@ def test_prefetch_copies_on_its_own_stream_on_cuda(card):
     on_card = [torch.from_numpy(f).to(card) for f in fovs[:2]]
     got = [b for _, b in PrefetchLoader(range(2), lambda i: on_card[i], device=card)]
     assert all(torch.equal(g, w) for g, w in zip(got, on_card))
+
+
+@pytest.mark.cuda
+def test_cell_table_fov_upload_is_pinned_and_survives_the_next_fov_on_cuda(
+        card, tmp_path, monkeypatch):
+    """The cell table's FOV upload (``marker_quantification._fov_images``):
+    each channel file goes straight into its plane of a pinned stack, which
+    crosses in one non-blocking copy; the channel-last images on the card
+    equal ``_upload_images`` of ``load_imgs_from_tree``'s array bitwise. Two
+    FOVs in a row, the stream held busy ahead of the first copy so that it
+    is still pending while the second FOV is read into host memory: neither
+    FOV's values are overwritten."""
+    from ark_tpu_torch.io import load_utils, tiff
+    from ark_tpu_torch.segmentation import marker_quantification as mq
+
+    rng = np.random.default_rng(23)
+    fovs, n_channels = ["fov0", "fov1"], 8
+    for fov in fovs:
+        os.makedirs(tmp_path / fov)
+        for c in range(n_channels):
+            tiff.write(str(tmp_path / fov / f"ch{c}.tiff"),
+                       rng.poisson(3.0, (1024, 1024)).astype(np.float32))
+    stacks = []
+    real = load_utils.load_fov_planes
+
+    def keep(*args, **kwargs):
+        out = real(*args, **kwargs)
+        stacks.append(torch.from_numpy(out[0]).is_pinned())
+        return out
+
+    monkeypatch.setattr(load_utils, "load_fov_planes", keep)
+    # two cached pinned blocks and warm device blocks, so that no allocation
+    # below calls cudaHostAlloc or cudaMalloc (which may wait for the device)
+    spare = [torch.empty((n_channels, 1024, 1024), dtype=torch.float32, pin_memory=True)
+             for _ in range(2)]
+    del spare
+    warm = mq._fov_images(str(tmp_path), "fov1", None, card)
+    torch.cuda.synchronize()
+    del warm
+    torch.cuda._sleep(2_000_000_000)               # about a second at the card's clock
+    first = mq._fov_images(str(tmp_path), "fov0", None, card)
+    assert not torch.cuda.current_stream().query(), "the first copy did not wait"
+    second = mq._fov_images(str(tmp_path), "fov1", None, card)
+    torch.cuda.synchronize()
+    assert stacks == [True] * 3
+    for fov, (images, names, direct, decoded) in zip(fovs, (first, second)):
+        want = load_utils.load_imgs_from_tree(str(tmp_path), fovs=[fov])
+        ref = mq._upload_images(want.values[0], card)
+        assert images.shape == ref.shape and images.is_contiguous()
+        assert torch.equal(images.view(torch.int32), ref.view(torch.int32)), fov
+        assert names == list(want.coords["channels"])
+        assert (direct, decoded) == (n_channels, 0)

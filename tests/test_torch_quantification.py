@@ -222,6 +222,37 @@ def test_generate_cell_table_fast_and_extra_mask_types_match_jax(cohort):
         assert_tables_equal(g, w)
 
 
+@pytest.mark.parametrize("mask_types", [["whole_cell"], ["whole_cell", "custom"]])
+def test_cell_table_from_planes_equals_the_dataarray_entry(cohort, mask_types):
+    """``generate_cell_table`` reads a FOV's channels into planes, uploads
+    them once and interleaves them on the device for every mask type; its
+    tables equal ``create_marker_count_matrices`` on ``load_imgs_from_tree``'s
+    array, mask type by mask type, bit for bit."""
+    from ark_tpu_torch.io import load_utils as TL
+
+    dirs, _ = cohort
+    seg_dir = dirs["segmentation_dir"]
+    fovs = ["fov0", "fov1", "fov2"]
+    for fov in fovs:
+        save_image(os.path.join(seg_dir, f"{fov}_custom.tiff"),
+                   read_image(os.path.join(seg_dir, f"{fov}_nuclear.tiff")))
+    got = TQ.generate_cell_table(device="cpu", nuclear_counts=True,
+                                 mask_types=mask_types, **dirs)
+    want = ([], [])
+    for fov in fovs:
+        images = TL.load_imgs_from_tree(dirs["tiff_dir"], img_sub_folder=None, fovs=[fov])
+        for mask_type in mask_types:
+            _, labels = TQ._mask_labels(seg_dir, fov, mask_type, True, True)
+            tables = TQ.create_marker_count_matrices(
+                labels, images, device="cpu",
+                nuclear_counts="nuclear" in labels.coords["compartments"])
+            for side, table in zip(want, tables):
+                table["mask_type"] = mask_type
+                side.append(table)
+    for g, w in zip(got, want):
+        pd.testing.assert_frame_equal(g, pd.concat(w), check_exact=True)
+
+
 def test_checkpoint_resume_is_bitwise_equal_to_a_straight_run(cohort, monkeypatch):
     dirs, tmp = cohort
     parts = str(tmp / "parts")
@@ -233,13 +264,13 @@ def test_checkpoint_resume_is_bitwise_equal_to_a_straight_run(cohort, monkeypatc
     with open(os.path.join(parts, "fov1.quant.pkl"), "wb") as f:
         f.write(b"truncated")                      # a corrupted part
     calls = []
-    real = TQ.create_marker_count_matrices
+    real = TQ._count_tables                        # one call a FOV and mask type
 
     def counting(*a, **k):
         calls.append(1)
         return real(*a, **k)
 
-    monkeypatch.setattr(TQ, "create_marker_count_matrices", counting)
+    monkeypatch.setattr(TQ, "_count_tables", counting)
     resumed = TQ.generate_cell_table(device="cpu", nuclear_counts=True,
                                      checkpoint_dir=parts, **dirs)
     assert len(calls) == 1                         # only fov1 extracted again

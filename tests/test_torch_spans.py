@@ -10,7 +10,8 @@ milliseconds, and a `watershed.flood` whose `blocks` count the loops run
 (the minimax engine's two loops are its children, each with its count).
 Template 1's `generate_cell_table` on tests/test_torch_cell_table_reference.py's
 tree: one `quant.cell_table` root, a `quant.fov` a FOV with its steps as
-children, `create_marker_count_matrices`'s `timings` filled from its steps,
+children (its `quant.load` counting the channel files read straight into
+their planes), `create_marker_count_matrices`'s `timings` filled from its steps,
 and the benchmark's `table.*` readers reading the tree (None from a program
 without spans).
 """
@@ -248,6 +249,11 @@ def test_cell_table_is_one_tree_with_a_fov_span_a_fov(quant_run):
 
 def test_cell_table_step_attributes(quant_run):
     out, _, spans = quant_run
+    # the planted tree's channels are float32 pages of one native strip:
+    # every file goes straight into its plane
+    loads = [s for s in spans if s["name"] == "quant.load"]
+    assert [s["attrs"] for s in loads] == [
+        {"direct": len(cell_table.CHANNELS), "decoded": 0}] * len(cell_table.FOVS)
     reduces = [s for s in spans if s["name"] == "quant.reduce"]
     assert sorted(s["attrs"]["comp"] for s in reduces) == ["nuclear"] * 2 + ["whole_cell"] * 2
     # CPU tensors launch no kernel; the host's clock stands for the device's

@@ -10,10 +10,15 @@ multi-page PIL file, the vendored tifffile writer's big-endian, deflate
 (8 and 32946), predictor and tiled files, and its OME-TIFFs (planes mapped
 to pages by TiffData, or left to the generic series). Unsupported files
 raise a ValueError naming the tag; names other than .tif and .tiff are
-refused by ``save_image`` and by the tile stitcher.
+refused by ``save_image`` and by the tile stitcher. One FOV read into the
+planes of a channel-first stack (``load_utils.load_fov_planes`` over
+``tiff.read_into``) is ``load_imgs_from_tree``'s array transposed, bit for
+bit, for every layout above and for mixed dtypes.
 """
 
 import datetime
+import os
+import struct
 import warnings
 
 import numpy as np
@@ -360,3 +365,139 @@ def test_stitching_refuses_png_tiles_before_writing(tmp_path):
     with pytest.raises(ValueError, match="chan0.png: the port reads and writes TIFF only"):
         TDU.stitch_images_by_shape(str(tmp_path / "imgs"), str(tmp_path / "out"))
     assert not (tmp_path / "out").exists()
+
+
+# --- one FOV read into planes (load_utils.load_fov_planes over tiff.read_into)
+
+def _strip_file(path, arr, rows):
+    """An uncompressed little-endian page of `arr` in strips of `rows` rows,
+    the strips laid out in the file last to first."""
+    arr = np.ascontiguousarray(arr, "<" + arr.dtype.char)
+    h, w = arr.shape
+    strips = [arr[i:i + rows].tobytes() for i in range(0, h, rows)]
+    n = len(strips)
+    assert n > 1
+    tags = 10
+    arrays_at = 8 + 2 + 12 * tags + 4
+    at, offsets = arrays_at + 8 * n, [0] * n
+    for i in reversed(range(n)):
+        offsets[i] = at
+        at += len(strips[i])
+
+    def entry(code, typ, count, value):
+        return struct.pack("<HHI", code, typ, count) + struct.pack(
+            "<H2x" if typ == 3 else "<I", value)
+    ifd = struct.pack("<H", tags) + b"".join((
+        entry(256, 4, 1, w), entry(257, 4, 1, h), entry(258, 3, 1, 8 * arr.itemsize),
+        entry(259, 3, 1, 1), entry(262, 3, 1, 1), entry(273, 4, n, arrays_at),
+        entry(277, 3, 1, 1), entry(278, 4, 1, rows), entry(279, 4, n, arrays_at + 4 * n),
+        entry(339, 3, 1, {"u": 1, "i": 2, "f": 3}[arr.dtype.kind]))) + struct.pack("<I", 0)
+    with open(path, "wb") as f:
+        f.write(b"II*\0" + struct.pack("<I", 8) + ifd
+                + struct.pack(f"<{n}I", *offsets)
+                + struct.pack(f"<{n}I", *(len(s) for s in strips))
+                + b"".join(reversed(strips)))
+
+
+def _channel_file(path, writer, dtype, rng):
+    from imageio.plugins import _tifffile
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    arr = _image(rng, dtype, (30, 20) if writer == "small" else (37, 29))
+    if arr.dtype.kind == "f":
+        arr.flat[:2] = (np.nan, -0.0)
+    if writer in ("port", "small"):
+        tiff.write(path, arr)
+    elif writer == "big":
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with _tifffile.TiffWriter(path, byteorder=">") as w:
+                w.save(arr)
+    elif writer == "strips":
+        _strip_file(path, arr, rows=5)
+    else:
+        _pil(path, arr, {"lzw": "tiff_lzw", "deflate": "tiff_deflate",
+                         "predictor": "tiff_lzw"}[writer], writer == "predictor")
+
+
+# case: (a (writer, dtype) a channel, files read straight into the promoted
+# stack, into a float32 one); "port" is the port's writer (one native strip),
+# "small" the same at 30 x 20 in a 37 x 29 FOV (zero-padded), "strips" 8
+# native strips of 5 rows laid out last to first, "big" big-endian
+PLANAR_CASES = {
+    "float32": ([("port", "float32")] * 3, 3, 3),
+    "uint16": ([("port", "uint16")] * 3, 3, 0),
+    "int32": ([("port", "int32")] * 3, 3, 0),
+    "float64": ([("port", "float64")] * 3, 3, 0),
+    "uint8_uint16": ([("port", "uint8"), ("port", "uint16"), ("port", "uint8")], 1, 0),
+    "int64_uint64": ([("port", "int64"), ("port", "uint64"), ("port", "int64")], 0, 0),
+    "big_endian": ([("big", "float32")] * 3, 0, 0),
+    "lzw": ([("lzw", "float32")] * 3, 0, 0),
+    "deflate": ([("deflate", "float32")] * 3, 0, 0),
+    "multi_strip": ([("strips", "float32")] * 3, 3, 3),
+    "predictor_2": ([("predictor", "uint16")] * 3, 0, 0),
+    "ragged": ([("port", "float32"), ("small", "float32"), ("port", "float32")], 2, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(PLANAR_CASES))
+def test_fov_planes_are_the_tree_loader_transposed(tmp_path, case):
+    """``load_fov_planes`` returns ``load_imgs_from_tree``'s array of the
+    FOV transposed channel-first, bit for bit (NaN and -0.0 included; the
+    dtype in native byte order), and into a float32 stack whatever
+    ``np.asarray(..., np.float32)`` of that array holds, each value cast
+    through the promoted dtype (int64 with uint64 rounds twice, through
+    float64). It counts the files read straight into their planes."""
+    from ark_tpu_torch.io import load_utils as TL
+
+    specs, direct, direct_f32 = PLANAR_CASES[case]
+    rng = np.random.default_rng(len(case))
+    names = ["ch10", "ch2", "ch1"]
+    for name, (writer, dtype) in zip(names, specs):
+        _channel_file(str(tmp_path / "fov0" / f"{name}.tiff"), writer, dtype, rng)
+    data_dir = str(tmp_path)
+    for channels in (None, ["ch1", "ch2.tiff"]):
+        want = TL.load_imgs_from_tree(data_dir, fovs=["fov0"], channels=channels)
+        ref = want.values[0].transpose(2, 0, 1)
+        stack, got_names, n_direct, n_decoded = TL.load_fov_planes(
+            data_dir, "fov0", channels=channels)
+        assert got_names == list(want.coords["channels"])
+        assert stack.dtype == ref.dtype.newbyteorder("=") and stack.flags.c_contiguous
+        assert stack.tobytes() == np.ascontiguousarray(ref, stack.dtype).tobytes()
+        f32, _, f32_direct, f32_decoded = TL.load_fov_planes(
+            data_dir, "fov0", channels=channels,
+            empty=lambda shape, _: np.full(shape, np.nan, np.float32))
+        assert f32.tobytes() == np.ascontiguousarray(
+            np.asarray(want.values[0], np.float32).transpose(2, 0, 1)).tobytes()
+        if channels is None:
+            assert (n_direct, n_decoded) == (direct, 3 - direct)
+            assert (f32_direct, f32_decoded) == (direct_f32, 3 - direct_f32)
+        else:
+            assert n_direct + n_decoded == f32_direct + f32_decoded == 2
+    if case == "ragged":                      # a channel larger than the first fits neither
+        for load in (lambda: TL.load_imgs_from_tree(data_dir, fovs=["fov0"],
+                                                    channels=["ch2", "ch10"]),
+                     lambda: TL.load_fov_planes(data_dir, "fov0", channels=["ch2", "ch10"])):
+            with pytest.raises(ValueError, match="broadcast"):
+                load()
+
+
+def test_read_into_opens_one_read_span_a_file(tmp_path):
+    from ark_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(5)
+    for writer in ("port", "lzw"):
+        path = str(tmp_path / f"{writer}.tiff")
+        _channel_file(path, writer, "float32", rng)
+        plane = np.empty((37, 29), np.float32)
+        profiling.reset()
+        try:
+            with profiling.recording():
+                direct = tiff.read_into(path, plane)
+            (span,) = profiling.spans()
+        finally:
+            profiling.reset()
+        assert direct == (writer == "port")
+        assert span["name"] == "tiff.read"
+        assert span["attrs"] == {"bytes": os.path.getsize(path)}
+        assert plane.tobytes() == tiff.read(path).astype(np.float32).tobytes()
