@@ -3,7 +3,9 @@
 Port of ``ark_tpu/phenotyping/cell_cluster_utils.py``: SOM-column averages
 per cell cluster, the per-FOV (label x pixel-cluster) counts as one 2-D
 bincount, and the merge of the meta labels into the cell table. Host numpy
-and pandas, as in the JAX package.
+and pandas, as in the JAX package. ``create_c2pc_data`` runs in a
+``cells.c2pc`` span, its cell-table read in ``cells.read_table`` and each
+FOV's read and counts in ``cells.fov_counts``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import pandas as pd
 
 from ark_tpu_torch.io import feather_utils as feather
 from ark_tpu_torch.io import io_utils
+from ark_tpu_torch.utils import profiling
 from ark_tpu_torch.utils.misc_utils import verify_in_list
 
 
@@ -98,49 +101,62 @@ def create_c2pc_data(fovs, pixel_data_path, cell_table_path,
     verify_in_list(provided_cluster_col=[pixel_cluster_col],
                    valid_cluster_cols=["pixel_som_cluster",
                                        "pixel_meta_cluster_rename"])
-    cell_table = pd.read_csv(cell_table_path)
-    verify_in_list(required_cell_table_cols=["fov", "label", "cell_size"],
-                   provided_cell_table_cols=cell_table.columns.values)
-    cell_table = cell_table[["fov", "label", "cell_size"]]
-    cell_table["label"] = cell_table["label"].astype(int)
-    cell_table = cell_table[cell_table["fov"].isin(fovs)].reset_index(drop=True)
+    with profiling.span("cells.c2pc"):
+        with profiling.span("cells.read_table") as sp:
+            cell_table = pd.read_csv(cell_table_path)
+            if sp.recorded:
+                sp.attrs["bytes"] = os.path.getsize(cell_table_path)
+        verify_in_list(required_cell_table_cols=["fov", "label", "cell_size"],
+                       provided_cell_table_cols=cell_table.columns.values)
+        cell_table = cell_table[["fov", "label", "cell_size"]]
+        cell_table["label"] = cell_table["label"].astype(int)
+        cell_table = cell_table[cell_table["fov"].isin(fovs)].reset_index(drop=True)
 
-    def read_fov(fov):
-        fov_path = os.path.join(pixel_data_path, fov + ".feather")
-        present = feather.read_column_names(fov_path)
-        lbl_col = "segmentation_label" if "segmentation_label" in present \
-            else "label"
-        for c in (lbl_col, pixel_cluster_col):
-            if c not in present:
-                raise KeyError(
-                    f"FOV {fov} pixel data is missing column '{c}'")
-        fov_pixel_data = feather.read_dataframe(
-            fov_path, columns=[lbl_col, pixel_cluster_col])
-        return (fov, fov_pixel_data[lbl_col].values.astype(np.int64),
-                fov_pixel_data[pixel_cluster_col])
+        def read_fov(fov):
+            fov_path = os.path.join(pixel_data_path, fov + ".feather")
+            present = feather.read_column_names(fov_path)
+            lbl_col = "segmentation_label" if "segmentation_label" in present \
+                else "label"
+            for c in (lbl_col, pixel_cluster_col):
+                if c not in present:
+                    raise KeyError(
+                        f"FOV {fov} pixel data is missing column '{c}'")
+            fov_pixel_data = feather.read_dataframe(
+                fov_path, columns=[lbl_col, pixel_cluster_col])
+            return (fov, fov_pixel_data[lbl_col].values.astype(np.int64),
+                    fov_pixel_data[pixel_cluster_col])
 
-    count_table, count_cols = c2pc_counts_table(
-        (read_fov(fov) for fov in fovs), pixel_cluster_col)
+        def fov_labels():
+            # a FOV's counts are taken while its span is open: the consumer
+            # counts between this yield and the next
+            for fov in fovs:
+                with profiling.span("cells.fov_counts", fov=fov) as sp:
+                    got = read_fov(fov)
+                    if sp.recorded:
+                        sp.attrs["pixels"] = len(got[1])
+                    yield got
 
-    cell_table = cell_table.merge(count_table, on=["fov", "label"], how="left")
-    cell_table[count_cols] = cell_table[count_cols].fillna(0)
-    # drop cells with no pixel clusters expressed
-    cell_table = cell_table[cell_table[count_cols].sum(axis=1) != 0]
+        count_table, count_cols = c2pc_counts_table(fov_labels(), pixel_cluster_col)
 
-    cell_table_norm = cell_table.copy()
-    cell_table_norm[count_cols] = cell_table_norm[count_cols].div(
-        cell_table_norm["cell_size"], axis=0)
-    cell_table = cell_table.reset_index(drop=True)
-    cell_table_norm = cell_table_norm.reset_index(drop=True)
+        cell_table = cell_table.merge(count_table, on=["fov", "label"], how="left")
+        cell_table[count_cols] = cell_table[count_cols].fillna(0)
+        # drop cells with no pixel clusters expressed
+        cell_table = cell_table[cell_table[count_cols].sum(axis=1) != 0]
 
-    zero_cols = list(cell_table_norm[count_cols].columns[
-        (cell_table_norm[count_cols] == 0).all()].values)
-    if zero_cols:
-        warnings.warn("Pixel clusters %s do not appear in any cells, removed "
-                      "from analysis" % ",".join(zero_cols))
-        cell_table = cell_table.drop(columns=zero_cols)
-        cell_table_norm = cell_table_norm.drop(columns=zero_cols)
-    return cell_table, cell_table_norm
+        cell_table_norm = cell_table.copy()
+        cell_table_norm[count_cols] = cell_table_norm[count_cols].div(
+            cell_table_norm["cell_size"], axis=0)
+        cell_table = cell_table.reset_index(drop=True)
+        cell_table_norm = cell_table_norm.reset_index(drop=True)
+
+        zero_cols = list(cell_table_norm[count_cols].columns[
+            (cell_table_norm[count_cols] == 0).all()].values)
+        if zero_cols:
+            warnings.warn("Pixel clusters %s do not appear in any cells, removed "
+                          "from analysis" % ",".join(zero_cols))
+            cell_table = cell_table.drop(columns=zero_cols)
+            cell_table_norm = cell_table_norm.drop(columns=zero_cols)
+        return cell_table, cell_table_norm
 
 
 def add_consensus_labels_cell_table(base_dir, cell_table_path,

@@ -2,7 +2,8 @@
 
 Port of ``ark_tpu/phenotyping/cell_meta_clustering.py``: host pandas and the
 port's ``PixieConsensusCluster`` (Ward over scipy), fully in memory (cell tables are
-small).
+small). The consensus runs in a ``cells.consensus`` span, the meta averages in
+``cells.meta_avg``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import pandas as pd
 
 from ark_tpu_torch.io import io_utils
 from ark_tpu_torch.phenotyping import cell_cluster_utils, cluster_helpers
+from ark_tpu_torch.utils import profiling
 from ark_tpu_torch.utils.misc_utils import verify_in_list
 
 
@@ -24,27 +26,28 @@ def cell_consensus_cluster(base_dir, cell_som_cluster_cols,
     Returns (PixieConsensusCluster, labeled input data)."""
     som_expr_col_avg_path = os.path.join(base_dir, cell_som_expr_col_avg_name)
     io_utils.validate_paths([som_expr_col_avg_path])
-    cluster_count_sub = pd.read_csv(som_expr_col_avg_path, nrows=1)
-    verify_in_list(provided_cluster_cols=cell_som_cluster_cols,
-                   som_cluster_counts_cols=cluster_count_sub.columns.values)
-    cell_cc = cluster_helpers.PixieConsensusCluster(
-        "cell", som_expr_col_avg_path, cell_som_cluster_cols, max_k=max_k,
-        cap=cap)
-    if "cell_meta_cluster" in cell_som_input_data:
-        if not overwrite:
-            print("Meta clusters already assigned to each cell")
-            return cell_cc, cell_som_input_data
-        print("Overwrite flag set, reassigning meta cluster labels")
-        cell_som_input_data = cell_som_input_data.drop(
-            columns="cell_meta_cluster")
-    print("z-score scaling and capping data")
-    cell_cc.scale_data()
-    np.random.seed(seed)
-    print("Running consensus clustering")
-    cell_cc.run_consensus_clustering()
-    print("Mapping cell data to consensus cluster labels")
-    cell_cc.generate_som_to_meta_map()
-    cell_meta_assign = cell_cc.assign_consensus_labels(cell_som_input_data)
+    with profiling.span("cells.consensus"):
+        cluster_count_sub = pd.read_csv(som_expr_col_avg_path, nrows=1)
+        verify_in_list(provided_cluster_cols=cell_som_cluster_cols,
+                       som_cluster_counts_cols=cluster_count_sub.columns.values)
+        cell_cc = cluster_helpers.PixieConsensusCluster(
+            "cell", som_expr_col_avg_path, cell_som_cluster_cols, max_k=max_k,
+            cap=cap)
+        if "cell_meta_cluster" in cell_som_input_data:
+            if not overwrite:
+                print("Meta clusters already assigned to each cell")
+                return cell_cc, cell_som_input_data
+            print("Overwrite flag set, reassigning meta cluster labels")
+            cell_som_input_data = cell_som_input_data.drop(
+                columns="cell_meta_cluster")
+        print("z-score scaling and capping data")
+        cell_cc.scale_data()
+        np.random.seed(seed)
+        print("Running consensus clustering")
+        cell_cc.run_consensus_clustering()
+        print("Mapping cell data to consensus cluster labels")
+        cell_cc.generate_som_to_meta_map()
+        cell_meta_assign = cell_cc.assign_consensus_labels(cell_som_input_data)
     return cell_cc, cell_meta_assign
 
 
@@ -67,19 +70,21 @@ def generate_meta_avg_files(base_dir, cell_cc, cell_som_cluster_cols,
               "cell meta clusters")
     print("Computing the average value of each training column specified per "
           "cell meta cluster")
-    meta_avgs = cell_cluster_utils.compute_cell_som_cluster_cols_avg(
-        cell_som_input_data, cell_som_cluster_cols, "cell_meta_cluster",
-        keep_count=True)
-    meta_avgs.to_csv(meta_expr_col_avg_path, index=False)
+    with profiling.span("cells.meta_avg"):
+        meta_avgs = cell_cluster_utils.compute_cell_som_cluster_cols_avg(
+            cell_som_input_data, cell_som_cluster_cols, "cell_meta_cluster",
+            keep_count=True)
+        meta_avgs.to_csv(meta_expr_col_avg_path, index=False)
 
-    print("Mapping meta cluster values onto average expression values across "
-          "cell SOM clusters")
-    som_avgs = pd.read_csv(som_expr_col_avg_path)
-    som_avgs["cell_som_cluster"] = som_avgs["cell_som_cluster"].astype(int)
-    if "cell_meta_cluster" in som_avgs.columns.values:
-        som_avgs = som_avgs.drop(columns="cell_meta_cluster")
-    som_avgs = som_avgs.merge(cell_cc.mapping, on="cell_som_cluster", how="left")
-    som_avgs.to_csv(som_expr_col_avg_path, index=False)
+        print("Mapping meta cluster values onto average expression values "
+              "across cell SOM clusters")
+        som_avgs = pd.read_csv(som_expr_col_avg_path)
+        som_avgs["cell_som_cluster"] = som_avgs["cell_som_cluster"].astype(int)
+        if "cell_meta_cluster" in som_avgs.columns.values:
+            som_avgs = som_avgs.drop(columns="cell_meta_cluster")
+        som_avgs = som_avgs.merge(cell_cc.mapping, on="cell_som_cluster",
+                                  how="left")
+        som_avgs.to_csv(som_expr_col_avg_path, index=False)
 
 
 def apply_cell_meta_cluster_remapping(base_dir, cell_som_input_data,

@@ -2,7 +2,8 @@
 
 Port of ``ark_tpu/phenotyping/cell_som_clustering.py``. The SOM trains and
 maps on `device` through ``cluster_helpers.CellSOMCluster``; on a CUDA
-device the assignment runs the BMU kernel.
+device the assignment runs the BMU kernel. The SOM averages run in a
+``cells.som_avg`` span.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import os
 
 from ark_tpu_torch.io import io_utils
 from ark_tpu_torch.phenotyping import cell_cluster_utils, cluster_helpers
+from ark_tpu_torch.utils import profiling
 from ark_tpu_torch.utils.misc_utils import verify_in_list
 
 
@@ -79,7 +81,8 @@ def generate_som_avg_files(base_dir, cell_som_input_data,
               "cell SOM clusters")
     print("Computing the average value of each training column specified per "
           "cell SOM cluster")
-    avgs = cell_cluster_utils.compute_cell_som_cluster_cols_avg(
-        cell_som_input_data, cell_som_cluster_cols, "cell_som_cluster",
-        keep_count=True)
-    avgs.to_csv(som_expr_col_avg_path, index=False)
+    with profiling.span("cells.som_avg"):
+        avgs = cell_cluster_utils.compute_cell_som_cluster_cols_avg(
+            cell_som_input_data, cell_som_cluster_cols, "cell_som_cluster",
+            keep_count=True)
+        avgs.to_csv(som_expr_col_avg_path, index=False)

@@ -10,7 +10,9 @@ and ``PixieConsensusCluster`` (z-score/cap and the SOM->meta mapping,
 1-indexed). The SOM trains and maps on the object's
 ``device`` through ``ark_tpu_torch.ops.som``; on a CUDA device the mapping
 runs the hand-written BMU kernel. Files go through the port's own
-``ark_tpu_torch.io``.
+``ark_tpu_torch.io``. ``CellSOMCluster``'s steps run in spans of their own
+(``cells.normalize``; ``cells.som_train`` and ``cells.som_assign`` with the
+device's events); the pixel SOM's do not.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from scipy.stats import zscore
 from ark_tpu_torch.io import feather_utils as feather
 from ark_tpu_torch.io.io_utils import list_files, validate_paths
 from ark_tpu_torch.ops import som as som_ops
+from ark_tpu_torch.utils import profiling
 from ark_tpu_torch.utils.misc_utils import verify_in_list
 
 
@@ -193,9 +196,10 @@ class CellSOMCluster(PixieSOMCluster):
             self.normalize_data()
 
     def normalize_data(self):
-        sub = self.cell_data[self.columns].copy()
-        norm_vals = sub.replace(0, np.nan).quantile(q=0.999, axis=0)
-        self.cell_data[self.columns] = sub.div(norm_vals)
+        with profiling.span("cells.normalize"):
+            sub = self.cell_data[self.columns].copy()
+            norm_vals = sub.replace(0, np.nan).quantile(q=0.999, axis=0)
+            self.cell_data[self.columns] = sub.div(norm_vals)
 
     def train_som(self, overwrite=False):
         if overwrite:
@@ -205,11 +209,19 @@ class CellSOMCluster(PixieSOMCluster):
                 warnings.warn("Cell SOM already trained on specified columns")
                 return
             warnings.warn("New columns specified, retraining")
-        super().train_som(self.cell_data[self.columns])
+        rows = len(self.cell_data)
+        with profiling.span("cells.som_train", device=self.device, rows=rows,
+                            batch=som_ops._schedule_batch(self.num_passes * rows, None),
+                            steps=som_ops.MAX_TRAIN_STEPS):
+            super().train_som(self.cell_data[self.columns])
 
     def assign_som_clusters(self, num_parallel_cells=1_000_000) -> pd.DataFrame:
-        labels = super().generate_som_clusters(
-            self.cell_data[self.columns], num_parallel_obs=num_parallel_cells)
+        with profiling.span("cells.som_assign", device=self.device) as sp:
+            launches = som_ops.bmu.launches
+            labels = super().generate_som_clusters(
+                self.cell_data[self.columns], num_parallel_obs=num_parallel_cells)
+            if sp.recorded:
+                sp.attrs["bmu"] = som_ops.bmu.launches - launches
         self.cell_data["cell_som_cluster"] = labels
         return self.cell_data
 

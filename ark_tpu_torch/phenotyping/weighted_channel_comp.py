@@ -4,7 +4,9 @@ channel averages).
 Port of ``ark_tpu/phenotyping/weighted_channel_comp.py``. The one product
 over the whole cohort is a ``torch.matmul`` on `device` in full f32 (the
 JAX package leaves it to XLA, outside any Pallas kernel); it refuses to run
-with TF32 matmuls enabled. The rest is host pandas.
+with TF32 matmuls enabled. The rest is host pandas. The product runs in a
+``cells.weighted`` span with the device's events, the channel averages in
+``cells.wc_avg``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from ark_tpu_torch.analysis import visualize
 from ark_tpu_torch.io import feather_utils as feather
 from ark_tpu_torch.io import io_utils
 from ark_tpu_torch.ops.som import _check_full_f32_matmul
+from ark_tpu_torch.utils import profiling
 from ark_tpu_torch.utils.misc_utils import verify_in_list, verify_same_elements
 
 
@@ -29,50 +32,53 @@ def compute_p2c_weighted_channel_avg(pixel_channel_avg, channels, cell_counts,
     """Per-cell marker expression = sum_k count(cell, pixel-cluster k) x
     avg_expr(k, channel), divided by the cell size: one (cells x K) . (K x C)
     f32 matmul on `device`."""
-    if "segmentation_label" in cell_counts.columns:
-        cell_counts = cell_counts.rename(
-            columns={"segmentation_label": "label"})
-    if fovs is None:
-        fovs = list(cell_counts["fov"].unique())
-    else:
-        verify_in_list(provided_fovs=fovs,
-                       dataset_fovs=cell_counts["fov"].unique())
-    verify_in_list(provided_cluster_col=pixel_cluster_col,
-                   valid_cluster_cols=["pixel_som_cluster",
-                                       "pixel_meta_cluster_rename"])
-    cell_counts_sub = cell_counts[cell_counts["fov"].isin(fovs)].copy()
-    cluster_cols = [c for c in cell_counts_sub.columns.values
-                    if f"{pixel_cluster_col}" in c]
-    cell_counts_clusters = cell_counts_sub[cluster_cols].copy()
-    cell_counts_clusters = cell_counts_clusters.reindex(
-        sorted(cell_counts_clusters.columns.values), axis=1)
+    with profiling.span("cells.weighted", device=device):
+        if "segmentation_label" in cell_counts.columns:
+            cell_counts = cell_counts.rename(
+                columns={"segmentation_label": "label"})
+        if fovs is None:
+            fovs = list(cell_counts["fov"].unique())
+        else:
+            verify_in_list(provided_fovs=fovs,
+                           dataset_fovs=cell_counts["fov"].unique())
+        verify_in_list(provided_cluster_col=pixel_cluster_col,
+                       valid_cluster_cols=["pixel_som_cluster",
+                                           "pixel_meta_cluster_rename"])
+        cell_counts_sub = cell_counts[cell_counts["fov"].isin(fovs)].copy()
+        cluster_cols = [c for c in cell_counts_sub.columns.values
+                        if f"{pixel_cluster_col}" in c]
+        cell_counts_clusters = cell_counts_sub[cluster_cols].copy()
+        cell_counts_clusters = cell_counts_clusters.reindex(
+            sorted(cell_counts_clusters.columns.values), axis=1)
 
-    pixel_channel_avg = pixel_channel_avg.copy()
-    if pd.api.types.is_integer_dtype(pixel_channel_avg[pixel_cluster_col]):
-        pixel_channel_avg[pixel_cluster_col] = \
-            pixel_channel_avg[pixel_cluster_col].astype(str)
-    avg_sorted = pixel_channel_avg.sort_values(by=pixel_cluster_col)
+        pixel_channel_avg = pixel_channel_avg.copy()
+        if pd.api.types.is_integer_dtype(pixel_channel_avg[pixel_cluster_col]):
+            pixel_channel_avg[pixel_cluster_col] = \
+                pixel_channel_avg[pixel_cluster_col].astype(str)
+        avg_sorted = pixel_channel_avg.sort_values(by=pixel_cluster_col)
 
-    cell_cluster_ids = [c.replace(pixel_cluster_col + "_", "")
-                        for c in cell_counts_clusters.columns.values]
-    avg_sorted = avg_sorted[avg_sorted[pixel_cluster_col].isin(cell_cluster_ids)]
-    verify_same_elements(
-        enforce_order=True,
-        cell_counts_cluster_ids=cell_cluster_ids,
-        pixel_channel_cluster_ids=list(avg_sorted[pixel_cluster_col].values))
-    verify_in_list(provided_channels=channels,
-                   pixel_channel_avg_cols=avg_sorted.columns.values)
+        cell_cluster_ids = [c.replace(pixel_cluster_col + "_", "")
+                            for c in cell_counts_clusters.columns.values]
+        avg_sorted = avg_sorted[avg_sorted[pixel_cluster_col].isin(cell_cluster_ids)]
+        verify_same_elements(
+            enforce_order=True,
+            cell_counts_cluster_ids=cell_cluster_ids,
+            pixel_channel_cluster_ids=list(avg_sorted[pixel_cluster_col].values))
+        verify_in_list(provided_channels=channels,
+                       pixel_channel_avg_cols=avg_sorted.columns.values)
 
-    _check_full_f32_matmul()
-    weighted = torch.matmul(
-        torch.as_tensor(cell_counts_clusters.values.astype(np.float32), device=device),
-        torch.as_tensor(avg_sorted[channels].values.astype(np.float32), device=device)
-    ).cpu().numpy()
-    out = pd.DataFrame(weighted, columns=channels)
-    meta_cols = ["cell_size", "fov", "label"]
-    out[meta_cols] = cell_counts_sub.reset_index(drop=True)[meta_cols]
-    out[channels] = out[channels].div(out["cell_size"], axis=0)
-    return out
+        _check_full_f32_matmul()
+        weighted = torch.matmul(
+            torch.as_tensor(cell_counts_clusters.values.astype(np.float32),
+                            device=device),
+            torch.as_tensor(avg_sorted[channels].values.astype(np.float32),
+                            device=device)
+        ).cpu().numpy()
+        out = pd.DataFrame(weighted, columns=channels)
+        meta_cols = ["cell_size", "fov", "label"]
+        out[meta_cols] = cell_counts_sub.reset_index(drop=True)[meta_cols]
+        out[channels] = out[channels].div(out["cell_size"], axis=0)
+        return out
 
 
 def compute_cell_cluster_weighted_channel_avg(fovs, channels, base_dir,
@@ -121,20 +127,23 @@ def generate_wc_avg_files(fovs, channels, base_dir, cell_cc,
         print("Overwrite flag set, regenerating average weighted channel "
               "expression files")
 
-    print("Compute average weighted channel expression across cell SOM clusters")
-    som_avg = compute_cell_cluster_weighted_channel_avg(
-        fovs, channels, base_dir, weighted_cell_channel_name,
-        cell_som_input_data, "cell_som_cluster")
-    print("Mapping meta cluster values onto average weighted channel "
-          "expression across cell SOM clusters")
-    som_avg = som_avg.merge(cell_cc.mapping, on="cell_som_cluster", how="left")
-    som_avg.to_csv(som_avg_path, index=False)
+    with profiling.span("cells.wc_avg"):
+        print("Compute average weighted channel expression across cell SOM "
+              "clusters")
+        som_avg = compute_cell_cluster_weighted_channel_avg(
+            fovs, channels, base_dir, weighted_cell_channel_name,
+            cell_som_input_data, "cell_som_cluster")
+        print("Mapping meta cluster values onto average weighted channel "
+              "expression across cell SOM clusters")
+        som_avg = som_avg.merge(cell_cc.mapping, on="cell_som_cluster", how="left")
+        som_avg.to_csv(som_avg_path, index=False)
 
-    print("Compute average weighted channel expression across cell meta clusters")
-    meta_avg = compute_cell_cluster_weighted_channel_avg(
-        fovs, channels, base_dir, weighted_cell_channel_name,
-        cell_som_input_data, "cell_meta_cluster")
-    meta_avg.to_csv(meta_avg_path, index=False)
+        print("Compute average weighted channel expression across cell meta "
+              "clusters")
+        meta_avg = compute_cell_cluster_weighted_channel_avg(
+            fovs, channels, base_dir, weighted_cell_channel_name,
+            cell_som_input_data, "cell_meta_cluster")
+        meta_avg.to_csv(meta_avg_path, index=False)
 
 
 def generate_remap_avg_wc_files(fovs, channels, base_dir, cell_som_input_data,

@@ -13,7 +13,11 @@ tree: one `quant.cell_table` root, a `quant.fov` a FOV with its steps as
 children (its `quant.load` counting the channel files read straight into
 their planes), `create_marker_count_matrices`'s `timings` filled from its steps,
 and the benchmark's `table.*` readers reading the tree (None from a program
-without spans).
+without spans). Template 3's `run_cell_clustering` on
+tests/test_torch_cell_som_reference.py's cohort: one `cells.run` root with
+a `cells.fov_counts` a FOV under `cells.c2pc`, the SOM steps' attributes,
+and the benchmark's `cells.*` readers; the pixel run records no `cells.*`
+span.
 """
 
 import os
@@ -27,6 +31,7 @@ from ark_tpu_torch.phenotyping import pixie_fused
 from ark_tpu_torch.segmentation import mesmer as TM
 from ark_tpu_torch.segmentation import synthetic as TS
 from ark_tpu_torch.utils import profiling
+from tests import test_torch_cell_som_reference as cell_som
 from tests import test_torch_cell_table_reference as cell_table
 from tests.phenotyping.test_pixie_fused import CHANNELS, FOVS, MAX_K, _build_cohort
 
@@ -94,6 +99,15 @@ def test_pixie_timings_are_the_phase_spans(pixie_run):
         assert mine, name
         assert abs(timings[key] - sum(mine)) <= 0.0005 * len(mine) + 1e-9, key
     assert len([s for s in spans if s["name"] == "assign.flush"]) == len(FOVS)
+
+
+def test_pixie_run_records_only_its_own_spans(pixie_run):
+    """The pixel SOM shares its base class with the cell SOM, whose spans
+    live in the cell subclass only."""
+    _, _, spans = pixie_run
+    names = {s["name"] for s in spans}
+    assert names == {"pixie.run", "pixie.load_fov", "tiff.read", "feather.write",
+                     *PIXIE_PHASES, *ASSIGN_PARTS}
 
 
 def test_pixie_loads_each_fov_once_under_its_span(pixie_run):
@@ -303,6 +317,111 @@ def test_cell_table_readers_read_the_tree(quant_run, monkeypatch):
             "table.reduce_ms_per_fov": 1e3 * total("quant.reduce") / 2,
             "table.convex_s_per_fov": total("quant.convex", "quant.concavities") / 2,
             "table.assemble_s_per_fov": total("quant.assemble") / 2}
+    for name, value in want.items():
+        assert harness.read_metric(name, rec) == pytest.approx(value) and value > 0
+    monkeypatch.delattr(profiling, "spans")                      # a program without spans
+    for name in want:
+        assert harness.read_metric(name, rec) is None
+
+
+CELLS_STEPS = ("cells.c2pc", "cells.normalize", "cells.som_train", "cells.som_assign",
+               "cells.som_avg", "cells.consensus", "cells.meta_avg", "cells.weighted",
+               "cells.wc_avg")
+
+
+@pytest.fixture(scope="module")
+def cells_run(tmp_path_factory):
+    driver = cell_som.small_cohort(tmp_path_factory.mktemp("cells_spans"))
+    base = os.path.join(driver.workdir, "job")
+    _, spans = _recorded(lambda: driver.job(base))
+    return driver, base, spans
+
+
+def test_cell_clustering_is_one_tree_with_a_count_span_a_fov(cells_run):
+    driver, base, spans = cells_run
+    (root,) = [s for s in spans if s["parent"] is None]
+    assert root["name"] == "cells.run"
+    cells = cell_som.reference.read_job(base).cells
+    assert root["attrs"] == {"fovs": len(driver.fovs), "cells": len(cells), "columns": 8}
+    assert {s["root"] for s in spans} == {root["id"]}
+    by_id = {s["id"]: s for s in spans}
+    steps = {n: [s for s in spans if s["name"] == n] for n in CELLS_STEPS}
+    assert all(len(v) == 1 for v in steps.values()), {n: len(v) for n, v in steps.items()}
+    # every step but the normalization, which the SOM's constructor runs,
+    # is a child of the root
+    assert all(v[0]["parent"] == root["id"] for n, v in steps.items()
+               if n != "cells.normalize")
+    assert by_id[steps["cells.normalize"][0]["parent"]]["name"] == "cells.run"
+    (c2pc,) = steps["cells.c2pc"]
+    (read,) = [s for s in spans if s["name"] == "cells.read_table"]
+    assert read["parent"] == c2pc["id"]
+    assert read["attrs"] == {"bytes": os.path.getsize(driver.cell_table)}
+    counts = [s for s in spans if s["name"] == "cells.fov_counts"]
+    assert [s["attrs"]["fov"] for s in counts] == driver.fovs
+    assert all(s["parent"] == c2pc["id"] for s in counts)
+    for s in counts:
+        path = os.path.join(driver.pixel_dir, s["attrs"]["fov"] + ".feather")
+        assert s["attrs"]["pixels"] == len(cell_som.reference._feather(path, ["label"]))
+    # the runner's three feathers and the SOM weights go through feather.write
+    writes = [os.path.basename(s["attrs"]["path"]) for s in spans
+              if s["name"] == "feather.write"]
+    assert sorted(writes) == sorted(["cluster_counts.feather", "cell_som_weights.feather",
+                                     "weighted_cell_channel.feather",
+                                     "cluster_counts_size_norm.feather"])
+
+
+def test_cell_som_step_attributes(cells_run):
+    from ark_tpu_torch.ops import som
+
+    _, _, spans = cells_run
+    (train,) = [s for s in spans if s["name"] == "cells.som_train"]
+    (root,) = [s for s in spans if s["parent"] is None]
+    rows = root["attrs"]["cells"]
+    assert train["attrs"] == {"rows": rows, "batch": som._schedule_batch(rows, None),
+                              "steps": 256}
+    (assign,) = [s for s in spans if s["name"] == "cells.som_assign"]
+    # CPU tensors take the plain BMU: no kernel launch
+    assert assign["attrs"] == {"bmu": 0}
+    for s in (train, assign, *[s for s in spans if s["name"] == "cells.weighted"]):
+        assert s["device_ms"] == pytest.approx(_seconds(s) * 1e3)
+
+
+def test_cell_som_assign_counts_its_bmu_launches(cells_run, monkeypatch):
+    from ark_tpu_torch.ops import som
+    from ark_tpu_torch.phenotyping import cluster_helpers
+
+    real = som.som_map
+
+    def launching(weights, data, return_dist=True, *, device):
+        som.bmu.launches += 1
+        return real(weights, data, return_dist, device=device)
+    monkeypatch.setattr(som, "som_map", launching)
+    driver, base, _ = cells_run
+    cells = cell_som.reference.read_job(base).cells
+    cols = [c for c in cells.columns if c.startswith("pixel_meta_cluster_rename_")]
+    pysom = cluster_helpers.CellSOMCluster(
+        cells, os.path.join(base, "cell_som_weights.feather"), driver.fovs, cols,
+        normalize=False, device="cpu")
+    _, spans = _recorded(pysom.assign_som_clusters)
+    (assign,) = [s for s in spans if s["name"] == "cells.som_assign"]
+    assert assign["attrs"] == {"bmu": 1}
+
+
+def test_cell_clustering_readers_read_the_tree(cells_run, monkeypatch):
+    from portbench import run as harness
+
+    driver, _, spans = cells_run
+    monkeypatch.setattr(profiling, "spans", lambda: [dict(s) for s in spans])
+    n = len(driver.fovs)
+    rec = {"attempted": 1, "fovs": n}
+
+    def total(*names):
+        return sum(_seconds(s) for s in spans if s["name"] in names)
+    want = {"cells.counts_s_per_fov": total("cells.c2pc") / n,
+            "cells.som_ms_per_job": 1e3 * total("cells.som_train", "cells.som_assign"),
+            "cells.tables_s_per_fov": total("cells.normalize", "cells.som_avg",
+                                            "cells.consensus", "cells.meta_avg",
+                                            "cells.weighted", "cells.wc_avg") / n}
     for name, value in want.items():
         assert harness.read_metric(name, rec) == pytest.approx(value) and value > 0
     monkeypatch.delattr(profiling, "spans")                      # a program without spans
