@@ -209,10 +209,8 @@ class CellSOMCluster(PixieSOMCluster):
                 warnings.warn("Cell SOM already trained on specified columns")
                 return
             warnings.warn("New columns specified, retraining")
-        rows = len(self.cell_data)
-        with profiling.span("cells.som_train", device=self.device, rows=rows,
-                            batch=som_ops._schedule_batch(self.num_passes * rows, None),
-                            steps=som_ops.MAX_TRAIN_STEPS):
+        with profiling.span("cells.som_train", device=self.device,
+                            rows=len(self.cell_data)):
             super().train_som(self.cell_data[self.columns])
 
     def assign_som_clusters(self, num_parallel_cells=1_000_000) -> pd.DataFrame:

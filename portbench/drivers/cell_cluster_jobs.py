@@ -30,8 +30,11 @@ Set-up draws the cohort on the device and writes it as template 3 finds it:
   count, ``fov`` and ``mask_type`` as template 1 writes them; the rest
   seeded by kind: a nucleus of ~75 pixels for all but ``NO_NUCLEUS`` of the
   cells (its columns 0 without one), whole-number ids, hull areas and
-  concavity counts, float region properties, and each channel a
-  size-normalized count in ``EXPRESSED`` of the cells, 0 in the rest. It
+  concavity counts, float region properties, and each channel the count
+  the cell-table cell's own cohort gives (``inputs.mibi_cohort``'s
+  per-pixel Poisson rates: a coarse gamma grid a FOV and channel, here
+  summed over each mask, so a cell's count is a Poisson draw of that sum)
+  over the cell's size, its nuclear copy the same rate over the nucleus. It
   is written with pyarrow's CSV writer (pandas' ``to_csv`` takes tens of
   seconds at this size), which prints integral values without a decimal
   point.
@@ -41,7 +44,9 @@ every shape the window meets). Each job runs in a fresh <job> directory
 that links the cohort's pixel_mat_data and the pixel averages, and writes
 template 3's tables beside them. A job started while the window is open
 counts whole. One job of the window, drawn from the seed, keeps its files
-for the check; every other job's directory is deleted when it ends.
+for the check; every other job's directory is deleted when it ends. After
+a traced window one more job runs with the program's spans recorded and
+no profiler, for the SOM's milliseconds (``traced_extras``).
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ import time
 import numpy as np
 import torch
 
-from portbench import inputs
+from portbench import inputs, spans
 from portbench.reference import cell_som as reference
 
 # the program's functions whose spans name the device's idle gaps (none of
@@ -73,10 +78,13 @@ MORPH = ("eccentricity", "major_axis_length", "minor_axis_length", "perimeter",
          "equivalent_diameter", "centroid-0", "centroid-1", "major_minor_axis_ratio",
          "perim_square_over_area", "major_axis_equiv_diam_ratio", "convex_hull_resid",
          "centroid_dif", "nc_ratio")
-# the share of the panel a cell expresses (MIBI's counts are sparse: most
-# markers read 0 in most cells), and of the cells without a nucleus (as the
-# cell-table cell draws them)
-EXPRESSED, NO_NUCLEUS = 0.4, 0.05
+# the cell table's columns drawn by kind rather than as channels
+NOT_CHANNELS = frozenset(("fov", "mask_type", "label", "cell_size", "area", "convex_area",
+                          "num_concavities") + MORPH)
+# the share of the cells without a nucleus (as the cell-table cell draws them)
+NO_NUCLEUS = 0.05
+# the SOM's spans, which `cells.som_ms_per_job` reads
+SOM_SPANS = ("cells.som_train", "cells.som_assign")
 
 
 def cohort_draws(seed: int, traffic: dict, n_channels: int) -> dict:
@@ -91,6 +99,23 @@ def cohort_draws(seed: int, traffic: dict, n_channels: int) -> dict:
     return {"som_to_meta": som_to_meta[rng.permutation(n_som)],
             "meta_probs": rng.dirichlet(np.full(n_meta, 0.3), traffic["phenotypes"] + 1),
             "profiles": rng.dirichlet(np.full(n_channels, 0.5), n_meta)}
+
+
+def mask_rates(rng: np.random.Generator, mask: np.ndarray, labels: np.ndarray,
+               n_channels: int) -> np.ndarray:
+    """The sums over each of `labels`' masks of the per-pixel Poisson rates
+    that ``inputs.mibi_cohort`` draws for a FOV of the cell-table cell (a
+    channel's rate is one gamma draw a block of ``size // 32`` pixels
+    square): (len(labels), n_channels) float64."""
+    size = mask.shape[0]
+    cell = max(size // 32, 1)
+    nb = size // cell
+    coarse = rng.gamma(0.6, 4.0, size=(nb * nb, n_channels))
+    r, c = np.indices(mask.shape)
+    block = ((r // cell) * nb + c // cell).ravel()
+    hist = np.bincount(mask.ravel().astype(np.int64) * (nb * nb) + block,
+                       minlength=(int(mask.max()) + 1) * nb * nb).reshape(-1, nb * nb)
+    return hist[labels].astype(np.float64) @ coarse
 
 
 def fov_pixels(gen: torch.Generator, mask: np.ndarray, draws: dict, traffic: dict,
@@ -232,18 +257,25 @@ class Driver:
         """The cell-table CSV's arrow table (module docstring)."""
         import pyarrow as pa
 
-        rng = inputs.host_rng(self.seed, 23)
+        rng, field = inputs.host_rng(self.seed, 23), inputs.host_rng(self.seed, 24)
+        panel = [c for c in self.cfg["cell_table_columns"]
+                 if c not in NOT_CHANNELS and not c.endswith("_nuclear")]
         order = sorted(range(len(self.fovs)), key=lambda i: self.fovs[i])
-        labels, sizes, fovs = [], [], []
+        labels, sizes, fovs, rates = [], [], [], []
         for i in order:
             ids, n = np.unique(masks[i], return_counts=True)
             labels.append(ids[ids > 0])
             sizes.append(n[ids > 0])
             fovs += [self.fovs[i]] * int((ids > 0).sum())
+            rates.append(mask_rates(field, masks[i], labels[-1], len(panel)))
         label, size = np.concatenate(labels), np.concatenate(sizes).astype(np.float64)
         n = len(label)
         nucleus = rng.random(n) >= NO_NUCLEUS
         sizes = {"": size, "_nuclear": np.where(nucleus, rng.poisson(75.0, n) + 1, 0.0)}
+        # each channel's summed rate over the whole cell, and over its nucleus
+        # at the cell's mean rate
+        rates = np.concatenate(rates)
+        rates = {"": rates, "_nuclear": rates / size[:, None] * sizes["_nuclear"][:, None]}
         cols = {}
         for name in self.cfg["cell_table_columns"]:
             comp = "_nuclear" if name.endswith("_nuclear") else ""
@@ -264,9 +296,9 @@ class Driver:
                 values = np.where(size_c > 0, rng.poisson(0.2, n), 0).astype(np.float64)
             elif base in MORPH:
                 values = np.where(size_c > 0, rng.gamma(2.0, 1.0, n), 0.0)
-            else:                       # a channel: expressed by a share of the cells
-                expressed = (rng.random(n) < EXPRESSED) & (size_c > 0)
-                values = np.where(expressed, rng.poisson(8.0, n) / np.maximum(size_c, 1), 0.0)
+            else:                       # a channel: its Poisson count over the size
+                counts = rng.poisson(rates[comp][:, panel.index(base)])
+                values = np.where(size_c > 0, counts / np.maximum(size_c, 1), 0.0)
             cols[name] = pa.array(values)
         return pa.table(cols)
 
@@ -344,7 +376,24 @@ class Driver:
         return {"fovs_per_s": n_fovs / (t_end - t0) if n_fovs else None}
 
     def traced_extras(self):
-        pass
+        """One job with the program's spans recorded and no profiler (whose
+        cost on the SOM training's ~2,600 eager launches is about as large as
+        their own): its SOM milliseconds. The job runs under a span of the
+        harness, so its `cells.run` is no root and the window's readers do
+        not count it. A program without spans records nothing."""
+        try:
+            from ark_tpu_torch.utils import profiling
+            recording, span = profiling.recording, profiling.span
+        except (ImportError, AttributeError):
+            return
+        base = os.path.join(self.workdir, "untraced")
+        with recording(), span("portbench.untraced_job") as outer:
+            self.job(base)
+        shutil.rmtree(base)
+        som = [s for s in profiling.spans()
+               if s["root"] == outer.id and s["name"] in SOM_SPANS]
+        if som:
+            self.records["som_ms_untraced"] = 1e3 * sum(spans.seconds(s) for s in som)
 
     def release(self):
         pass

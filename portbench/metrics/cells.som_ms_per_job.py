@@ -1,15 +1,9 @@
-"""Host milliseconds a job in the cell SOM's training and assignment
+"""Host milliseconds of the cell SOM's training and assignment in one job
 (device ops): the `cells.som_train` and `cells.som_assign` spans of
-`CellSOMCluster`, summed over the window's jobs, over the jobs (`cells.run`
-roots)."""
-
-from portbench import spans
+`CellSOMCluster` in the job the driver runs after the traced window with
+the spans recorded and no profiler (the profiler's cost on the training's
+eager launches about doubles them inside the window)."""
 
 
 def read(rec):
-    jobs = spans.named(rec, "cells.run", "cells.run")
-    steps = (spans.named(rec, "cells.run", "cells.som_train")
-             + spans.named(rec, "cells.run", "cells.som_assign"))
-    if not steps or not jobs:
-        return None
-    return 1e3 * sum(spans.seconds(s) for s in steps) / len(jobs)
+    return rec.get("som_ms_untraced")

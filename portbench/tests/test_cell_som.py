@@ -180,3 +180,36 @@ def test_pixels_as_the_traffic_says(driver):
     assert np.array_equal(px["pixel_meta_cluster_rename"].to_numpy(), meta)
     flat = px["row_index"].to_numpy() * driver.cfg["fov_size"] + px["column_index"].to_numpy()
     assert np.all(np.diff(flat) > 0)
+
+
+def test_cell_table_channels_are_the_cohorts_counts(driver):
+    """Each channel is a Poisson count over the cell's size, its rate the sum
+    over the mask of the cell-table cell's per-pixel rates: dense, as a
+    ~350-px cell of that cohort gives it."""
+    import pandas as pd
+
+    masks = inputs.whole_cell_masks(SEED, 1, driver.cfg["fov_size"],
+                                    driver.traffic["cells_per_fov"],
+                                    driver.traffic["cell_radius"], "cpu")
+    mask = masks[0]
+    labels = np.unique(mask[mask > 0])
+    got = cell_cluster_jobs.mask_rates(inputs.host_rng(5, 0), mask, labels, 3)
+    # the field as `inputs.mibi_cohort` lays it out, summed pixel by pixel
+    size = mask.shape[0]
+    cell = max(size // 32, 1)
+    coarse = inputs.host_rng(5, 0).gamma(0.6, 4.0, size=(size // cell, size // cell, 3))
+    field = coarse.repeat(cell, 0).repeat(cell, 1)
+    want = np.zeros((int(mask.max()) + 1, 3))
+    np.add.at(want, mask.ravel(), field.reshape(-1, 3))
+    np.testing.assert_allclose(got, want[labels], rtol=1e-12)
+
+    table = pd.read_csv(driver.cell_table)
+    with open(os.path.join(ROOT, "portbench", "configs", "quant_1024x40.json")) as f:
+        panel = json.load(f)["channels"]
+    whole = table[panel].to_numpy() * table["cell_size"].to_numpy()[:, None]
+    np.testing.assert_allclose(whole, np.round(whole), atol=1e-9)
+    assert (whole > 0).mean() > 0.9
+    nuc = table["cell_size_nuclear"].to_numpy()
+    counts = table[[f"{c}_nuclear" for c in panel]].to_numpy() * nuc[:, None]
+    np.testing.assert_allclose(counts, np.round(counts), atol=1e-9)
+    assert np.all(counts[nuc == 0] == 0) and (counts[nuc > 0] > 0).mean() > 0.8

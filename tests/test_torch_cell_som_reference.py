@@ -131,6 +131,20 @@ def test_the_judge_fails_a_planted_fault(job, fault):
     assert reference.judge(got, job["ref"])[check] > LIMITS[check]
 
 
+def test_float32_tables_fail_their_limits(job):
+    """The program's job with its normalized cells and count averages in
+    float32 (the configuration keeps them in float64) fails `norm_gap` and
+    `avg_gap` and nothing else (the CPU's products take no TF32, so the
+    weighted product is the program's here)."""
+    from portbench import control_cell_som
+
+    low = control_cell_som.lowered_tables(job["got"], job["driver"].reference(tf32=True))
+    checks = reference.judge(low, job["ref"])
+    assert checks["norm_gap"] > LIMITS["norm_gap"] and checks["avg_gap"] > LIMITS["avg_gap"]
+    assert all(checks[k] <= LIMITS[k] for k in LIMITS if k not in ("norm_gap", "avg_gap")), \
+        checks
+
+
 def test_a_cells_counts_are_its_pixels(job):
     """The job's counts are the pixels of each (cell, cluster) pair: one
     cell recounted from its FOV's feather."""

@@ -371,14 +371,10 @@ def test_cell_clustering_is_one_tree_with_a_count_span_a_fov(cells_run):
 
 
 def test_cell_som_step_attributes(cells_run):
-    from ark_tpu_torch.ops import som
-
     _, _, spans = cells_run
     (train,) = [s for s in spans if s["name"] == "cells.som_train"]
     (root,) = [s for s in spans if s["parent"] is None]
-    rows = root["attrs"]["cells"]
-    assert train["attrs"] == {"rows": rows, "batch": som._schedule_batch(rows, None),
-                              "steps": 256}
+    assert train["attrs"] == {"rows": root["attrs"]["cells"]}
     (assign,) = [s for s in spans if s["name"] == "cells.som_assign"]
     # CPU tensors take the plain BMU: no kernel launch
     assert assign["attrs"] == {"bmu": 0}
@@ -418,12 +414,36 @@ def test_cell_clustering_readers_read_the_tree(cells_run, monkeypatch):
     def total(*names):
         return sum(_seconds(s) for s in spans if s["name"] in names)
     want = {"cells.counts_s_per_fov": total("cells.c2pc") / n,
-            "cells.som_ms_per_job": 1e3 * total("cells.som_train", "cells.som_assign"),
             "cells.tables_s_per_fov": total("cells.normalize", "cells.som_avg",
                                             "cells.consensus", "cells.meta_avg",
                                             "cells.weighted", "cells.wc_avg") / n}
     for name, value in want.items():
         assert harness.read_metric(name, rec) == pytest.approx(value) and value > 0
+    # the SOM's milliseconds come from the job after the window, not the tree
+    assert harness.read_metric("cells.som_ms_per_job", rec) is None
     monkeypatch.delattr(profiling, "spans")                      # a program without spans
     for name in want:
         assert harness.read_metric(name, rec) is None
+
+
+def test_cell_som_ms_is_read_from_an_unprofiled_job_after_the_window(cells_run):
+    from portbench import run as harness
+
+    driver, _, _ = cells_run
+    profiling.reset()
+    try:
+        driver.traced_extras()
+        held = profiling.spans()
+    finally:
+        profiling.reset()
+    (outer,) = [s for s in held if s["name"] == "portbench.untraced_job"]
+    # the job hangs under the harness's span: no `cells.run` root for the
+    # window's readers to count
+    assert outer["parent"] is None and {s["root"] for s in held} == {outer["id"]}
+    assert not [s for s in held if s["parent"] is None and s["name"] == "cells.run"]
+    som = sum(_seconds(s) for s in held if s["name"] in ("cells.som_train", "cells.som_assign"))
+    assert som > 0
+    assert driver.records["som_ms_untraced"] == pytest.approx(1e3 * som)
+    assert harness.read_metric("cells.som_ms_per_job", driver.records) \
+        == driver.records["som_ms_untraced"]
+    assert not os.path.exists(os.path.join(driver.workdir, "untraced"))
